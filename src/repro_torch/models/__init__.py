@@ -1,0 +1,3 @@
+from repro_torch.models.cnn import (  # noqa: F401
+    build_cnn, params_from_reference, params_to_reference, reference_leaves,
+)

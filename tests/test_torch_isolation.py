@@ -1,0 +1,46 @@
+"""The port stands alone: no module under ``src/repro_torch/``, and not
+``chip_smoke.py``, imports ``jax`` or the reference package ``repro``
+(the GPU machine has no JAX; the port keeps its own copies)."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", None)) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_has_modules_to_check():
+    assert len(FILES) > 10
+    assert ROOT / "src" / "repro_torch" / "kernels" / "ops.py" in FILES
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_module_imports_neither_jax_nor_the_reference(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_dynamic_imports_are_seen(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import importlib\n"
+                     "importlib.import_module('repro.core')\n"
+                     "from jax import numpy\n")
+    assert {"repro", "jax"} <= set(_imported_roots(probe))
