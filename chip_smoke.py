@@ -19,6 +19,18 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    held against the same step through the twins, a reduced model's logits
    against the same model on the CPU, and the other four strategies and
    ResNet-18 take a few steps each.
+4. robust kernels: the four robust-aggregation kernels against their
+   plain versions at W = 4 stacks of the full-width MobileNet and
+   ResNet-18 gradients and at W = 3..16 over a ragged D, with tie and
+   constant columns and a 1e30 row; then each is timed against its plain
+   version and a library call at the MobileNet stack.
+5. byzantine: ``repro_torch.launch.byzantine_train.run`` on full-width
+   MobileNet, 4 ranks on the one card over gloo, global batch 96 (4
+   microbatches of 6 a rank), rank 0 under a -8x attack.  The trimmed mean
+   must train (30 steps) where plain all-reduce diverges (15 steps); the
+   other robust inners and attacks take 4 steps each; a same-seed replay
+   must repeat its losses; each kernel's launches are counted per rank;
+   a profiler window covers rank 0's steps.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -38,6 +50,11 @@ SRC = ROOT / "src"
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12     # fp32 outside the tensor cores
 BLOCK = 256
+ROBUST_SRC = "src/repro_torch/kernels/csrc/robust_agg.cu"
+BYZ_RANKS = 4
+# the reference's lr 0.1 does not train full-width MobileNet under the
+# attack (the loss peaks above 25); the paper's 0.01 does (PERF.md)
+BYZ_LR = 0.01
 
 
 def log(msg):
@@ -395,6 +412,341 @@ def cuda_vs_cpu():
         f"{err:.3e} (tol 1e-4)")
 
 
+def flat_sizes():
+    """D of the full-width MobileNet and ResNet-18 gradients."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_cnn, reference_leaves
+    return {arch: sum(p.numel() for p in reference_leaves(
+        build_cnn(get_config(arch), device="cpu")))
+        for arch in ("mobilenet-cifar", "resnet18-cifar")}
+
+
+def robust_stack(W, D, dev, gen, edges):
+    """A seeded (W, D) fp32 stack of mixed-scale rows; ``edges`` adds
+    constant columns, ties, rounded columns and a stretch of one row
+    scaled by 1e30."""
+    import torch
+    x = torch.randn((W, D), generator=gen, device=dev) \
+        * torch.rand((W, 1), generator=gen, device=dev).mul(99).add(1)
+    if edges:
+        x[:, :7] = 2.5
+        x[1, 7:40] = x[2, 7:40]
+        x[:, 40:60] = x[:, 40:60].round()
+        x[0, 60:90] *= 1e30
+    return x
+
+
+def robust_parity(sizes, dev):
+    """Each robust-aggregation kernel against its plain version: the
+    trimmed mean (every legal trim) and the median bit-exact; Krum within
+    1e-5 of ||xi||^2 + ||xj||^2 (fp32 sums in other orders, TF32 off),
+    its diagonal 0 and a second call the same bits; the Weiszfeld step
+    within 1e-5 of the largest value, a second call the same bits.
+    Returns the largest absolute errors."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import robust_agg as ra
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = [(4, sizes["mobilenet-cifar"]), (4, sizes["resnet18-cifar"])]
+    cases += [(W, 100_003) for W in (3, 5, 7, 8, 12, 16)]
+    err = dict.fromkeys(ra.LAUNCHES, 0.0)
+    for W, D in cases:
+        x = robust_stack(W, D, dev, gen, edges=True)
+        for trim in range(1, (W - 1) // 2 + 1):
+            got = ra.trimmed_mean(x, trim)
+            check(torch.equal(got, ref.trimmed_mean(x, trim))
+                  and bool(torch.isfinite(got).all()),
+                  f"trimmed_mean differs from its plain version at W={W} "
+                  f"D={D} trim={trim}")
+        check(torch.equal(ra.coordinate_median(x),
+                          ref.coordinate_median(x)),
+              f"coordinate_median differs at W={W} D={D}")
+        del x
+        y = robust_stack(W, D, dev, gen, edges=False)  # squares stay finite
+        got, again = ra.krum_pairwise(y), ra.krum_pairwise(y)
+        want = ref.krum_pairwise(y)
+        n = torch.sum(y.double() ** 2, dim=1)
+        diff = (got.double() - want.double()).abs()
+        check(bool((diff <= 1e-5 * (n[:, None] + n[None, :])).all())
+              and torch.equal(got, again)
+              and bool((torch.diagonal(got) == 0).all()),
+              f"krum_pairwise at W={W} D={D}: max diff {float(diff.max())}")
+        err["krum_pairwise"] = max(err["krum_pairwise"], float(diff.max()))
+        z = ref.coordinate_median(y)
+        floor = 1e-12 * float(torch.linalg.vector_norm(y, dim=1).max())
+        got = ra.weiszfeld_step(y, z, floor)
+        again = ra.weiszfeld_step(y, z, floor)
+        want = ref.weiszfeld_step(y, z, floor)
+        diff = float((got - want).abs().max())
+        check(diff <= 1e-5 * float(want.abs().max())
+              and torch.equal(got, again),
+              f"weiszfeld_step at W={W} D={D}: max diff {diff:.3e}")
+        err["weiszfeld_step"] = max(err["weiszfeld_step"], diff)
+        del y
+    torch.cuda.synchronize()
+    log(f"[robust] parity on {len(cases)} stacks (W=4 at D="
+        f"{sizes['mobilenet-cifar']:,} and {sizes['resnet18-cifar']:,}; "
+        f"W=3,5,7,8,12,16 at D=100,003; ties, constant columns, a 1e30 "
+        f"row): trimmed_mean (every trim) and coordinate_median bit-exact;"
+        f" krum_pairwise max abs err {err['krum_pairwise']:.3e} (tol 1e-5 "
+        f"of ni+nj), weiszfeld_step max abs err "
+        f"{err['weiszfeld_step']:.3e} (tol 1e-5 of the largest value); "
+        "second calls bit-identical")
+    return err
+
+
+def robust_times(sizes, dev):
+    """Each kernel, its plain version and, where one PyTorch call
+    computes the same function, that call, at the W = 4 stack of the
+    full-width MobileNet gradient (51.5 MB fp32), with CUDA events; the
+    kernel's wrapper also replayed as a CUDA graph, its device time
+    without the host's per-call work.  Bounds count each input read once
+    and each output written once."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import robust_agg as ra
+    W, D = 4, sizes["mobilenet-cifar"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = robust_stack(W, D, dev, gen, edges=False)
+    z = ref.coordinate_median(x)
+    floor = 1e-12 * float(torch.linalg.vector_norm(x, dim=1).max())
+    stack = 4 * W * D
+    work = {   # (bytes, fp32 operations)
+        "trimmed_mean": (stack + 4 * D, 4 * W * D),
+        # 6 compare-exchanges of the 4-row network, then the mean of two
+        "coordinate_median": (stack + 4 * D, 14 * D),
+        "krum_pairwise": (stack + 4 * W * W, W * (W + 1) * D),
+        "weiszfeld_step": (2 * stack + 8 * D, 5 * W * D),
+    }
+    fns = {
+        "trimmed_mean": (lambda: ra.trimmed_mean(x, 1),
+                         lambda: ref.trimmed_mean(x, 1), None),
+        "coordinate_median": (
+            lambda: ra.coordinate_median(x),
+            lambda: ref.coordinate_median(x),
+            ("torch.quantile(x, 0.5, dim=0)",
+             lambda: torch.quantile(x, 0.5, dim=0))),
+        "krum_pairwise": (lambda: ra.krum_pairwise(x),
+                          lambda: ref.krum_pairwise(x),
+                          ("torch.cdist(x, x) ** 2",
+                           lambda: torch.cdist(x, x) ** 2)),
+        "weiszfeld_step": (lambda: ra.weiszfeld_step(x, z, floor),
+                           lambda: ref.weiszfeld_step(x, z, floor), None),
+    }
+    out = {}
+    for name, (kernel, plain, library) in fns.items():
+        nbytes, ops = work[name]
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FP32_FLOP_PER_S
+        out[name] = dict(
+            ms=time_ms(kernel, reps=20), plain_ms=time_ms(plain, reps=20),
+            graph_ms=graphed_ms(kernel),
+            library_ms=time_ms(library[1], reps=20) if library else None,
+            library=library[0] if library else None,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes, shapes=f"(4, {D}) fp32 stack",
+            resnet18_bound_ms=max(t_bytes, t_ops) * 1e3
+            * sizes["resnet18-cifar"] / D)
+        r = out[name]
+        lib = "none" if library is None else \
+            f"{r['library_ms']:.4f} ms ({library[0]})"
+        log(f"[robust] {name}: kernel {r['ms']:.4f} ms (replayed as a "
+            f"CUDA graph {r['graph_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} "
+            f"MB; ResNet-18 stack {r['resnet18_bound_ms']:.4f} ms)")
+    return out
+
+
+# (label, byzantine_train.run arguments, expected launches a rank per step)
+BYZ_PLANS = [
+    ("trimmed_mean", dict(inner="trimmed_mean", steps=30),
+     {"trimmed_mean": 1}),
+    ("allreduce", dict(inner="allreduce", steps=15), {}),
+    ("coordinate_median", dict(inner="coordinate_median", steps=4),
+     {"coordinate_median": 1}),
+    ("krum", dict(inner="krum", steps=4), {"krum_pairwise": 1}),
+    ("geometric_median", dict(inner="geometric_median", steps=4),
+     {"coordinate_median": 1}),     # + 2 Weiszfeld launches an iteration
+] + [(f"trimmed_mean/{a}", dict(inner="trimmed_mean", attack=a, steps=4),
+      {"trimmed_mean": 1})
+     for a in ("sign_flip", "gaussian_noise", "little_is_enough", "zero")] \
+  + [(f"replay/{i}", dict(inner="trimmed_mean", steps=5),
+      {"trimmed_mean": 1}) for i in (0, 1)]
+
+
+def byz_rank(rank, init, out_dir):
+    """One of the byzantine phase's ranks: every plan through the entry
+    point, launch counts set to 0 just before each run and read just
+    after; the replays with deterministic cuDNN; then the profile."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import robust_agg as ra
+    from repro_torch.launch import byzantine_train
+    from repro_torch.launch.train import _rank_device, backend_for
+    from repro_torch.serverless import recovery
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _rank_device("cuda", rank)
+    dist.init_process_group(backend_for(dev, BYZ_RANKS), init_method=init,
+                            rank=rank, world_size=BYZ_RANKS)
+    results = []
+    for label, kw, _ in BYZ_PLANS:
+        torch.backends.cudnn.deterministic = label.startswith("replay")
+        for k in ra.LAUNCHES:
+            ra.LAUNCHES[k] = 0
+        recovery.ITERATIONS["geometric_median"] = 0
+        r = byzantine_train.run(
+            arch="mobilenet-cifar", reduced=False, batch=96, lr=BYZ_LR,
+            device="cuda", rank=rank, world_size=BYZ_RANKS,
+            log=log if rank == 0 and label == "trimmed_mean" else None, **kw)
+        r.update(label=label, launches=dict(ra.LAUNCHES),
+                 iterations=recovery.ITERATIONS["geometric_median"],
+                 backend=dist.get_backend())
+        results.append(r)
+    torch.backends.cudnn.deterministic = False
+    prof = byz_profile(rank)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(
+        {"runs": results, "profile": prof}))
+    dist.destroy_process_group()
+
+
+def byz_profile(rank, steps=3):
+    """``torch.profiler`` over a few trimmed-mean byzantine steps of
+    rank 0 (full-width MobileNet, 24 images a rank in 4 microbatches,
+    after warm-up); the other ranks step alongside.  Only rank 0's own
+    kernels are traced, though all four ranks share the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import build_train_step, get_strategy
+    from repro_torch.data import cifar_like
+    from repro_torch.models import build_cnn
+
+    imgs, labels = cifar_like(96, seed=9)
+    sl = slice(rank * 24, (rank + 1) * 24)
+    batch = {"images": torch.from_numpy(imgs[sl]).cuda(),
+             "labels": torch.from_numpy(labels[sl]).cuda()}
+    strat = get_strategy("byzantine", inner=get_strategy(
+        "trimmed_mean", microbatches=4), workers=(0,), scale=-8.0,
+        n_workers=BYZ_RANKS)
+    ts = build_train_step(build_cnn(get_config("mobilenet-cifar"),
+                                    device="cuda"),
+                          optim.sgd(BYZ_LR, momentum=0.9), strat)
+    state = ts.init_state()
+    for _ in range(2):
+        ts.step_fn(state, batch)
+    torch.cuda.synchronize()
+    if rank != 0:
+        for _ in range(steps):
+            ts.step_fn(state, batch)
+        torch.cuda.synchronize()
+        return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ts.step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    robust = [e for e in kernels if "trimmed_mean1_kernel" in e.key]
+    gathers = [e for e in events if e.device_type == DeviceType.CPU
+               and "all_gather" in e.key.lower()]
+    return {
+        "wall_ms": wall_ms, "busy_ms": busy_ms,
+        "kernels_per_step": sum(e.count for e in kernels) / steps,
+        "top": [(e.key[:90], e.self_device_time_total / 1e3 / steps,
+                 e.count / steps) for e in sorted(
+                     kernels, key=lambda e: -e.self_device_time_total)[:8]],
+        "trimmed_mean_us_per_launch": sum(
+            e.self_device_time_total for e in robust) / max(
+                sum(e.count for e in robust), 1),
+        "trimmed_mean_launches_per_step": sum(
+            e.count for e in robust) / steps,
+        "all_gather": [(e.key[:60], e.cpu_time_total / 1e3 / steps)
+                       for e in gathers],
+    }
+
+
+def byzantine_phase():
+    """Four ranks on the one card through ``byzantine_train.run``;
+    returns rank 0's runs by label."""
+    import torch
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_byz_")
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(
+        byz_rank, args=("file://" + os.path.join(out_dir, "pg"), out_dir),
+        nprocs=BYZ_RANKS)
+    ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+             for r in range(BYZ_RANKS)]
+    runs = {r["label"]: r for r in ranks[0]["runs"]}
+    log(f"[byzantine] {BYZ_RANKS} ranks on one card, backend "
+        f"{runs['trimmed_mean']['backend']}; collectives staged through "
+        f"host memory by the port: none (gloo takes the CUDA tensors); "
+        f"{time.perf_counter() - t0:.1f} s for every plan")
+    for rank, res in enumerate(ranks):
+        for i, (label, kw, per_step) in enumerate(BYZ_PLANS):
+            r = res["runs"][i]
+            want = {k: n * kw["steps"] for k, n in per_step.items()}
+            if label == "geometric_median":
+                check(r["iterations"] >= kw["steps"], f"rank {rank}: "
+                      f"{r['iterations']} Weiszfeld iterations")
+                want["weiszfeld_step"] = 2 * r["iterations"]
+            got = {k: n for k, n in r["launches"].items() if n}
+            check(got == want, f"rank {rank} {label}: launches {got}, "
+                  f"expected {want}")
+            check(all(map(math.isfinite, r["losses"])),
+                  f"rank {rank} {label}: loss not finite {r['losses']}")
+            check(r["losses"] == ranks[0]["runs"][i]["losses"],
+                  f"rank {rank} {label}: losses differ from rank 0's")
+    robust, plain = runs["trimmed_mean"], runs["allreduce"]
+    check(robust["max_loss"] < 4.0 and robust["tail_loss"]
+          < robust["head_loss"], f"trimmed mean under attack: max "
+          f"{robust['max_loss']:.4f}, head {robust['head_loss']:.4f}, tail "
+          f"{robust['tail_loss']:.4f}")
+    check(plain["final_loss"] > 10 * robust["final_loss"],
+          f"allreduce under attack ended at {plain['final_loss']:.4f}, "
+          f"not 10x the trimmed mean's {robust['final_loss']:.4f}")
+    check(runs["replay/0"]["losses"] == runs["replay/1"]["losses"],
+          f"same-seed replay differs: {runs['replay/0']['losses']} vs "
+          f"{runs['replay/1']['losses']}")
+    for label, r in runs.items():
+        log(f"[byzantine] {label}: losses "
+            f"{[round(l, 4) for l in r['losses']]}; acc {r['acc']:.4f}; "
+            f"{r['ms_per_step']:.3f} ms/step after the first "
+            f"({r['first_step_ms']:.1f} ms); launches a rank "
+            f"{ {k: n for k, n in r['launches'].items() if n} }"
+            + (f"; {r['iterations']} Weiszfeld iterations"
+               if label == "geometric_median" else ""))
+    log(f"[byzantine] trimmed mean trains under the -8x attack: max loss "
+        f"{robust['max_loss']:.4f} < 4, tail {robust['tail_loss']:.4f} < "
+        f"head {robust['head_loss']:.4f}; allreduce final "
+        f"{plain['final_loss']:.4f} > 10 x {robust['final_loss']:.4f}; "
+        f"replay of 5 steps identical")
+    p = ranks[0]["profile"]
+    if p["busy_ms"] == 0:
+        log("[profile] the profiler recorded no device time: not measured")
+    else:
+        log(f"[profile] trimmed-mean byzantine step, rank 0 of 4 sharing "
+            f"the card: {p['wall_ms']:.3f} ms/step on the host clock, rank "
+            f"0's device busy {p['busy_ms']:.3f} ms/step, idle share "
+            f"{1 - p['busy_ms'] / p['wall_ms']:.3f}, "
+            f"{p['kernels_per_step']:.0f} kernels/step")
+        for key, ms, n in p["top"]:
+            log(f"[profile]   {ms:8.3f} ms/step {n:6.0f}/step  {key}")
+        log(f"[profile]   trimmed_mean1_kernel: "
+            f"{p['trimmed_mean_us_per_launch']:.2f} us a launch, "
+            f"{p['trimmed_mean_launches_per_step']:.0f} a step")
+        for key, ms in p["all_gather"]:
+            log(f"[profile]   host time in {key}: {ms:.3f} ms/step")
+    return runs
+
+
 def main():
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the repository: src/repro_torch is "
@@ -416,6 +768,11 @@ def main():
     init = "file://" + os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"),
                                     "pg")
     launches = train_phase(init)
+    sizes = flat_sizes()
+    robust_err = robust_parity(sizes, dev)
+    robust_t = robust_times(sizes, dev)
+    torch.cuda.empty_cache()
+    runs = byzantine_phase()
     src = "src/repro_torch/kernels/csrc/block_significance.cu"
     line = {"kernels": [
         {"name": "block_norms", "route": "cuda", "source": src,
@@ -432,6 +789,18 @@ def main():
          "shapes": "one MLLess step: 83 views (n_i, 256) fp32, 12582 rows",
          "library": None},
     ]}
+    for name, line_no, run in (("trimmed_mean", 192, "trimmed_mean"),
+                               ("coordinate_median", 213,
+                                "coordinate_median"),
+                               ("krum_pairwise", 241, "krum"),
+                               ("weiszfeld_step", 285, "geometric_median")):
+        line["kernels"].append(
+            {"name": name, "route": "cuda", "source": ROBUST_SRC,
+             "replaces": f"src/repro/kernels/robust_agg.py:{line_no}",
+             "launches": runs[run]["launches"][name],
+             "launches_run": f"rank 0 of {BYZ_RANKS}, byzantine {run}, "
+                             f"{len(runs[run]['losses'])} steps",
+             "max_abs_err": robust_err[name], **robust_t[name]})
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,12 @@ collective per leaf, in fewer launches.
 
 ``comm_bytes`` is carried over verbatim: the serverless simulator and
 the cost model bill with it.
+
+Several ranks on one card run over gloo (NCCL refuses two ranks on the
+same GPU).  Gloo takes CUDA tensors for every collective used here
+(``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``;
+checked on an H100 with torch 2.11), so none is staged through host
+memory by hand.
 """
 from __future__ import annotations
 
@@ -207,8 +213,23 @@ STRATEGIES = {
 }
 
 
+ROBUST = ("trimmed_mean", "coordinate_median", "krum", "geometric_median")
+
+
 def get_strategy(name: str, **kw) -> Strategy:
+    if name in ROBUST:
+        # byzantine-robust aggregation (lazy: serverless imports core)
+        from repro_torch.serverless import recovery
+        return {"trimmed_mean": recovery.TrimmedMean,
+                "coordinate_median": recovery.CoordinateMedian,
+                "krum": recovery.Krum,
+                "geometric_median": recovery.GeometricMedian}[name](**kw)
+    if name == "byzantine":
+        # fault-injection wrapper: get_strategy("byzantine",
+        #   inner=get_strategy("trimmed_mean"), workers=(0,))
+        from repro_torch.serverless.faults import ByzantineGradients
+        return ByzantineGradients(**kw)
     if name not in STRATEGIES:
         raise KeyError(f"unknown strategy {name!r}; the port has "
-                       f"{sorted(STRATEGIES)}")
+                       f"{sorted(STRATEGIES) + list(ROBUST) + ['byzantine']}")
     return STRATEGIES[name](**kw)

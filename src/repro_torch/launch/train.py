@@ -11,14 +11,16 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mobilenet-cifar \
       --reduced --device cpu --world-size 2 --steps 5 --batch 8
 
-One process per rank: NCCL on the GPU (rank r on card r), gloo on the
-CPU, rendezvous through a ``file://`` init method in a fresh temporary
-directory.  Every rank draws the same global batch from the seed and
-trains on its own contiguous shard of it.
+One process per rank: NCCL on the GPU (rank r on card r % cards), gloo on
+the CPU and wherever ranks outnumber cards (NCCL refuses two ranks on
+one GPU), rendezvous through a ``file://`` init method in a fresh
+temporary directory.  Every rank draws the same global batch from the
+seed and trains on its own contiguous shard of it.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import tempfile
 import time
@@ -44,6 +46,35 @@ def _rank_device(device, rank):
     return dev
 
 
+def backend_for(dev, world_size: int) -> str:
+    """NCCL when every rank has a card of its own, gloo otherwise."""
+    if dev.type == "cuda" and world_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+@contextlib.contextmanager
+def process_group(dev, rank: int, world_size: int, init_method=None):
+    """Joins the default process group when it is already initialised;
+    otherwise creates it from ``init_method`` (with one rank, a fresh
+    ``file://`` path when None) and destroys it on exit."""
+    if dist.is_initialized():
+        yield
+        return
+    if init_method is None:
+        if world_size != 1:
+            raise ValueError("init_method is required with world_size > 1")
+        init_method = "file://" + os.path.join(
+            tempfile.mkdtemp(prefix="repro_torch_pg_"), "rendezvous")
+    dist.init_process_group(backend_for(dev, world_size),
+                            init_method=init_method, rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
           batch: int = 16, lr: float = 3e-3, device="cuda",
           reduced: bool = False, seed: int = 0, rank: int = 0,
@@ -59,23 +90,9 @@ def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
         raise ValueError(f"global batch {batch} is not divisible by "
                          f"world size {world_size}")
     dev = _rank_device(device, rank)
-    own_group = not dist.is_initialized()
-    if own_group:
-        if init_method is None:
-            if world_size != 1:
-                raise ValueError("init_method is required with world_size "
-                                 "> 1")
-            init_method = "file://" + os.path.join(
-                tempfile.mkdtemp(prefix="repro_torch_pg_"), "rendezvous")
-        dist.init_process_group(
-            "nccl" if dev.type == "cuda" else "gloo",
-            init_method=init_method, rank=rank, world_size=world_size)
-    try:
+    with process_group(dev, rank, world_size, init_method):
         return _train(arch, strategy, steps, batch, lr, dev, reduced, seed,
                       log_every, log if rank == 0 else None)
-    finally:
-        if own_group:
-            dist.destroy_process_group()
 
 
 def _train(arch, strategy, steps, batch, lr, dev, reduced, seed, log_every,

@@ -89,3 +89,142 @@ def test_kernel_wrappers_validate_inputs(cuda):
         tbs.masked_filter(x, torch.ones(7, dtype=torch.bool, device=cuda))
     with pytest.raises(ValueError, match="mask"):
         tbs.masked_filter(x, torch.ones(8, dtype=torch.bool))
+
+
+# ---------------------------------------------------------------------------
+# robust aggregation
+# ---------------------------------------------------------------------------
+from repro_torch.kernels import robust_agg as tra  # noqa: E402
+
+# W of every fleet the sweeps and the trainer use, up to the instantiated
+# maximum; D ragged against the 256-thread blocks and 128-column tiles
+ROBUST_W = [3, 4, 5, 7, 8, 12, 16, 32]
+ROBUST_D = 4099
+
+
+def _stack(W, D, dev, seed=0):
+    """Rows of mixed scale, with tie columns, constant columns and one
+    row scaled by 1e30 over a stretch."""
+    rs = np.random.RandomState(seed)
+    x = (rs.randn(W, D) * rs.choice([1.0, 100.0], size=(W, 1))).astype(
+        np.float32)
+    x[:, :7] = 2.5                      # constant columns
+    x[1, 7:40] = x[2, 7:40]             # ties
+    x[:, 40:60] = np.round(x[:, 40:60])
+    x[0, 60:90] *= 1e30                 # a huge byzantine stretch
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("W", ROBUST_W)
+def test_trimmed_mean_and_median_kernels_are_exact(cuda, W):
+    """Same compares, the same fp32 adds in the same row order and an
+    IEEE division: bit-exact against the plain versions, for every legal
+    trim."""
+    x = _stack(W, ROBUST_D, cuda, seed=W)
+    for trim in range(1, (W - 1) // 2 + 1):
+        before = tra.LAUNCHES["trimmed_mean"]
+        got = tra.trimmed_mean(x, trim)
+        torch.cuda.synchronize()
+        assert tra.LAUNCHES["trimmed_mean"] == before + 1
+        assert got.shape == (ROBUST_D,) and bool(torch.isfinite(got).all())
+        assert torch.equal(got, tref.trimmed_mean(x, trim)), (W, trim)
+    got = tra.coordinate_median(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.coordinate_median(x)), W
+    if W % 2 == 0:   # the mean of the two middle values, not the lower one
+        assert not torch.equal(got, torch.median(x, dim=0).values)
+
+
+@pytest.mark.parametrize("W", ROBUST_W)
+def test_krum_pairwise_kernel_matches_plain(cuda, W):
+    """Both sum fp32 products of the same rows in other orders (the plain
+    version through an fp32 matrix product, TF32 off): each distance
+    within 1e-5 of ||xi||^2 + ||xj||^2.  The diagonal is exactly 0, the
+    matrix exactly symmetric, and a second call gives the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _stack(W, ROBUST_D, cuda, seed=W)[:, 100:]
+    before = tra.LAUNCHES["krum_pairwise"]
+    got = tra.krum_pairwise(x)
+    again = tra.krum_pairwise(x)
+    torch.cuda.synchronize()
+    assert tra.LAUNCHES["krum_pairwise"] == before + 2
+    want = tref.krum_pairwise(x)
+    n = torch.sum(x.double() ** 2, dim=1)
+    tol = 1e-5 * (n[:, None] + n[None, :])
+    assert bool(((got.double() - want.double()).abs() <= tol).all())
+    assert torch.equal(got, again) and torch.equal(got, got.T)
+    assert bool((torch.diagonal(got) == 0).all())
+
+
+@pytest.mark.parametrize("W", ROBUST_W)
+def test_weiszfeld_step_kernel_matches_plain(cuda, W):
+    """Pass 1 sums the squared distances in another order than the plain
+    version, so the weights differ in the last bits: the step agrees to
+    1e-5 of the largest value.  Two calls give the same bits."""
+    x = _stack(W, ROBUST_D, cuda, seed=W)[:, 100:].contiguous()
+    z = tref.coordinate_median(x)
+    floor = 1e-12 * float(torch.linalg.vector_norm(x, dim=1).max())
+    before = tra.LAUNCHES["weiszfeld_step"]
+    got = tra.weiszfeld_step(x, z, floor)
+    again = tra.weiszfeld_step(x, z, floor)
+    torch.cuda.synchronize()
+    assert tra.LAUNCHES["weiszfeld_step"] == before + 4   # two passes each
+    want = tref.weiszfeld_step(x, z, floor)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert torch.equal(got, again)
+
+
+def test_robust_kernels_validate_inputs(cuda):
+    """Above the instantiated W the wrappers raise; they never give way
+    to the plain version."""
+    x = torch.randn(tra.MAX_W + 1, 300, device=cuda)
+    for fn in (tra.coordinate_median, tra.krum_pairwise,
+               lambda s: tra.trimmed_mean(s, 1),
+               lambda s: tra.weiszfeld_step(s, s[0], 1e-12)):
+        with pytest.raises(ValueError, match="W <= 32"):
+            fn(x)
+    with pytest.raises(ValueError, match="W > 2"):
+        tra.trimmed_mean(x[:4], 2)
+    with pytest.raises(ValueError, match="z of length"):
+        tra.weiszfeld_step(x[:4], x[0, :10], 1e-12)
+
+
+_GLOO_PROBE = """
+import sys
+import torch
+import torch.distributed as dist
+rank, init = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+x = torch.arange(8, dtype=torch.float32, device="cuda") + 10 * rank
+s = x.clone()
+dist.all_reduce(s)
+assert s.is_cuda and torch.equal(s.cpu(), torch.arange(8.) * 2 + 10)
+g = torch.empty(16, device="cuda")
+dist.all_gather_into_tensor(g, x)
+assert torch.equal(g.cpu(), torch.cat([torch.arange(8.),
+                                       torch.arange(8.) + 10]))
+c = torch.empty(4, device="cuda")
+dist.reduce_scatter_tensor(c, x)
+assert torch.equal(c.cpu(), (torch.arange(8.) * 2 + 10)[4 * rank:4 * rank + 4])
+dist.destroy_process_group()
+"""
+
+
+def test_gloo_collectives_take_cuda_tensors(cuda, tmp_path):
+    """Two gloo ranks on one card: NCCL refuses two ranks on the same GPU,
+    so the byzantine trainer's ranks share a card over gloo.  Gloo runs
+    every collective the port uses on CUDA tensors, so the port stages
+    none through host memory itself."""
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _GLOO_PROBE, str(r), f"file://{tmp_path}/pg"],
+        stderr=subprocess.PIPE, text=True, env=env) for r in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-2000:]

@@ -101,7 +101,9 @@ def test_comm_bytes_match_reference(name):
 
 def test_get_strategy_rejects_unknown_names():
     with pytest.raises(KeyError, match="unknown strategy"):
-        get_strategy("byzantine")
+        get_strategy("no_such_strategy")
+    with pytest.raises(ValueError, match="needs an inner strategy"):
+        get_strategy("byzantine")      # a known name, wrongly built
 
 
 # ---------------------------------------------------------------------------
