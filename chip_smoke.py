@@ -32,6 +32,18 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    must repeat its losses; each kernel's launches are counted per rank;
    a profiler window covers rank 0's steps.
 
+6. lm: the LM kernels (fused AdamW, sliding-window attention) against
+   their plain versions at every SmolLM-135M leaf, at SmolLM's train and
+   long shapes, windows 64 and 1024, a ragged S and head_dims 96 and 128,
+   and the attention gradient; their times against bound, plain version
+   and library call; then the LM entry point on full-width SmolLM-135M
+   (bf16, batch 16 x seq 128, fused AdamW, 30 steps, one-rank NCCL group)
+   at lr 1e-3 with each kernel's launches counted per step, two steps
+   through the kernels against the kernel-free path, a record of the
+   entry point's default lr 3e-3 on the same steps, reduced logits on the
+   card against the CPU, SPIRT and MLLess for 3 steps each, 5 steps at
+   seq 2048, and a profiler window.
+
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
 """
@@ -49,6 +61,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12     # fp32 outside the tensor cores
+H100_BF16_FLOP_PER_S = 989e12    # bf16 dense tensor cores
 BLOCK = 256
 ROBUST_SRC = "src/repro_torch/kernels/csrc/robust_agg.cu"
 BYZ_RANKS = 4
@@ -747,6 +760,546 @@ def byzantine_phase():
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the LM slice: fused AdamW and sliding-window attention
+# ---------------------------------------------------------------------------
+LM_ARCH = "smollm-135m"
+ADAMW_SRC = "src/repro_torch/kernels/csrc/fused_adamw.cu"
+SWA_SRC = "src/repro_torch/kernels/csrc/swa_attention.cu"
+LM_BATCH, LM_SEQ, LM_STEPS = 16, 128, 30
+# the entry point's default lr 3e-3 makes full-width SmolLM's loss rise
+# over 30 steps (11.21 -> 11.58, first and last five); 1e-3 trains (PERF.md)
+LM_LR = 1e-3
+LONG_BATCH, LONG_SEQ, LONG_STEPS = 8, 2048, 5
+ADAMW_KW = dict(lr=LM_LR, b1=0.9, b2=0.95, eps=1e-8, wd=0.0)
+# (label, B, S, H, KV, hd, window, causal): SmolLM's train and long
+# shapes, Gemma-3's windows, a ragged S, Phi-3's and Qwen1.5's head_dims
+SWA_PARITY = [
+    ("smollm train", 16, 128, 9, 3, 64, None, True),
+    ("smollm long", 8, 2048, 9, 3, 64, None, True),
+    ("window 64", 2, 2048, 9, 3, 64, 64, True),
+    ("window 1024", 2, 2048, 8, 4, 64, 1024, True),
+    ("ragged S 1000", 2, 1000, 9, 3, 64, None, True),
+    ("ragged S 1000, window 100", 2, 1000, 9, 3, 64, 100, True),
+    ("hd 96", 1, 1024, 32, 32, 96, None, True),
+    ("hd 128", 1, 1024, 20, 20, 128, 256, True),
+]
+# bf16: each side rounds its fp32 result once, so one bf16 step apart
+SWA_BF16_RTOL, SWA_BF16_ATOL, SWA_F32_ATOL = 2 ** -7, 1e-5, 2e-5
+# the kernel step against the kernel-free step, bf16 model: losses agree
+# to within half a bf16 step of the loss (2^-9 relative)
+LM_STEP_RTOL = 2 ** -9
+
+
+def lm_leaves(dev):
+    """Full-width SmolLM-135M leaves (bf16) with bf16 gradients and fp32
+    moments, seeded."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer
+    model = transformer.Model(get_config(LM_ARCH))
+    shapes = [tuple(p.shape) for p in transformer.reference_leaves(model)]
+    del model
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = []
+    for shape in shapes:
+        n = math.prod(shape)
+        out.append((torch.randn(n, generator=gen, device=dev).bfloat16(),
+                    torch.randn(n, generator=gen, device=dev) * 1e-3,
+                    torch.rand(n, generator=gen, device=dev) * 1e-6,
+                    torch.randn(n, generator=gen, device=dev).bfloat16()
+                    * 0.02))
+    return shapes, out
+
+
+def attention_pairs(S, window, causal):
+    """Unmasked (query, key) pairs of one head."""
+    if not causal:
+        return S * S if window is None else sum(
+            min(S, i + window) - max(0, i - window + 1) for i in range(S))
+    if window is None:
+        return S * (S + 1) // 2
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def lm_kernel_parity(dev):
+    """Fused AdamW bit-exact against its plain version at every SmolLM
+    leaf (bf16 p with bf16 and fp32 g) and at ragged n; attention against
+    its plain version at ``SWA_PARITY`` in bf16 and fp32; the gradient
+    through ``ops.swa_attention`` against plain autograd.  Returns the
+    largest errors."""
+    import torch
+    from repro_torch.kernels import fused_adamw as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import swa_attention as swa
+    from repro_torch.optim import bias_corrections
+    shapes, leaves = lm_leaves(dev)
+    c1, c2 = bias_corrections(0.9, 0.95, 3, dev)
+    cases = 0
+    for g, m, v, p in leaves + [(g[:n], m[:n], v[:n], p[:n]) for n in
+                                (1, 7, 257, 100_003)
+                                for g, m, v, p in leaves[:1]]:
+        for gg in (g, g.float()):
+            mm, vv = m.clone(), v.clone()
+            want = ref.fused_adamw_flat(gg, mm, vv, p, c1, c2, **ADAMW_KW)
+            u, _, _ = fa.fused_adamw_flat(gg, mm, vv, p, c1, c2, **ADAMW_KW)
+            torch.cuda.synchronize()
+            check(torch.equal(u, want[0].to(p.dtype))
+                  and torch.equal(mm, want[1]) and torch.equal(vv, want[2]),
+                  f"fused_adamw_flat differs from its plain version at "
+                  f"n={p.numel()} g {gg.dtype}")
+            cases += 1
+    del leaves
+    log(f"[lm] fused_adamw_flat bit-exact against its plain version in "
+        f"{cases} cases: the 12 SmolLM-135M leaves {shapes} and n = 1, 7, "
+        "257, 100003, bf16 parameters with bf16 and fp32 gradients")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for label, B, S, H, KV, hd, window, causal in SWA_PARITY:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev)
+                       .to(dtype) for n in (H, KV, KV))
+            got = swa.swa_attention_fwd(q, k, v, window=window,
+                                        causal=causal)
+            want = ref.swa_attention(q, k, v, window=window, causal=causal)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            if dtype == torch.float32:
+                ok = bool((diff <= SWA_F32_ATOL).all())
+            else:
+                ok = bool((diff <= SWA_BF16_ATOL + SWA_BF16_RTOL
+                           * want.float().abs()).all())
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"swa_attention_fwd at {label} {dtype}: max abs diff "
+                  f"{float(diff.max()):.3e}")
+            err[dtype] = max(err[dtype], float(diff.max()))
+            del q, k, v, got, want, diff
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv = [torch.randn(2, 512, n, 64, generator=gen, device=dev)
+           for n in (9, 3, 3)]
+    a = [t.clone().requires_grad_() for t in qkv]
+    b = [t.clone().requires_grad_() for t in qkv]
+    torch.sum(torch.tanh(ops.swa_attention(*a, window=128))).backward()
+    torch.sum(torch.tanh(ref.swa_attention(*b, window=128))).backward()
+    gerr = max(float((x.grad - y.grad).abs().max()) for x, y in zip(a, b))
+    check(gerr <= 1e-4, f"swa_attention gradient differs by {gerr:.3e}")
+    log(f"[lm] swa_attention_fwd against its plain version at "
+        f"{len(SWA_PARITY)} shapes x bf16/fp32 "
+        f"({', '.join(c[0] for c in SWA_PARITY)}): max abs err fp32 "
+        f"{err[torch.float32]:.3e} (tol {SWA_F32_ATOL}), bf16 "
+        f"{err[torch.bfloat16]:.3e} (tol one bf16 step, {SWA_BF16_RTOL} "
+        f"relative + {SWA_BF16_ATOL}); gradient through ops.swa_attention "
+        f"(B 2, S 512, window 128, fp32) max abs err {gerr:.3e} (tol 1e-4)")
+    return {"fused_adamw_flat": 0.0, "swa_attention_fwd": err[torch.float32],
+            "swa_attention_fwd_bf16": err[torch.bfloat16],
+            "swa_attention_grad": gerr}
+
+
+def lm_kernel_times(dev):
+    """Each LM kernel at the slice's shapes: the wrapper called back to
+    back (CUDA events), the same calls replayed as a CUDA graph, the
+    plain version and one PyTorch call computing the same function.
+    Bounds count each input read once and each output written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_adamw as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as swa
+    from repro_torch.optim import bias_corrections
+    out = {}
+    # ---- fused AdamW: one SmolLM step, 12 leaves, bf16 p and g ----
+    shapes, leaves = lm_leaves(dev)
+    c1, c2 = bias_corrections(0.9, 0.95, 3, dev)
+    n_params = sum(p.numel() for _, _, _, p in leaves)
+    nbytes = sum(p.numel() * (g.element_size() + 8 + 2 * p.element_size()
+                              + 8) for g, _, _, p in leaves)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, \
+        15 * n_params / H100_FP32_FLOP_PER_S
+
+    def kernel_step():
+        for g, m, v, p in leaves:
+            fa.fused_adamw_flat(g, m, v, p, c1, c2, **ADAMW_KW)
+
+    def plain_step():
+        for g, m, v, p in leaves:
+            ref.fused_adamw_flat(g, m, v, p, c1, c2, **ADAMW_KW)
+
+    r = dict(ms=time_ms(kernel_step, reps=20),
+             graph_ms=graphed_ms(kernel_step),
+             plain_ms=time_ms(plain_step, reps=5))
+    params32 = [p.float().requires_grad_() for _, _, _, p in leaves]
+    for q, (g, _, _, _) in zip(params32, leaves):
+        q.grad = g.float()
+    lib = torch.optim.AdamW(params32, lr=LM_LR, betas=(0.9, 0.95), eps=1e-8,
+                            weight_decay=0.0, fused=True)
+    r["library_ms"] = time_ms(lib.step, reps=20)
+    del params32, lib
+    r.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             bytes=nbytes, params=n_params,
+             shapes=f"one SmolLM-135M step: {len(leaves)} leaves, "
+                    f"{n_params:,} bf16 parameters, bf16 gradients, fp32 "
+                    "moments",
+             library="torch.optim.AdamW(fused=True).step() on fp32 copies "
+                     "of the 12 leaves (fp32 p, g, m, v)")
+    out["fused_adamw_flat"] = r
+    log(f"[lm] fused_adamw_flat, one SmolLM step (12 launches): kernel "
+        f"{r['ms']:.4f} ms (as a CUDA graph {r['graph_ms']:.4f} ms), plain "
+        f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+        f"({r['library']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+        f"{nbytes / 1e9:.3f} GB)")
+    del leaves
+    # ---- attention: SmolLM long and train shapes, and window 1024 ----
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for key, (B, S, H, KV, hd, window) in (
+            ("long", (LONG_BATCH, LONG_SEQ, 9, 3, 64, None)),
+            ("train", (LM_BATCH, LM_SEQ, 9, 3, 64, None)),
+            ("long_window_1024", (LONG_BATCH, LONG_SEQ, 9, 3, 64, 1024))):
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev)
+                   .bfloat16() for n in (H, KV, KV))
+        flops = 4 * B * H * hd * attention_pairs(S, window, True)
+        nbytes = 2 * (q.numel() * 2 + k.numel() * 2)
+        t_ops, t_bytes = flops / H100_BF16_FLOP_PER_S, nbytes / H100_BYTES_PER_S
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if window is None:
+            library = ("F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True), (B, H, S, hd)")
+            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(S, device=dev)
+            band = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+            library = ("F.scaled_dot_product_attention(attn_mask=band, "
+                       "enable_gqa=True), (B, H, S, hd)")
+            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
+        fn = lambda: swa.swa_attention_fwd(q, k, v, window=window)  # noqa: E731
+        r = dict(ms=time_ms(fn, reps=10), graph_ms=graphed_ms(fn),
+                 plain_ms=time_ms(lambda: ref.swa_attention(
+                     q, k, v, window=window), reps=3, warmup=1),
+                 library_ms=time_ms(lib_fn, reps=10), library=library,
+                 bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 fp32_core_bound_ms=flops / H100_FP32_FLOP_PER_S * 1e3,
+                 bytes_ms=t_bytes * 1e3, flops=flops, bytes=nbytes,
+                 shapes=f"q ({B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, "
+                        f"{hd}) bf16, causal, window {window}")
+        out[f"swa_attention_fwd/{key}"] = r
+        log(f"[lm] swa_attention_fwd {r['shapes']}: kernel {r['ms']:.4f} ms "
+            f"(as a CUDA graph {r['graph_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+            f"({library}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+            f"{flops / 1e9:.2f} GFLOP at bf16 tensor-core peak; "
+            f"{r['bytes_ms']:.4f} ms for {nbytes / 1e6:.1f} MB; fp32 "
+            f"CUDA-core bound {r['fp32_core_bound_ms']:.4f} ms)")
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_launches():
+    from repro_torch.kernels import block_significance as bs
+    from repro_torch.kernels import fused_adamw as fa
+    from repro_torch.kernels import swa_attention as swa
+    return {**fa.LAUNCHES, **swa.LAUNCHES, **bs.LAUNCHES}
+
+
+def reset_lm_launches():
+    from repro_torch.kernels import block_significance as bs
+    from repro_torch.kernels import fused_adamw as fa
+    from repro_torch.kernels import swa_attention as swa
+    for counts in (fa.LAUNCHES, swa.LAUNCHES, bs.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def expected_lm_launches(steps, microbatches=1, mlless=False):
+    """Per ``steps``: fused AdamW once per leaf (12); the attention kernel
+    once per layer in the forward and once more in the backward's
+    recompute of each checkpointed layer, per microbatch (2 x 30 x Ke);
+    MLLess's filter once per leaf."""
+    n = {"fused_adamw_flat": 12 * steps,
+         "swa_attention_fwd": 2 * 30 * microbatches * steps,
+         "block_norms": 0, "masked_filter": 0}
+    if mlless:
+        n["block_norms"] = n["masked_filter"] = 12 * steps
+    return n
+
+
+def lm_train_phase(init_method):
+    """The LM entry point on full-width SmolLM-135M over a one-rank NCCL
+    group; the main path's launch counts; the kernel step against the
+    kernel-free step; reduced logits on the card against the CPU; SPIRT
+    and MLLess; the long sequence; a profile."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.train import train
+
+    dist.init_process_group("nccl", init_method=init_method, rank=0,
+                            world_size=1)
+    try:
+        reset_lm_launches()
+        res = train(arch=LM_ARCH, batch=LM_BATCH, seq=LM_SEQ, steps=LM_STEPS,
+                    lr=LM_LR, fused_optimizer=True, device="cuda",
+                    log_every=10, log=log)
+        launches = lm_launches()
+        losses = res["losses"]
+        check(all(math.isfinite(l) for l in losses), f"loss not finite: "
+              f"{losses}")
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        check(last < first, f"loss did not fall: first five {first:.4f}, "
+              f"last five {last:.4f}")
+        want = expected_lm_launches(LM_STEPS)
+        check(launches == want, f"launches {launches}, expected {want}")
+        log(f"[lm] {LM_ARCH} full width ({res['params']:,} parameters), "
+            f"bf16, batch {LM_BATCH} x seq {LM_SEQ}, allreduce, fused AdamW "
+            f"lr {LM_LR}, {LM_STEPS} steps: loss {first:.4f} (first five) "
+            f"-> {last:.4f} (last five); launches {launches} = "
+            f"{ {k: n // LM_STEPS for k, n in launches.items()} } a step; "
+            f"{res['ms_per_step']:.3f} ms/step after the first "
+            f"({res['first_step_ms']:.1f} ms); peak memory "
+            f"{res['peak_mem_bytes'] / 2**30:.2f} GiB")
+        lm_kernel_vs_plain_step()
+        lm_default_lr_record()
+        lm_cuda_vs_cpu()
+        runs = {"allreduce": res}
+        for strategy, k_mb, mlless in (("spirt", 4, False),
+                                       ("mlless", 1, True)):
+            reset_lm_launches()
+            r = train(arch=LM_ARCH, strategy=strategy, batch=LM_BATCH,
+                      seq=LM_SEQ, steps=3, lr=LM_LR, fused_optimizer=True,
+                      device="cuda", log=None)
+            got, want = lm_launches(), expected_lm_launches(3, k_mb, mlless)
+            check(got == want, f"{strategy}: launches {got}, expected {want}")
+            check(all(map(math.isfinite, r["losses"])),
+                  f"{strategy}: loss not finite {r['losses']}")
+            log(f"[lm] {LM_ARCH} {strategy}: losses "
+                f"{[round(l, 4) for l in r['losses']]}, "
+                f"{r['ms_per_step']:.3f} ms/step; launches {got}"
+                + (f"; significant_fraction "
+                   f"{r['metrics']['significant_fraction']:.4f}"
+                   if mlless else ""))
+            runs[strategy] = r
+        reset_lm_launches()
+        torch.cuda.empty_cache()
+        r = train(arch=LM_ARCH, batch=LONG_BATCH, seq=LONG_SEQ,
+                  steps=LONG_STEPS, lr=LM_LR, fused_optimizer=True,
+                  device="cuda", log=None)
+        got, want = lm_launches(), expected_lm_launches(LONG_STEPS)
+        check(got == want, f"long: launches {got}, expected {want}")
+        check(all(map(math.isfinite, r["losses"])),
+              f"long: loss not finite {r['losses']}")
+        log(f"[lm] {LM_ARCH} batch {LONG_BATCH} x seq {LONG_SEQ}, "
+            f"{LONG_STEPS} steps: losses {[round(l, 4) for l in r['losses']]}"
+            f", {r['ms_per_step']:.3f} ms/step after the first "
+            f"({r['first_step_ms']:.1f} ms), peak memory "
+            f"{r['peak_mem_bytes'] / 2**30:.2f} GiB")
+        runs["long"] = r
+        torch.cuda.empty_cache()
+        runs["profile"] = lm_profile()
+        return launches, runs
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_kernel_vs_plain_step(steps=2):
+    """Two steps of full-width SmolLM-135M (bf16, batch 16 x seq 128) from
+    the same weights and batches: through the kernels (attention kernel,
+    fused AdamW) and through the kernel-free path (the chunked flash
+    attention, the plain AdamW).  The attention kernel keeps p in fp32
+    where the chunked path rounds it to bf16, so bf16 activations differ
+    by a rounding here and there: losses must agree to half a bf16 step
+    (2^-9 relative)."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import build_train_step, get_strategy
+    from repro_torch.data import lm_batches, token_stream
+    from repro_torch.models import build_model
+    cfg = get_config(LM_ARCH)
+    it = lm_batches(token_stream(LM_BATCH * LM_SEQ * 8, cfg.vocab_size,
+                                 seed=11), LM_BATCH, LM_SEQ, seed=11)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+               for _ in range(steps)]
+    runs = {}
+    for kernels in (True, False):
+        model = build_model(cfg, use_kernel=kernels, device="cuda", seed=3)
+        ts = build_train_step(model, optim.adamw(LM_LR, use_fused=kernels),
+                              get_strategy("allreduce"))
+        state = ts.init_state()
+        losses = [float(ts.step_fn(state, b)[1]["loss"]) for b in batches]
+        runs[kernels] = (losses, [p.detach().float() for p in
+                                  state["params"]])
+        del model, ts, state
+    (lk, pk), (lp, pp) = runs[True], runs[False]
+    dloss = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    dparam = max(float((a - b).abs().max()) for a, b in zip(pk, pp))
+    moved = sum(int(((a - b).abs() > 0).sum()) for a, b in zip(pk, pp))
+    total = sum(a.numel() for a in pk)
+    check(dloss <= LM_STEP_RTOL, f"kernel step vs kernel-free step: loss "
+          f"rel diff {dloss:.3e} > {LM_STEP_RTOL:.3e}")
+    log(f"[lm] {steps} steps through the kernels vs the kernel-free path "
+        f"(bf16): losses {lk} vs {lp} (rel diff {dloss:.3e}, tol 2^-9 = "
+        f"{LM_STEP_RTOL:.3e}); parameters max abs diff {dparam:.3e}, "
+        f"{moved:,} of {total:,} differ (AdamW's early steps move each "
+        "element by ~lr whatever the gradient's size)")
+
+
+def lm_default_lr_record(lr=3e-3):
+    """A record, not a gate: the entry point's default lr (the
+    reference's 3e-3) on the same 30 steps, through the kernels and
+    through the kernel-free path (chunked flash attention, plain AdamW),
+    so a rise of the loss there can be told from a fault of the kernels.
+    Both must stay finite."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import build_train_step, get_strategy
+    from repro_torch.data import lm_batches, token_stream
+    from repro_torch.models import build_model
+    cfg = get_config(LM_ARCH)
+    for kernels in (True, False):
+        it = lm_batches(token_stream(LM_BATCH * LM_SEQ * 64, cfg.vocab_size),
+                        LM_BATCH, LM_SEQ)
+        ts = build_train_step(build_model(cfg, use_kernel=kernels,
+                                          device="cuda"),
+                              optim.adamw(lr, use_fused=kernels),
+                              get_strategy("allreduce"))
+        state = ts.init_state()
+        losses = []
+        for _ in range(LM_STEPS):
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in next(it).items()}
+            losses.append(float(ts.step_fn(state, batch)[1]["loss"]))
+        check(all(map(math.isfinite, losses)), f"lr {lr}: loss not finite")
+        log(f"[lm] lr {lr} ({'kernels' if kernels else 'kernel-free path'})"
+            f", the train phase's {LM_STEPS} steps: loss "
+            f"{sum(losses[:5]) / 5:.4f} (first five) -> "
+            f"{sum(losses[-5:]) / 5:.4f} (last five); every third "
+            f"{[round(l, 3) for l in losses[::3]]}")
+        del ts, state
+    torch.cuda.empty_cache()
+
+
+def lm_cuda_vs_cpu():
+    """Reduced SmolLM logits through the attention kernel on the card
+    against the same model on the CPU (plain attention), same weights and
+    tokens, fp32 with TF32 off: 1e-4."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import lm_batches, token_stream
+    from repro_torch.kernels import swa_attention as swa
+    from repro_torch.models import build_model
+    cfg = get_config(LM_ARCH).reduced()
+    b = next(lm_batches(token_stream(4 * 128 * 8, cfg.vocab_size), 4, 128))
+    tokens = torch.from_numpy(b["tokens"])
+    before = swa.LAUNCHES["swa_attention_fwd"]
+    with torch.no_grad():
+        gpu, _ = build_model(cfg, use_kernel=True, device="cuda",
+                             seed=1)({"tokens": tokens.cuda()})
+        cpu, _ = build_model(cfg, use_kernel=True, device="cpu",
+                             seed=1)({"tokens": tokens})
+    check(swa.LAUNCHES["swa_attention_fwd"] == before + cfg.n_layers,
+          "the card's forward did not go through the kernel")
+    gpu = gpu.cpu()
+    check(gpu.shape == (4, 128, 512) and bool(torch.isfinite(gpu).all()),
+          f"logits {tuple(gpu.shape)} not finite")
+    err = float((gpu - cpu).abs().max())
+    check(err <= 1e-4, f"cuda vs cpu logits differ by {err:.3e}")
+    log(f"[lm] reduced SmolLM logits (fp32), card (kernel) vs CPU (plain): "
+        f"max abs diff {err:.3e} (tol 1e-4)")
+
+
+def lm_profile(steps=3):
+    """``torch.profiler`` over a few full-width SmolLM-135M steps (batch
+    16 x seq 128, fused AdamW, after warm-up): device time by kernel
+    against the host clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import build_train_step, get_strategy
+    from repro_torch.data import lm_batches, token_stream
+    from repro_torch.models import build_model
+    cfg = get_config(LM_ARCH)
+    it = lm_batches(token_stream(LM_BATCH * LM_SEQ * 8, cfg.vocab_size),
+                    LM_BATCH, LM_SEQ)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+    ts = build_train_step(build_model(cfg, use_kernel=True, device="cuda"),
+                          optim.adamw(LM_LR, use_fused=True),
+                          get_strategy("allreduce"))
+    state = ts.init_state()
+    for _ in range(2):
+        ts.step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ts.step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms}
+    if busy_ms == 0:
+        log("[profile] the profiler recorded no device time: not measured")
+        return out
+    log(f"[profile] {LM_ARCH} step (batch {LM_BATCH} x seq {LM_SEQ}, fused "
+        f"AdamW) under the profiler: {wall_ms:.3f} ms/step on the host "
+        f"clock, device busy {busy_ms:.3f} ms/step, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}; device kernels per step "
+        f"{sum(e.count for e in kernels) / steps:.0f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms"
+            f"/step {e.count / steps:6.0f}/step  {e.key[:90]}")
+    for name in ("swa_fwd_kernel", "fused_adamw_kernel"):
+        mine = [e for e in kernels if name in e.key]
+        us = sum(e.self_device_time_total for e in mine) / steps
+        n = sum(e.count for e in mine) / steps
+        out[name] = {"us_per_step": us, "launches_per_step": n}
+        log(f"[profile]   {name}: {us:.1f} us/step of device time in "
+            f"{n:.0f} launches ({us / max(n, 1):.2f} us each)")
+    return out
+
+
+def lm_phase():
+    """The LM slice; returns its entries of the kernels line."""
+    import torch
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    err = lm_kernel_parity(dev)
+    times = lm_kernel_times(dev)
+    init = "file://" + os.path.join(tempfile.mkdtemp(prefix="chip_smoke_lm_"),
+                                    "pg")
+    launches, runs = lm_train_phase(init)
+    log(f"[lm] phase took {time.perf_counter() - t0:.1f} s")
+    main_path = (f"{LM_ARCH} train, batch {LM_BATCH} x seq {LM_SEQ}, "
+                 f"{LM_STEPS} steps")
+    long = times["swa_attention_fwd/long"]
+    return [
+        {"name": "fused_adamw_flat", "route": "cuda", "source": ADAMW_SRC,
+         "replaces": "src/repro/kernels/fused_adamw.py:34",
+         "launches": launches["fused_adamw_flat"], "launches_run": main_path,
+         "max_abs_err": err["fused_adamw_flat"],
+         **times["fused_adamw_flat"]},
+        {"name": "swa_attention_fwd", "route": "cuda", "source": SWA_SRC,
+         "replaces": "src/repro/kernels/swa_attention.py:81",
+         "launches": launches["swa_attention_fwd"],
+         "launches_run": main_path,
+         "max_abs_err": err["swa_attention_fwd"],
+         "max_abs_err_bf16": err["swa_attention_fwd_bf16"],
+         "grad_max_abs_err": err["swa_attention_grad"],
+         **long,
+         "train_shape": times["swa_attention_fwd/train"],
+         "window_1024": times["swa_attention_fwd/long_window_1024"],
+         "profile": runs["profile"].get("swa_fwd_kernel")},
+    ]
+
+
 def main():
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the repository: src/repro_torch is "
@@ -801,6 +1354,7 @@ def main():
              "launches_run": f"rank 0 of {BYZ_RANKS}, byzantine {run}, "
                              f"{len(runs[run]['losses'])} steps",
              "max_abs_err": robust_err[name], **robust_t[name]})
+    line["kernels"] += lm_phase()
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,3 @@
-from repro_torch.configs.base import CNNConfig, get_config, register  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    GLOBAL, LOCAL, CNNConfig, ModelConfig, get_config, register,
+)

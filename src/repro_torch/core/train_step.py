@@ -9,6 +9,10 @@ SPIRT's accumulation runs over ``Ke = gcd(K, B_local)`` microbatches and
 averages their gradients; the reported loss is the last microbatch's, as
 in the reference.  Loss and info metrics are averaged across ranks.
 FSDP and tensor parallelism are not ported yet.
+
+The model is any module whose parameter names are the reference tree's
+paths (``models.cnn``, ``models.transformer``); the batch is a dict of
+tensors sharing their leading (batch) dim.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch.distributed as dist
 
 from repro_torch.core import losses
 from repro_torch.core.strategies import Strategy
-from repro_torch.models.cnn import reference_leaves
+from repro_torch.models.params import reference_leaves
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 
 
@@ -37,24 +41,36 @@ def _pmean(x, group):
     return x / dist.get_world_size(group)
 
 
+def default_loss(model, batch):
+    """The reference's default, ``softmax_cross_entropy(logits, labels) +
+    aux`` of an LM (``forward`` returns (logits, aux)); for a CNN batch
+    (``images``) the classification loss, which the reference's callers
+    pass as ``loss_fn``."""
+    if "images" in batch:
+        return losses.classification_loss(model(batch["images"]),
+                                          batch["labels"])
+    logits, aux = model(batch)
+    return losses.softmax_cross_entropy(logits, batch["labels"]) + aux
+
+
 def build_train_step(model, optimizer: Optimizer, strategy: Strategy, *,
-                     group=None) -> TrainStep:
-    """Train step for ``model`` (a ``build_cnn`` module) with the
-    classification loss.  ``group`` is the data-parallel process group
-    (``None``: the default one, which must be initialised).
+                     group=None, loss_fn=None) -> TrainStep:
+    """Train step for ``model`` with ``loss_fn(model, batch) -> loss``
+    (``None``: ``default_loss``).  ``group`` is the data-parallel process
+    group (``None``: the default one, which must be initialised).
 
     ``state["params"]`` are the module's own parameters, in the reference
     tree's leaf order, updated in place."""
     K = strategy.microbatches
+    loss_fn = default_loss if loss_fn is None else loss_fn
 
-    def value_and_grad(params, images, labels):
-        loss = losses.classification_loss(model(images), labels)
+    def value_and_grad(params, batch):
+        loss = loss_fn(model, batch)
         return loss.detach(), torch.autograd.grad(loss, params)
 
     def step_fn(state, batch):
         params = state["params"]
-        images, labels = batch["images"], batch["labels"]
-        B_local = images.shape[0]
+        B_local = next(iter(batch.values())).shape[0]
         Ke = math.gcd(K, B_local) if K > 1 else 1
         if Ke > 1:
             mb = B_local // Ke
@@ -62,12 +78,13 @@ def build_train_step(model, optimizer: Optimizer, strategy: Strategy, *,
                                 device=p.device) for p in params]
             for i in range(Ke):
                 sl = slice(i * mb, (i + 1) * mb)
-                loss, g = value_and_grad(params, images[sl], labels[sl])
+                loss, g = value_and_grad(
+                    params, {k: x[sl] for k, x in batch.items()})
                 for a, b in zip(gsum, g):
                     a.add_(b.float())
             grads = [a / Ke for a in gsum]
         else:
-            loss, grads = value_and_grad(params, images, labels)
+            loss, grads = value_and_grad(params, batch)
 
         synced, state["strat"], info = strategy.sync(
             list(grads), state["strat"], group)

@@ -1,1 +1,3 @@
-from repro_torch.data.synthetic import cifar_like  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    cifar_like, lm_batches, token_stream,
+)

@@ -160,3 +160,53 @@ def weiszfeld_step(stacked, z, floor):
     for i in range(x.shape[0]):
         acc = acc + w[i] * x[i]
     return acc / total
+
+
+# ---------------------------------------------------------------------------
+# sliding-window attention and fused AdamW (the LM training path)
+# ---------------------------------------------------------------------------
+def swa_attention(q, k, v, *, window=None, causal=True):
+    """Naive O(S^2) masked softmax attention in fp32 (the reference's
+    oracle).  q: (B, S, H, hd); k, v: (B, S, KV, hd) with H % KV == 0,
+    head h reading kv head h // (H // KV); a query at position i attends
+    to [i - window + 1, i].  Returns (B, S, H, hd) in q's dtype."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qr = q.reshape(B, S, KV, G, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qr, k.float()) / (hd ** 0.5)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def fused_adamw_flat(g, m, v, p, c1, c2, *, lr, b1, b2, eps, wd):
+    """One AdamW step over 1-D operands: returns (u fp32, m', v').
+
+    The kernel's operations in the kernel's order, each rounded once:
+    ``m' = b1*m + (1-b1)*g``, ``v' = b2*v + ((1-b2)*g)*g``,
+    ``u = -lr * ((m'/c1) / (sqrt(v'/c2) + eps) + wd*p)``, the root
+    correctly rounded.  ``c1`` and
+    ``c2`` are fp32 tensors on the operands' device: a division by a host
+    scalar would be a reciprocal multiply on the card."""
+    gf = g.float()
+    pf = p.float()
+    m_new = b1 * m + (1 - b1) * gf
+    v_new = b2 * v + (1 - b2) * gf * gf
+    u = -lr * ((m_new / c1) / (_sqrt_rn(v_new / c2) + eps) + wd * pf)
+    return u, m_new, v_new
+
+
+def _sqrt_rn(x):
+    """The correctly rounded fp32 square root (``__fsqrt_rn``): taken in
+    float64 and rounded once.  PyTorch's vectorised CPU ``sqrt`` of fp32
+    is off by one ulp in about 0.7% of values."""
+    return torch.sqrt(x.double()).float()

@@ -1,0 +1,92 @@
+"""Sliding-window attention forward: the wrapper of the Hopper kernel in
+``csrc/swa_attention.cu``.
+
+``swa_attention_fwd`` replaces the Pallas kernel
+``repro/kernels/swa_attention.py:swa_attention_fwd``: causal GQA attention
+with an optional sliding window and an fp32 online softmax.  The source
+states the kernel's bound and design.  The gradient is
+``kernels.ops.swa_attention``.
+
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+tensor it returns the plain version from ``ref.py``.  ``LAUNCHES``
+counts the kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+LAUNCHES = {"swa_attention_fwd": 0}
+
+HEAD_DIMS = (32, 64, 96, 128)   # head_dims the kernel is built for
+MAX_GROUP = 64                  # H / KV: a q tile holds 64 (query, head) rows
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "rt_swa_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _F, _P],
+}
+
+
+def _validate(q, k, v, window):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"expected q (B, S, H, hd) and k, v (B, S, KV, hd), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"H {H} is not divisible by KV {k.shape[2]}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def _aligned(t):
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def swa_attention_fwd(q, k, v, *, window=None, causal=True):
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd), fp32 or bf16 alike.
+    Returns (B, S, H, hd) in q's dtype."""
+    _validate(q, k, v, window)
+    if q.device.type == "cpu":
+        return _ref.swa_attention(q, k, v, window=window, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share one of "
+                        f"{sorted(map(str, _DTYPES))}, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not supported: the kernel is "
+                         f"built for head_dim in {HEAD_DIMS}")
+    if H // KV > MAX_GROUP:
+        raise ValueError(f"H / KV = {H // KV} > {MAX_GROUP} heads a kv head")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _build._library("swa_attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.rt_swa_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], B, S, H, KV, hd,
+            0 if window is None else int(window), int(bool(causal)),
+            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"swa_attention_fwd kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["swa_attention_fwd"] += 1
+    return out

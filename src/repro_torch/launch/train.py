@@ -1,6 +1,10 @@
-"""Training entry point for the paper's CNN experiment
-(``repro.launch.train``, CNN branch): a CIFAR CNN trained data-parallel
-with one of the five gradient-sync strategies, SGD with momentum 0.9.
+"""Training entry point (``repro.launch.train``): a model trained
+data-parallel with one of the five gradient-sync strategies.  A CIFAR CNN
+(the paper's experiment) trains with SGD, momentum 0.9, on the synthetic
+CIFAR-like set; a dense transformer LM trains with AdamW (b2 0.95) on the
+synthetic Markov token stream, its attention through the Hopper kernel
+(``use_kernel=True``), and with ``--fused-optimizer`` its update through
+the fused AdamW kernel.
 
 Examples:
   # full-width MobileNet, MLLess, on one GPU
@@ -10,6 +14,14 @@ Examples:
   # reduced MobileNet on two CPU ranks (gloo)
   PYTHONPATH=src python -m repro_torch.launch.train --arch mobilenet-cifar \
       --reduced --device cpu --world-size 2 --steps 5 --batch 8
+
+  # full-width SmolLM-135M through both LM kernels on one GPU
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+      --fused-optimizer --steps 30 --batch 16 --seq 128
+
+  # reduced SmolLM on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+      --reduced --device cpu --steps 3 --batch 4 --seq 64 --fused-optimizer
 
 One process per rank: NCCL on the GPU (rank r on card r % cards), gloo on
 the CPU and wherever ranks outnumber cards (NCCL refuses two ranks on
@@ -33,9 +45,12 @@ from repro_torch import optim
 from repro_torch.configs.base import get_config
 from repro_torch.core import build_train_step, get_strategy
 from repro_torch.core.strategies import STRATEGIES
-from repro_torch.data import cifar_like
+from repro_torch.data import cifar_like, lm_batches, token_stream
 from repro_torch.device import resolve_device
-from repro_torch.models import build_cnn
+from repro_torch.models import build_cnn, build_model
+
+CNN_ARCHS = ("mobilenet-cifar", "resnet18-cifar")
+LM_ARCHS = ("smollm-135m", "phi3-mini-3.8b", "qwen1.5-4b", "gemma3-4b")
 
 
 def _rank_device(device, rank):
@@ -76,45 +91,80 @@ def process_group(dev, rank: int, world_size: int, init_method=None):
 
 
 def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
-          batch: int = 16, lr: float = 3e-3, device="cuda",
+          batch: int = 16, seq: int = 128, lr: float = 3e-3,
+          fused_optimizer: bool = False, device="cuda",
           reduced: bool = False, seed: int = 0, rank: int = 0,
-          world_size: int = 1, init_method=None, log_every: int = 10,
-          log=print) -> dict:
+          world_size: int = 1, init_method=None, init_params=None,
+          log_every: int = 10, log=print) -> dict:
     """Train ``steps`` steps as ``rank`` of ``world_size`` and return a
     summary: per-step losses, the last metrics, timings and, on a GPU,
-    peak device memory.  Joins the default process group when it is
-    already initialised; otherwise creates it from ``init_method`` (with
-    one rank, a fresh ``file://`` path when None) and destroys it after.
+    peak device memory.  ``batch`` is the global batch; each rank trains
+    on its contiguous shard of it.  ``seq`` and ``fused_optimizer`` apply
+    to an LM.  ``init_params`` is a state dict to start from (for instance
+    ``params_from_reference`` of a reference tree) instead of the seeded
+    draw.  Joins the default process group when it is already
+    initialised; otherwise creates it from ``init_method`` (with one rank,
+    a fresh ``file://`` path when None) and destroys it after.
     """
     if batch % world_size:
         raise ValueError(f"global batch {batch} is not divisible by "
                          f"world size {world_size}")
     dev = _rank_device(device, rank)
     with process_group(dev, rank, world_size, init_method):
-        return _train(arch, strategy, steps, batch, lr, dev, reduced, seed,
-                      log_every, log if rank == 0 else None)
+        return _train(arch, strategy, steps, batch, seq, lr, fused_optimizer,
+                      dev, reduced, seed, init_params, log_every,
+                      log if rank == 0 else None)
 
 
-def _train(arch, strategy, steps, batch, lr, dev, reduced, seed, log_every,
-           log):
+def _cnn_setup(cfg, batch, lr, dev, seed, rank, B_local):
+    model = build_cnn(cfg, device=dev, seed=seed)
+    imgs, labels = cifar_like(batch * 64, seed=seed)
+    imgs, labels = torch.from_numpy(imgs).to(dev), \
+        torch.from_numpy(labels).to(dev)
+    rs = np.random.RandomState(seed)
+
+    def next_batch():
+        idx = rs.randint(0, len(imgs), batch)[rank * B_local:
+                                              (rank + 1) * B_local]
+        idx = torch.from_numpy(idx).to(dev)
+        return {"images": imgs[idx], "labels": labels[idx]}
+    return model, optim.sgd(lr, momentum=0.9), next_batch
+
+
+def _lm_setup(cfg, batch, seq, lr, fused_optimizer, dev, seed, rank,
+              B_local):
+    model = build_model(cfg, use_kernel=True, device=dev, seed=seed)
+    it = lm_batches(token_stream(batch * seq * 64, cfg.vocab_size,
+                                 seed=seed), batch, seq, seed=seed)
+
+    def next_batch():
+        return {k: torch.from_numpy(v[rank * B_local:(rank + 1) * B_local])
+                .to(dev) for k, v in next(it).items()}
+    return model, optim.adamw(lr, use_fused=fused_optimizer), next_batch
+
+
+def _train(arch, strategy, steps, batch, seq, lr, fused_optimizer, dev,
+           reduced, seed, init_params, log_every, log):
     rank, W = dist.get_rank(), dist.get_world_size()
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    model = build_cnn(cfg, device=dev, seed=seed)
-    ts = build_train_step(model, optim.sgd(lr, momentum=0.9),
-                          get_strategy(strategy))
+    B_local = batch // W
+    if cfg.family == "cnn":
+        model, opt, next_batch = _cnn_setup(cfg, batch, lr, dev, seed, rank,
+                                            B_local)
+    else:
+        model, opt, next_batch = _lm_setup(cfg, batch, seq, lr,
+                                           fused_optimizer, dev, seed, rank,
+                                           B_local)
+    if init_params is not None:
+        model.load_state_dict(init_params)
+    ts = build_train_step(model, opt, get_strategy(strategy))
     state = ts.init_state()
     n_params = sum(p.numel() for p in state["params"])
     if log:
         log(f"arch={cfg.name} strategy={strategy} params={n_params:,} "
             f"world_size={W} device={dev}")
-
-    imgs, labels = cifar_like(batch * 64, seed=seed)
-    imgs, labels = torch.from_numpy(imgs).to(dev), \
-        torch.from_numpy(labels).to(dev)
-    rs = np.random.RandomState(seed)
-    B_local = batch // W
 
     def sync():
         if dev.type == "cuda":
@@ -126,11 +176,7 @@ def _train(arch, strategy, steps, batch, lr, dev, reduced, seed, log_every,
     sync()
     t0 = t1 = time.perf_counter()
     for step in range(steps):
-        idx = rs.randint(0, len(imgs), batch)[rank * B_local:
-                                              (rank + 1) * B_local]
-        idx = torch.from_numpy(idx).to(dev)
-        state, metrics = ts.step_fn(state, {"images": imgs[idx],
-                                            "labels": labels[idx]})
+        state, metrics = ts.step_fn(state, next_batch())
         losses.append(metrics["loss"])
         if step == 0:
             sync()
@@ -163,13 +209,15 @@ def _worker(rank, kwargs):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True,
-                    choices=["mobilenet-cifar", "resnet18-cifar"])
+    ap.add_argument("--arch", required=True, choices=CNN_ARCHS + LM_ARCHS)
     ap.add_argument("--strategy", default="allreduce",
                     choices=sorted(STRATEGIES))
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=16, help="global batch")
+    ap.add_argument("--seq", type=int, default=128, help="LM sequence length")
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--fused-optimizer", action="store_true",
+                    help="LM: AdamW through the fused kernel")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced width (CPU-trainable)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -177,7 +225,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     kwargs = dict(arch=args.arch, strategy=args.strategy, steps=args.steps,
-                  batch=args.batch, lr=args.lr, device=args.device,
+                  batch=args.batch, seq=args.seq, lr=args.lr,
+                  fused_optimizer=args.fused_optimizer, device=args.device,
                   reduced=args.reduced, seed=args.seed,
                   world_size=args.world_size)
     if args.world_size == 1:

@@ -1,0 +1,237 @@
+"""Attention (``repro.models.attention``): GQA projections and chunked
+(flash-style) softmax attention with causal / sliding-window masking.
+
+``chunked_attention`` is the reference's plain path: an online-softmax
+forward over (q chunk, kv chunk) pairs and a two-pass chunked backward (dq
+pass; dk/dv pass) in an ``autograd.Function``, so the backward never holds
+O(S^2) residuals.  KV chunks that lie outside a query chunk's causal or
+window span are skipped, so sliding-window attention does O(S * W) work.
+When the call is causal over one sequence (Sq == Skv) and ``pallas_fn``
+is given, the call goes to it instead (``kernels.ops.swa_attention``, the
+Hopper kernel).
+
+Layouts are the reference's: q (B, Sq, H, hd), k and v (B, Skv, KV, hd),
+with head h reading kv head h // G (G = H // KV).  Score and gradient
+products are fp32 (the reference's ``preferred_element_type``); the
+forward casts p to v's dtype before the p.v product, as the reference
+does.  Decode attention and the KV cache belong to the serving path.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+def attention_init(gen, cfg, dtype, lead=()):
+    """``lead`` prepends a stacking dim (the layers of a scanned block)."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"wq": layers.dense_init(gen, (*lead, d, H * hd), dtype),
+         "wk": layers.dense_init(gen, (*lead, d, KV * hd), dtype),
+         "wv": layers.dense_init(gen, (*lead, d, KV * hd), dtype),
+         "wo": layers.dense_init(gen, (*lead, H * hd, d), dtype)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((*lead, H * hd), dtype=dtype)
+        p["bk"] = torch.zeros((*lead, KV * hd), dtype=dtype)
+        p["bv"] = torch.zeros((*lead, KV * hd), dtype=dtype)
+    return p
+
+
+def project_qkv(p, x, cfg):
+    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
+            v.reshape(B, S, KV, hd))
+
+
+# ---------------------------------------------------------------------------
+# flash attention: chunked forward + chunked two-pass backward
+# ---------------------------------------------------------------------------
+def _block_mask(q_pos, kv_pos, Sq, Skv, causal, window):
+    mask = (kv_pos[None, :] <= Skv - 1) & (q_pos[:, None] <= Sq - 1)
+    if causal:
+        mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+    return mask
+
+
+def _relevant(q_lo, q_hi, k_lo, k_hi, causal, window) -> bool:
+    """Does kv block [k_lo, k_hi) intersect the attention span of q block
+    [q_lo, q_hi)?"""
+    rel = True
+    if causal:
+        rel = rel and k_lo <= q_hi - 1
+    if window is not None:
+        rel = rel and k_hi > q_lo - window + 1
+    return rel
+
+
+def _pad_seq(x, n):
+    return F.pad(x, (0, 0, 0, 0, 0, n)) if n else x
+
+
+def _chunks(Sq, Skv, q_chunk, kv_chunk):
+    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Skv)
+    return q_chunk, kv_chunk, -(-Sq // q_chunk), -(-Skv // kv_chunk)
+
+
+def _flash_fwd_impl(q, k, v, causal, window, q_chunk, kv_chunk):
+    """Returns (out (B,Sq,H,hd), lse (B,Sq,G,KV) fp32)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    q_chunk, kv_chunk, nq, nk = _chunks(Sq, Skv, q_chunk, kv_chunk)
+    qp = _pad_seq(q, nq * q_chunk - Sq).reshape(B, nq, q_chunk, KV, G, hd)
+    kp = _pad_seq(k, nk * kv_chunk - Skv).reshape(B, nk, kv_chunk, KV, hd)
+    vp = _pad_seq(v, nk * kv_chunk - Skv).reshape(B, nk, kv_chunk, KV, hd)
+    scale = 1.0 / (hd ** 0.5)
+    dev = q.device
+    outs, lses = [], []
+    for qi in range(nq):
+        q_lo = qi * q_chunk
+        q_pos = q_lo + torch.arange(q_chunk, device=dev)
+        qblk = qp[:, qi].float()
+        m = torch.full((B, q_chunk, G, KV), NEG_INF, device=dev)
+        l = torch.zeros((B, q_chunk, G, KV), device=dev)
+        acc = torch.zeros((B, q_chunk, G, KV, hd), device=dev)
+        for ki in range(nk):
+            k_lo = ki * kv_chunk
+            if not _relevant(q_lo, q_lo + q_chunk, k_lo, k_lo + kv_chunk,
+                             causal, window):
+                continue
+            kv_pos = k_lo + torch.arange(kv_chunk, device=dev)
+            vblk = vp[:, ki]
+            s = torch.einsum("bqkgh,bskh->bqgks", qblk,
+                             kp[:, ki].float()) * scale
+            mask = _block_mask(q_pos, kv_pos, Sq, Skv, causal, window)
+            s = torch.where(mask[None, :, None, None, :], s,
+                            torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqgks,bskh->bqgkh", p.to(vblk.dtype).float(), vblk.float())
+            m = m_new
+        lc = torch.clamp_min(l, 1e-30)
+        outs.append((acc / lc[..., None]).to(q.dtype))
+        lses.append(m + torch.log(lc))
+    out = torch.stack(outs, 1).permute(0, 1, 2, 4, 3, 5)
+    out = out.reshape(B, nq * q_chunk, H, hd)
+    lse = torch.stack(lses, 1).reshape(B, nq * q_chunk, G, KV)
+    return out[:, :Sq], lse[:, :Sq]
+
+
+def _flash_bwd_impl(q, k, v, out, lse, do, causal, window, q_chunk,
+                    kv_chunk):
+    """Two-pass chunked backward (dq pass; dk/dv pass)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    q_chunk, kv_chunk, nq, nk = _chunks(Sq, Skv, q_chunk, kv_chunk)
+    scale = 1.0 / (hd ** 0.5)
+    dev = q.device
+    pq = nq * q_chunk - Sq
+    qp = _pad_seq(q, pq).reshape(B, nq, q_chunk, KV, G, hd)
+    dop = _pad_seq(do, pq).reshape(B, nq, q_chunk, KV, G, hd)
+    op = _pad_seq(out, pq).reshape(B, nq, q_chunk, KV, G, hd)
+    lsep = F.pad(lse, (0, 0, 0, 0, 0, pq)).reshape(B, nq, q_chunk, G, KV)
+    kp = _pad_seq(k, nk * kv_chunk - Skv).reshape(B, nk, kv_chunk, KV, hd)
+    vp = _pad_seq(v, nk * kv_chunk - Skv).reshape(B, nk, kv_chunk, KV, hd)
+    # D = rowsum(do * out) per (b, q, g, kv)
+    Dp = torch.einsum("bnqkgh,bnqkgh->bnqgk", dop.float(), op.float())
+
+    def p_block(qi, ki):
+        q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        kv_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+        s = torch.einsum("bqkgh,bskh->bqgks", qp[:, qi].float(),
+                         kp[:, ki].float()) * scale
+        mask = _block_mask(q_pos, kv_pos, Sq, Skv, causal, window)
+        s = torch.where(mask[None, :, None, None, :], s,
+                        torch.full_like(s, NEG_INF))
+        return torch.exp(s - lsep[:, qi][..., None])
+
+    def rel(qi, ki):
+        return _relevant(qi * q_chunk, (qi + 1) * q_chunk, ki * kv_chunk,
+                         (ki + 1) * kv_chunk, causal, window)
+
+    # ---- pass 1: dq per q block ----
+    dqs = []
+    for qi in range(nq):
+        dq = torch.zeros((B, q_chunk, KV, G, hd), device=dev)
+        doblk = dop[:, qi].float()
+        for ki in range(nk):
+            if not rel(qi, ki):
+                continue
+            p = p_block(qi, ki)
+            dp = torch.einsum("bqkgh,bskh->bqgks", doblk, vp[:, ki].float())
+            ds = p * (dp - Dp[:, qi][..., None])
+            dq = dq + torch.einsum("bqgks,bskh->bqkgh", ds,
+                                   kp[:, ki].float()) * scale
+        dqs.append(dq)
+    dq = torch.stack(dqs, 1).reshape(B, nq * q_chunk, H, hd)
+
+    # ---- pass 2: dk/dv per kv block ----
+    dks, dvs = [], []
+    for ki in range(nk):
+        dk = torch.zeros((B, kv_chunk, KV, hd), device=dev)
+        dv = torch.zeros((B, kv_chunk, KV, hd), device=dev)
+        for qi in range(nq):
+            if not rel(qi, ki):
+                continue
+            p = p_block(qi, ki)
+            doblk = dop[:, qi].float()
+            dv = dv + torch.einsum("bqgks,bqkgh->bskh", p, doblk)
+            dp = torch.einsum("bqkgh,bskh->bqgks", doblk, vp[:, ki].float())
+            ds = p * (dp - Dp[:, qi][..., None])
+            dk = dk + torch.einsum("bqgks,bqkgh->bskh", ds,
+                                   qp[:, qi].float()) * scale
+        dks.append(dk)
+        dvs.append(dv)
+    dk = torch.stack(dks, 1).reshape(B, nk * kv_chunk, KV, hd)
+    dv = torch.stack(dvs, 1).reshape(B, nk * kv_chunk, KV, hd)
+    return (dq[:, :Sq].to(q.dtype), dk[:, :Skv].to(k.dtype),
+            dv[:, :Skv].to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk):
+        out, lse = _flash_fwd_impl(q, k, v, causal, window, q_chunk,
+                                   kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def chunked_attention(q, k, v, *, causal=True, window=None, q_chunk=512,
+                      kv_chunk=512, pallas_fn=None):
+    """Flash attention (see the module docstring).
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H % KV == 0.
+    ``window``: query at position i attends to [i-window+1, i].
+    """
+    if pallas_fn is not None and causal and q.shape[1] == k.shape[1]:
+        return pallas_fn(q, k, v, window=window)
+    return _Flash.apply(q, k, v, causal, window, q_chunk, kv_chunk)

@@ -31,6 +31,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.models.params import (  # noqa: F401
+    params_from_reference, params_to_reference, reference_leaves,
+)
 
 _MOBILENET_CFG = [  # (out_channels, stride)
     (64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2),
@@ -189,55 +192,3 @@ def build_cnn(cfg, *, device="cuda", seed: int = 0) -> nn.Module:
     model = cls(cfg, gen).to(dev)
     model.cfg = cfg
     return model
-
-
-# ---------------------------------------------------------------------------
-# the reference's parameter tree <-> the module's parameters
-# ---------------------------------------------------------------------------
-def _path(name: str):
-    return tuple(int(p) if p.isdigit() else p for p in name.split("."))
-
-
-def reference_leaves(model: nn.Module):
-    """The module's parameters in the reference tree's leaf order
-    (``jax.tree.leaves``: dict keys sorted, list entries in order)."""
-    return [p for _, p in sorted(model.named_parameters(),
-                                 key=lambda kv: _path(kv[0]))]
-
-
-def _walk(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _walk(v, prefix + (str(k),))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _walk(v, prefix + (str(i),))
-    else:
-        yield prefix, np.asarray(tree)
-
-
-def params_from_reference(tree) -> dict:
-    """State dict for ``load_state_dict`` from the reference's parameter
-    tree of numpy arrays."""
-    return {".".join(path): torch.from_numpy(np.array(arr, order="C"))
-            for path, arr in _walk(tree)}
-
-
-def params_to_reference(model: nn.Module):
-    """The reference's parameter tree of numpy arrays for ``model``; the
-    inverse of ``params_from_reference``."""
-    root: dict = {}
-    for name, p in model.named_parameters():
-        arr = p.detach().cpu().numpy()
-        node, path = root, _path(name)
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
-
-    def listify(node):
-        if not isinstance(node, dict):
-            return node
-        if all(isinstance(k, int) for k in node):
-            return [listify(node[i]) for i in range(len(node))]
-        return {k: listify(v) for k, v in node.items()}
-    return listify(root)

@@ -1,0 +1,107 @@
+"""Transformer building blocks (``repro.models.layers``): initialisers,
+RMSNorm, rotary embeddings, MLPs, embedding and unembedding.
+
+Functions over tensors, with the reference's layouts and numerics:
+
+* weights are ``(in, out)`` and applied as ``x @ w``;
+* RMSNorm takes its statistics in fp32, eps 1e-6, and scales by
+  ``(1 + w)`` with ``w`` an fp32 vector initialised to zeros;
+* RoPE rotates the two halves of the head (not interleaved pairs), with
+  frequencies ``1 / theta ** (arange(half) / half)`` in fp32;
+* the GELU MLP uses the tanh approximation (``jax.nn.gelu``'s default).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# initialisers (fp32 normal draws cast to the parameter dtype; the
+# reference's ``jax.random`` draws cannot be reproduced, so parity starts
+# from the reference's parameters)
+# ---------------------------------------------------------------------------
+def dense_init(gen, shape, dtype, scale=None):
+    """Normal * 1/sqrt(fan_in), fan_in = shape[-2] (the input dim of one
+    (in, out) weight, also of a stacked (n, in, out) one)."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+
+
+def embed_init(gen, shape, dtype):
+    return (torch.randn(shape, generator=gen) * 0.02).to(dtype)
+
+
+def rmsnorm_init(*shape):
+    return torch.zeros(shape, dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rmsnorm(x, w, eps=1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + w.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim, theta, device=None):
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)     # an fp32 power of a scalar base
+
+
+def apply_rope(x, positions, theta):
+    """x: (..., S, H, hd); positions: (..., S) int."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = rope_frequencies(hd, theta, x.device)            # (half,)
+    angles = positions[..., None].float() * freqs              # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1 = x[..., :half].float()
+    x2 = x[..., half:2 * half].float()
+    rot1 = x1 * cos - x2 * sin
+    rot2 = x2 * cos + x1 * sin
+    out = torch.cat([rot1, rot2, x[..., 2 * half:].float()], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+def mlp_init(gen, d_model, d_ff, kind, dtype, lead=()):
+    """``lead`` prepends a stacking dim (the layers of a scanned block)."""
+    if kind == "swiglu":
+        return {"w_gate": dense_init(gen, (*lead, d_model, d_ff), dtype),
+                "w_up": dense_init(gen, (*lead, d_model, d_ff), dtype),
+                "w_down": dense_init(gen, (*lead, d_ff, d_model), dtype)}
+    return {"w_up": dense_init(gen, (*lead, d_model, d_ff), dtype),
+            "w_down": dense_init(gen, (*lead, d_ff, d_model), dtype)}
+
+
+def mlp_apply(p, x, kind):
+    if kind == "swiglu":
+        gate = F.silu(x @ p["w_gate"])
+        return (gate * (x @ p["w_up"])) @ p["w_down"]
+    return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+# ---------------------------------------------------------------------------
+def embed(table, tokens):
+    """tokens: int32 or int64 ids -> rows of ``table``."""
+    return F.embedding(tokens, table)
+
+
+def unembed(table, x):
+    """A separate (d_model, vocab) head: ``x @ table``."""
+    return x @ table

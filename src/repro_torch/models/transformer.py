@@ -1,0 +1,209 @@
+"""The dense transformer LM (``repro.models.transformer``, train path).
+
+``Model`` holds the reference's parameter tree as the module's parameters,
+named by their paths in the tree, so ``reference_leaves``,
+``params_from_reference`` and ``params_to_reference`` line the two up leaf
+for leaf:
+
+* depth is organised as the reference organises it: each position j of
+  ``cfg.layer_pattern`` has one stacked tree ``blocks.j`` whose leaves
+  carry a leading dim of ``n_blocks`` (the reference's ``lax.scan`` over
+  pattern blocks), and the remainder layers are ``tail.i``, unstacked;
+* weights are (in, out) for ``x @ W``; norms are fp32 vectors even in a
+  bf16 model;
+* the leaf order is the sorted keys: ``blocks.j.attn.{wk,wo,wq,wv}``,
+  ``blocks.j.mlp.*``, ``blocks.j.norm{1,2}``, ``embed.table``,
+  ``final_norm``, ``tail.*``, ``unembed.table``.
+
+MLLess cuts each flattened gradient leaf into 256-wide blocks and the flat
+strategies pack the leaves in this order, so the layout is semantics, not
+taste (SmolLM-135M has 12 leaves, not one per layer and matrix).
+
+``forward(batch)`` is the reference's ``apply``: token embedding, the
+pattern blocks (each block recomputed in the backward, as
+``jax.checkpoint`` does, here with ``torch.utils.checkpoint``), the tail
+layers, the final norm and a separate unembedding over the vocab padded to
+a multiple of 128.  Layer kinds GLOBAL and LOCAL (sliding window) are
+supported; MoE, RG-LRU, RWKV, encoder-decoder and VLM configs raise.  With
+``use_kernel`` (the reference's ``use_pallas``) the causal self-attention
+goes through ``kernels.ops.swa_attention``, the Hopper kernel.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import GLOBAL, LOCAL
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.models import attention, layers
+from repro_torch.models import params as _params
+from repro_torch.models.params import (  # noqa: F401
+    params_from_reference, reference_leaves,
+)
+
+_UNSUPPORTED = ("ROADMAP.md, Open items §1, slice 4: the transformer LM "
+                "family beyond the dense attention layers is not ported yet")
+
+
+def _check_supported(cfg):
+    what = None
+    if cfg.is_moe:
+        what = "MoE layers"
+    elif cfg.is_encoder_decoder:
+        what = "encoder-decoder models"
+    elif cfg.family == "vlm":
+        what = "VLM front ends"
+    elif any(kind not in (GLOBAL, LOCAL) for kind in cfg.layer_pattern):
+        what = f"layer kinds {sorted(set(cfg.layer_pattern) - {GLOBAL, LOCAL})}"
+    if what is not None:
+        raise NotImplementedError(f"{cfg.name}: {what} ({_UNSUPPORTED})")
+
+
+def _split_depth(cfg):
+    P = len(cfg.layer_pattern)
+    n_blocks = cfg.n_layers // P
+    return n_blocks, cfg.layer_pattern[:cfg.n_layers - n_blocks * P]
+
+
+def _tree_module(tree) -> nn.Module:
+    """A module whose parameters are the tensors of a nested dict."""
+    mod = nn.Module()
+    for name, val in tree.items():
+        if isinstance(val, dict):
+            mod.add_module(name, _tree_module(val))
+        else:
+            mod.register_parameter(name, nn.Parameter(val))
+    return mod
+
+
+def _module_tree(mod: nn.Module) -> dict:
+    tree = {name: p for name, p in mod.named_parameters(recurse=False)}
+    for name, child in mod.named_children():
+        tree[name] = _module_tree(child)
+    return tree
+
+
+def _layer_tree(gen, cfg, dtype, lead=()):
+    """One layer's parameters (``lead`` prepends the stacking dim)."""
+    return {"norm1": layers.rmsnorm_init(*lead, cfg.d_model),
+            "norm2": layers.rmsnorm_init(*lead, cfg.d_model),
+            "attn": attention.attention_init(gen, cfg, dtype, lead),
+            "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
+                                   dtype, lead)}
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+class _Table(nn.Module):
+    def __init__(self, table):
+        super().__init__()
+        self.table = nn.Parameter(table)
+
+
+class Model(nn.Module):
+    def __init__(self, cfg, *, use_kernel: bool = False, remat: bool = True,
+                 gen=None):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.use_kernel = use_kernel
+        self.remat = remat
+        self.n_blocks, self.tail_kinds = _split_depth(cfg)
+        dtype = getattr(torch, cfg.dtype)
+        gen = gen if gen is not None else torch.Generator().manual_seed(0)
+        self.embed = _Table(layers.embed_init(
+            gen, (self.padded_vocab, cfg.d_model), dtype))
+        self.unembed = _Table(layers.dense_init(
+            gen, (cfg.d_model, self.padded_vocab), dtype))
+        self.final_norm = nn.Parameter(layers.rmsnorm_init(cfg.d_model))
+        self.blocks = nn.ModuleList(
+            [_tree_module(_layer_tree(gen, cfg, dtype, (self.n_blocks,)))
+             for _ in cfg.layer_pattern] if self.n_blocks else [])
+        self.tail = nn.ModuleList(
+            [_tree_module(_layer_tree(gen, cfg, dtype))
+             for _ in self.tail_kinds])
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 128 (the extra logits are never
+        labelled, but they enter the logsumexp, as in the reference)."""
+        return -(-self.cfg.vocab_size // 128) * 128
+
+    def init(self, seed: int = 0):
+        """Redraws every parameter from ``seed`` (in place)."""
+        fresh = Model(self.cfg, gen=torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            for p, q in zip(self.parameters(), fresh.parameters()):
+                p.copy_(q)
+        return self
+
+    # ------------------------------------------------------------------
+    def _layer(self, p, kind, x, positions):
+        """Pre-norm layer: attention, then the MLP."""
+        cfg = self.cfg
+        h = layers.rmsnorm(x, p["norm1"])
+        q, k, v = attention.project_qkv(p["attn"], h, cfg)
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+        o = attention.chunked_attention(
+            q, k, v, causal=True, window=cfg.window if kind == LOCAL else None,
+            pallas_fn=kops.swa_attention if self.use_kernel else None)
+        B, S = o.shape[:2]
+        x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+        h = layers.rmsnorm(x, p["norm2"])
+        return x + layers.mlp_apply(p["mlp"], h, cfg.mlp)
+
+    def _block(self, x, positions, block_params):
+        for kind, p in zip(self.cfg.layer_pattern, block_params):
+            x = self._layer(p, kind, x, positions)
+        return x
+
+    def forward(self, batch):
+        """batch["tokens"]: (B, S) int -> (logits (B, S, padded vocab) in
+        the model dtype, aux 0-dim fp32; 0 for dense layers)."""
+        tokens = batch["tokens"]
+        x = layers.embed(self.embed.table, tokens)
+        positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+        # one unbind per stacked leaf: its backward is one stack
+        stacked = [_map(lambda t: t.unbind(0), _module_tree(m))
+                   for m in self.blocks]
+        for i in range(self.n_blocks):
+            block = [_map(lambda ts: ts[i], tree) for tree in stacked]
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(self._block, x, positions, block,
+                               use_reentrant=False)
+            else:
+                x = self._block(x, positions, block)
+        for kind, m in zip(self.tail_kinds, self.tail):
+            x = self._layer(_module_tree(m), kind, x, positions)
+        x = layers.rmsnorm(x, self.final_norm)
+        logits = layers.unembed(self.unembed.table, x)
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def build_model(cfg, *, use_kernel: bool = False, remat: bool = True,
+                device="cuda", seed: int = 0) -> Model:
+    """The LM for ``cfg`` on ``device``, weights drawn from ``seed`` (a
+    ``torch.Generator``; the reference's ``jax.random`` draws cannot be
+    reproduced, so parity starts from ``params_from_reference``)."""
+    dev = resolve_device(device)
+    model = Model(cfg, use_kernel=use_kernel, remat=remat,
+                  gen=torch.Generator().manual_seed(seed))
+    return model.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# the reference's parameter tree <-> the module's parameters
+# (``reference_leaves`` and ``params_from_reference`` are the shared ones)
+# ---------------------------------------------------------------------------
+def params_to_reference(model: Model) -> dict:
+    """The reference's tree of numpy arrays, with its empty lists."""
+    tree = _params.params_to_reference(model)
+    tree.setdefault("blocks", [])
+    tree.setdefault("tail", [])
+    return tree

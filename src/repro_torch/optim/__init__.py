@@ -1,3 +1,3 @@
 from repro_torch.optim.optimizers import (  # noqa: F401
-    Optimizer, adamw, apply_updates, sgd,
+    Optimizer, adamw, apply_updates, bias_corrections, sgd,
 )

@@ -13,6 +13,9 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
@@ -45,15 +48,23 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
     return Optimizer(init, update)
 
 
+def bias_corrections(b1: float, b2: float, step: int, device):
+    """(c1, c2) = (1 - b1**step, 1 - b2**step) as fp32 tensors on
+    ``device``, computed in fp32 as the reference computes them."""
+    b = torch.tensor([b1, b2], dtype=torch.float32)
+    c = 1.0 - b ** torch.tensor(float(step), dtype=torch.float32)
+    c = c.to(device)
+    return c[0], c[1]
+
+
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.0, use_fused: bool = False) -> Optimizer:
     """AdamW with the reference's formula: weight decay acts on the old
-    parameter inside the lr term."""
-    if use_fused:
-        raise NotImplementedError(
-            "adamw(use_fused=True) needs the fused AdamW kernel "
-            "(ROADMAP.md, TPU kernels to port: fused_adamw_flat), which is "
-            "not ported yet")
+    parameter inside the lr term.  ``use_fused`` runs the fused AdamW
+    kernel (``kernels.ops.fused_adamw``) once per leaf; otherwise the
+    update is its plain version, ``kernels.ref.fused_adamw_flat``, with
+    the same fp32 bias corrections (``bias_corrections``), so the two give
+    the same bits."""
 
     def init(params):
         return {"step": 0, "m": _zeros32(params), "v": _zeros32(params)}
@@ -61,15 +72,20 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     @torch.no_grad()
     def update(grads, state, params):
         step = state["step"] + 1
-        c1 = 1.0 - b1 ** step
-        c2 = 1.0 - b2 ** step
+        c1, c2 = bias_corrections(b1, b2, step, params[0].device)
         ups = []
         for g, m, v, p in zip(grads, state["m"], state["v"], params):
-            gf = g.float()
-            m.mul_(b1).add_((1 - b1) * gf)
-            v.mul_(b2).add_((1 - b2) * gf * gf)
-            u = -lr * ((m / c1) / (torch.sqrt(v / c2) + eps)
-                       + weight_decay * p.float())
+            if use_fused:
+                u, _, _ = kops.fused_adamw(g, m, v, p, lr=lr, b1=b1, b2=b2,
+                                           eps=eps, wd=weight_decay, c1=c1,
+                                           c2=c2)
+                ups.append(u)
+                continue
+            u, m_new, v_new = kref.fused_adamw_flat(
+                g, m, v, p, c1, c2, lr=lr, b1=b1, b2=b2, eps=eps,
+                wd=weight_decay)
+            m.copy_(m_new)
+            v.copy_(v_new)
             ups.append(u.to(p.dtype))
         return ups, {"step": step, "m": state["m"], "v": state["v"]}
 

@@ -228,3 +228,153 @@ def test_gloo_collectives_take_cuda_tensors(cuda, tmp_path):
     for p in procs:
         _, err = p.communicate(timeout=300)
         assert p.returncode == 0, err[-2000:]
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels: fused AdamW and sliding-window attention
+# ---------------------------------------------------------------------------
+from repro_torch.kernels import fused_adamw as tfa  # noqa: E402
+from repro_torch.kernels import swa_attention as tswa  # noqa: E402
+from repro_torch.optim import bias_corrections  # noqa: E402
+
+# every leaf of full-width SmolLM-135M (reference order), then ragged n
+SMOLLM_LEAVES = [(30, 576, 192), (30, 576, 576), (30, 576, 576),
+                 (30, 576, 192), (30, 1536, 576), (30, 576, 1536),
+                 (30, 576, 1536), (30, 576), (30, 576), (49152, 576),
+                 (576,), (576, 49152)]
+ADAMW_KW = dict(lr=3e-3, b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+
+
+def _adamw_operands(n, gdtype, pdtype, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(n, generator=gen, device=dev).to(gdtype)
+    m = torch.randn(n, generator=gen, device=dev) * 0.1
+    v = torch.rand(n, generator=gen, device=dev) * 0.01
+    p = torch.randn(n, generator=gen, device=dev).to(pdtype)
+    return g, m, v, p
+
+
+@pytest.mark.parametrize("shape", SMOLLM_LEAVES + [(1,), (7,), (255,),
+                                                   (257,), (100_003,)],
+                         ids=str)
+@pytest.mark.parametrize("gdtype,pdtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32)], ids=["bf16", "f32g-bf16p", "f32"])
+def test_fused_adamw_kernel_is_bit_exact(cuda, shape, gdtype, pdtype):
+    """Explicitly rounded fp32 operations in the plain version's order
+    (and a correctly rounded root in both): u, m' and v' bit for bit."""
+    n = int(np.prod(shape))
+    g, m, v, p = _adamw_operands(n, gdtype, pdtype, cuda, seed=n % 1000)
+    c1, c2 = bias_corrections(0.9, 0.95, 3, cuda)
+    want = tref.fused_adamw_flat(g, m, v, p, c1, c2, **ADAMW_KW)
+    before = tfa.LAUNCHES["fused_adamw_flat"]
+    u, m2, v2 = tfa.fused_adamw_flat(g, m, v, p, c1, c2, **ADAMW_KW)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["fused_adamw_flat"] == before + 1
+    assert m2 is m and v2 is v and u.dtype == pdtype
+    assert torch.equal(m, want[1]) and torch.equal(v, want[2])
+    assert torch.equal(u, want[0].to(pdtype))
+
+
+def test_optimizer_fused_and_plain_paths_agree_on_cuda(cuda):
+    """``adamw(use_fused=True)`` (one launch per leaf) and the plain path
+    give the same parameters and moments over three steps."""
+    from repro_torch import optim
+    shapes = [(64, 48), (1000,), (3, 5, 7)]
+    runs = []
+    for fused in (True, False):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        params = [torch.randn(s, generator=gen, device=cuda).bfloat16()
+                  for s in shapes]
+        opt = optim.adamw(3e-3, weight_decay=0.1, use_fused=fused)
+        state = opt.init(params)
+        for _ in range(3):
+            grads = [torch.randn(s, generator=gen, device=cuda).bfloat16()
+                     for s in shapes]
+            ups, state = opt.update(grads, state, params)
+            optim.apply_updates(params, ups)
+        runs.append(params + state["m"] + state["v"])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+# (B, S, H, KV, hd, window, causal): SmolLM's train and long shapes,
+# windows 64 and 1024 (Gemma-3), a ragged S, hd 96 (Phi-3) and 128
+# (Qwen1.5), 16 heads on one kv head, and a full (non-causal) call
+SWA_GPU_CASES = [
+    (16, 128, 9, 3, 64, None, True),
+    (8, 2048, 9, 3, 64, None, True),
+    (2, 2048, 9, 3, 64, 64, True),
+    (2, 2048, 8, 4, 64, 1024, True),
+    (2, 1000, 9, 3, 64, None, True),
+    (2, 1000, 9, 3, 64, 100, True),
+    (1, 512, 32, 32, 96, None, True),
+    (1, 512, 20, 20, 128, 128, True),
+    (1, 256, 16, 1, 64, None, True),
+    (2, 300, 4, 2, 32, None, False),
+]
+
+
+@pytest.mark.parametrize("case", SWA_GPU_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_swa_attention_kernel_matches_plain(cuda, case, dtype):
+    """Both compute in fp32 from the same inputs, in other orders: 2e-5
+    in fp32; in bf16 each rounds its fp32 result once, so they may sit
+    one bf16 step (2^-7 relative) apart."""
+    B, S, H, KV, hd, window, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(S + H + hd)
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=cuda)
+               .to(dtype) for n in (H, KV, KV))
+    before = tswa.LAUNCHES["swa_attention_fwd"]
+    got = tswa.swa_attention_fwd(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert tswa.LAUNCHES["swa_attention_fwd"] == before + 1
+    want = tref.swa_attention(q, k, v, window=window, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-5)
+
+
+def test_swa_attention_gradient_on_cuda(cuda):
+    """The gradient through ``ops.swa_attention`` (kernel forward, chunked
+    flash backward) against plain autograd through the naive version,
+    fp32 with TF32 off: 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = [torch.randn(1, 256, n, 64, generator=gen, device=cuda)
+           for n in (4, 2, 2)]
+    a = [t.clone().requires_grad_() for t in qkv]
+    b = [t.clone().requires_grad_() for t in qkv]
+    before = tswa.LAUNCHES["swa_attention_fwd"]
+    torch.sum(torch.tanh(tops.swa_attention(*a, window=64))).backward()
+    torch.sum(torch.tanh(tref.swa_attention(*b, window=64))).backward()
+    assert tswa.LAUNCHES["swa_attention_fwd"] == before + 1
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad, y.grad, rtol=0, atol=1e-4)
+
+
+def test_lm_kernel_wrappers_validate_inputs(cuda):
+    """They raise on what the kernels do not take; they never give way to
+    the plain version."""
+    q = torch.randn(1, 64, 8, 320, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 320"):
+        tswa.swa_attention_fwd(q, q[:, :, :4], q[:, :, :4])
+    q = torch.randn(1, 64, 4, 64, device=cuda)
+    with pytest.raises(TypeError, match="share"):
+        tswa.swa_attention_fwd(q, q.bfloat16(), q)
+    with pytest.raises(TypeError, match="share"):
+        tswa.swa_attention_fwd(q.half(), q.half(), q.half())
+    g, m, v, p = _adamw_operands(100, torch.float32, torch.float32, cuda, 0)
+    c1, c2 = bias_corrections(0.9, 0.95, 1, cuda)
+    with pytest.raises(TypeError, match="unsupported p dtype"):
+        tfa.fused_adamw_flat(g, m, v, p.half(), c1, c2, **ADAMW_KW)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.fused_adamw_flat(g, m, v, torch.randn(200, device=cuda)[::2],
+                             c1, c2, **ADAMW_KW)
+    with pytest.raises(ValueError, match="c1 is on"):
+        tfa.fused_adamw_flat(g, m, v, p, c1.cpu(), c2, **ADAMW_KW)

@@ -29,7 +29,12 @@ def _imported_roots(path):
 
 def test_port_has_modules_to_check():
     assert len(FILES) > 10
-    assert ROOT / "src" / "repro_torch" / "kernels" / "ops.py" in FILES
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("kernels/ops.py", "kernels/fused_adamw.py",
+                "kernels/swa_attention.py", "models/transformer.py",
+                "models/attention.py", "models/layers.py", "models/params.py",
+                "configs/smollm_135m.py", "configs/gemma3_4b.py"):
+        assert port / rel in FILES, rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

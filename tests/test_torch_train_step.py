@@ -135,8 +135,27 @@ def test_optimizers_match_reference(make):
 
 
 def test_fused_adamw_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="fused_adamw"):
-        optim.adamw(1e-3, use_fused=True)
+    """Kept under its old name: ``adamw(use_fused=True)`` no longer
+    raises.  On CPU tensors the fused path runs the kernel's plain version,
+    launches nothing, and gives the unfused path's bits over three steps
+    (the same fp32 operations in the same order)."""
+    from repro_torch.kernels import fused_adamw
+    params = _leaves(3)
+    runs = []
+    before = dict(fused_adamw.LAUNCHES)
+    for fused in (True, False):
+        opt = optim.adamw(1e-2, weight_decay=0.1, use_fused=fused)
+        tp = [torch.from_numpy(p.copy()) for p in params]
+        st = opt.init(tp)
+        for seed in (4, 5, 6):
+            u, st = opt.update([torch.from_numpy(g) for g in _leaves(seed)],
+                               st, tp)
+            optim.apply_updates(tp, u)
+        runs.append((tp, st))
+    assert fused_adamw.LAUNCHES == before
+    (pf, sf), (pu, su) = runs
+    for a, b in zip(pf + sf["m"] + sf["v"], pu + su["m"] + su["v"]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 # ---------------------------------------------------------------------------
