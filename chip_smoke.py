@@ -43,11 +43,27 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    entry point's default lr 3e-3 on the same steps, reduced logits on the
    card against the CPU, SPIRT and MLLess for 3 steps each, 5 steps at
    seq 2048, and a profiler window.
+7. rwkv: the WKV recurrence kernel against its plain chunked twin (and
+   the exact recurrence where T <= 128) at N 16, 32 and 64, chunks 1 to
+   64, a ragged T, B*H from 1 to 256, fp32 and bf16, decays up to the
+   strong ones where the Pallas body overflows, and the gradient through
+   ``ops.wkv6`` on the card against the CPU; its times at rwkv6-7b's train
+   shape and a long shape against bound and plain twin; then the LM entry
+   point on full-width rwkv6-7b cut to 4 layers (bf16, batch 4 x seq 512,
+   fused AdamW lr 3e-4, 20 steps, one-rank NCCL group) with 8 WKV and 17
+   fused-AdamW launches a step, two steps against the kernel-free path, a
+   record of the default lr 3e-3 on both paths, MLLess for 2 steps and a
+   profiler window; the full 32-layer model's forward at batch 4 x seq
+   2048 through the kernel (32 launches) against the kernel-free forward,
+   with the kernel-free forward at another chunk as the witness of what
+   rounding alone does, in bf16 and in fp32; reduced logits on the card
+   against the CPU.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
 """
 import copy
+import functools
 import json
 import math
 import os
@@ -998,18 +1014,20 @@ def lm_kernel_times(dev):
     return out
 
 
-def lm_launches():
+def _lm_counters():
     from repro_torch.kernels import block_significance as bs
     from repro_torch.kernels import fused_adamw as fa
     from repro_torch.kernels import swa_attention as swa
-    return {**fa.LAUNCHES, **swa.LAUNCHES, **bs.LAUNCHES}
+    from repro_torch.kernels import wkv6
+    return fa.LAUNCHES, swa.LAUNCHES, wkv6.LAUNCHES, bs.LAUNCHES
+
+
+def lm_launches():
+    return {k: n for counts in _lm_counters() for k, n in counts.items()}
 
 
 def reset_lm_launches():
-    from repro_torch.kernels import block_significance as bs
-    from repro_torch.kernels import fused_adamw as fa
-    from repro_torch.kernels import swa_attention as swa
-    for counts in (fa.LAUNCHES, swa.LAUNCHES, bs.LAUNCHES):
+    for counts in _lm_counters():
         for k in counts:
             counts[k] = 0
 
@@ -1021,7 +1039,7 @@ def expected_lm_launches(steps, microbatches=1, mlless=False):
     MLLess's filter once per leaf."""
     n = {"fused_adamw_flat": 12 * steps,
          "swa_attention_fwd": 2 * 30 * microbatches * steps,
-         "block_norms": 0, "masked_filter": 0}
+         "wkv6_chunked": 0, "block_norms": 0, "masked_filter": 0}
     if mlless:
         n["block_norms"] = n["masked_filter"] = 12 * steps
     return n
@@ -1195,11 +1213,10 @@ def lm_cuda_vs_cpu():
     b = next(lm_batches(token_stream(4 * 128 * 8, cfg.vocab_size), 4, 128))
     tokens = torch.from_numpy(b["tokens"])
     before = swa.LAUNCHES["swa_attention_fwd"]
+    model = build_model(cfg, use_kernel=True, device="cpu", seed=1)
     with torch.no_grad():
-        gpu, _ = build_model(cfg, use_kernel=True, device="cuda",
-                             seed=1)({"tokens": tokens.cuda()})
-        cpu, _ = build_model(cfg, use_kernel=True, device="cpu",
-                             seed=1)({"tokens": tokens})
+        gpu, _ = copy.deepcopy(model).cuda()({"tokens": tokens.cuda()})
+        cpu, _ = model({"tokens": tokens})
     check(swa.LAUNCHES["swa_attention_fwd"] == before + cfg.n_layers,
           "the card's forward did not go through the kernel")
     gpu = gpu.cpu()
@@ -1300,6 +1317,533 @@ def lm_phase():
     ]
 
 
+# ---------------------------------------------------------------------------
+# the RWKV slice: the WKV recurrence
+# ---------------------------------------------------------------------------
+RWKV_ARCH = "rwkv6-7b"
+WKV_SRC = "src/repro_torch/kernels/csrc/wkv6.cu"
+# AdamW's training state (12 B a parameter) of the full 32 layers, 84 GB,
+# does not fit one 80 GB card: training runs full width at 4 layers
+RWKV_LAYERS, RWKV_PARAMS, RWKV_FULL_PARAMS = 4, 1_344_425_984, 6_997_282_816
+RWKV_BATCH, RWKV_SEQ, RWKV_STEPS = 4, 512, 20
+# the entry point's default lr 3e-3 makes the loss of full-width rwkv6-7b
+# rise (PERF.md); 3e-4 trains
+RWKV_LR = 3e-4
+FULL_BATCH, FULL_SEQ = 4, 2048
+# (label, B, T, H, N, chunk, mu) with logw = -exp(N(mu, 0.5)): every N
+# and chunk the port calls, a ragged T (ops.wkv6 halves 64 to 32), chunk
+# 1, B*H from 1 to 256, decays from the reference test's to strong ones
+# (mu 3: the Pallas body's unmasked exp overflows)
+WKV_PARITY = [
+    ("N 16, chunk 16", 2, 64, 3, 16, 16, -2.0),
+    ("N 32, T 96, chunk 32", 2, 96, 8, 32, 32, -2.0),
+    ("T 37, chunk 1", 1, 37, 2, 32, 1, -2.0),
+    ("B*H 1", 1, 128, 1, 64, 64, -2.0),
+    ("rwkv6-7b train shape", 4, 512, 64, 64, 64, -2.0),
+    ("mild decay", 1, 256, 4, 64, 64, 0.0),
+    ("strong decay, mu 1.5", 1, 64, 2, 32, 64, 1.5),
+    ("strong decay, mu 3", 2, 128, 8, 64, 64, 3.0),
+]
+# fp32: the reference test's 1e-4; bf16: 5e-2 plus one bf16 step (each
+# side rounds its fp32 result once)
+WKV_F32_ATOL, WKV_BF16_ATOL, WKV_BF16_RTOL = 1e-4, 5e-2, 2 ** -7
+# the full-depth forward through the kernel against the kernel-free
+# forward, relative L2 of the logits.  Beside it a witness: the kernel-free
+# forward at chunk 64 against the same at its own chunk 128, the same
+# arithmetic summed in another order, so its spread is what a change of
+# the WKV outputs' last bits alone does to the logits through 32 layers.
+# fp32: the paths stay close, 1e-3.  bf16: the casts after the fp32 WKV
+# outputs round some elements the other way in every layer and the
+# random-init model carries that on; the kernel path may differ from the
+# kernel-free one by at most twice the witness's spread.
+FULL_REL_TOL = {"float32": 1e-3}
+FULL_WITNESS_CHUNK, FULL_WITNESS_FACTOR = 64, 2.0
+
+
+def wkv_operands(B, T, H, N, mu, dtype, dev, gen):
+    import torch
+    r, k, v = (torch.randn(B, T, H, N, generator=gen, device=dev) * 0.5
+               for _ in range(3))
+    lw = -torch.exp(torch.randn(B, T, H, N, generator=gen, device=dev) * 0.5
+                    + mu)
+    u = torch.randn(H, N, generator=gen, device=dev) * 0.5
+    return [t.to(dtype) for t in (r, k, v, lw, u)]
+
+
+def wkv_work(B, T, H, N):
+    """(operations, of them exp) that the recurrence needs, per token and
+    head: the state update diag(w) S + k^T v (3 N^2), r S (2 N^2), the
+    bonus (r . (u * k)) v and the sum (5 N), and w = exp(logw) (N exp).
+    This is the work of the function, whatever form computes it: the bound
+    counts this."""
+    n = B * T * H
+    return n * (5 * N * N + 6 * N), n * N
+
+
+def wkv_kernel_work(B, T, H, N, c):
+    """(operations, of them exp) of one kernel call as the chunked form
+    does it: per chunk and (b, h) the cumsum, the lower triangle of a with
+    the bonus on its diagonal, the decayed r and k, y and the state
+    update.  More than ``wkv_work`` (the pairwise decays of each chunk's
+    lower triangle); printed beside the bound, not used for it."""
+    P = c * (c - 1) // 2
+    ops = (5 * P * N + 4 * c * N * N + 2 * (P + c) * N + N * N + 9 * c * N
+           + N)
+    exps = P * N + 2 * c * N + N
+    n = B * H * (T // c)
+    return n * ops, n * exps
+
+
+def rwkv_kernel_parity(dev):
+    """The WKV kernel against its plain chunked twin (and the exact
+    recurrence for T <= 128) at ``WKV_PARITY`` in fp32 and bf16; the
+    gradient through ``ops.wkv6`` (the model's autograd Function) on the
+    card against the same on the CPU.  Returns the largest errors."""
+    import torch
+    from repro_torch.kernels import ref, wkv6
+    from repro_torch.models import rwkv6
+    gen = torch.Generator(device=dev).manual_seed(7)
+    err = {"f32": 0.0, "bf16": 0.0, "strong": 0.0, "exact": 0.0}
+    for label, B, T, H, N, c, mu in WKV_PARITY:
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = wkv_operands(B, T, H, N, mu, dtype, dev, gen)
+            got = wkv6.wkv6_chunked(*ins, chunk=c)
+            wants = {"twin": ref.wkv6_chunked(*ins, chunk=c)}
+            if T <= 128:
+                wants["exact"] = ref.wkv6(*ins)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and bool(torch.isfinite(got).all()),
+                  f"wkv6_chunked at {label} {dtype}: {got.dtype}, not "
+                  "finite or")
+            for name, want in wants.items():
+                diff = (got.float() - want.float()).abs()
+                if dtype == torch.float32:
+                    ok = bool((diff <= WKV_F32_ATOL).all())
+                    key = "exact" if name == "exact" else (
+                        "strong" if mu > 0 else "f32")
+                else:
+                    ok = bool((diff <= WKV_BF16_ATOL + WKV_BF16_RTOL
+                               * want.float().abs()).all())
+                    key = "bf16"
+                check(ok, f"wkv6_chunked at {label} {dtype} vs {name}: "
+                          f"max abs diff {float(diff.max()):.3e}")
+                err[key] = max(err[key], float(diff.max()))
+            del ins, got, wants
+    ins = wkv_operands(2, 256, 4, 64, -1.0, torch.float32, dev, gen)
+    gy = torch.randn(2, 256, 4, 64, generator=gen, device=dev)
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.cpu().requires_grad_() for t in ins]
+    rwkv6._WkvKernel.apply(*a).backward(gy)
+    rwkv6._WkvKernel.apply(*b).backward(gy.cpu())
+    gerr = max(float((x.grad.cpu() - y.grad).abs().max())
+               for x, y in zip(a, b))
+    check(gerr <= 1e-4, f"wkv6 gradient, card vs CPU: {gerr:.3e}")
+    err["grad"] = gerr
+    log(f"[rwkv] wkv6_chunked against its plain chunked twin at "
+        f"{len(WKV_PARITY)} shapes x fp32/bf16 "
+        f"({'; '.join(c[0] for c in WKV_PARITY)}): max abs err fp32 "
+        f"{err['f32']:.3e}, strong decay {err['strong']:.3e} (tol "
+        f"{WKV_F32_ATOL}), against the exact recurrence (T <= 128) "
+        f"{err['exact']:.3e} (tol {WKV_F32_ATOL}); bf16 {err['bf16']:.3e} "
+        f"(tol {WKV_BF16_ATOL} + one bf16 step); no NaN; gradient through "
+        f"ops.wkv6 (B 2, T 256, H 4, N 64), card vs CPU, max abs err "
+        f"{gerr:.3e} (tol 1e-4)")
+    return err
+
+
+def rwkv_kernel_times(dev):
+    """The kernel at rwkv6-7b's train shape (B 4, T 512) and a long shape
+    (B 4, T 2048), H 64, N 64, fp32 as the model calls it, chunk 64: the
+    wrapper called back to back, as a CUDA graph, the plain twin, and the
+    bound (the larger of the bytes at the memory rate and the operations
+    the recurrence needs, an exp counted as one, at the fp32 CUDA-core
+    peak).  No one PyTorch
+    call computes the recurrence."""
+    import torch
+    from repro_torch.kernels import ref, wkv6
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = {}
+    for key, B, T in (("long", 4, 2048), ("train", RWKV_BATCH, RWKV_SEQ)):
+        ins = wkv_operands(B, T, 64, 64, -2.0, torch.float32, dev, gen)
+        fn = lambda: wkv6.wkv6_chunked(*ins, chunk=64)  # noqa: E731
+        nbytes = sum(t.numel() * 4 for t in ins) + ins[0].numel() * 4
+        flops, exps = wkv_work(B, T, 64, 64)
+        k_flops, k_exps = wkv_kernel_work(B, T, 64, 64, 64)
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOP_PER_S
+        r = dict(ms=time_ms(fn, reps=10), graph_ms=graphed_ms(fn),
+                 plain_ms=time_ms(lambda: ref.wkv6_chunked(*ins, chunk=64),
+                                  reps=2, warmup=1),
+                 library_ms=None,
+                 library="none: no one PyTorch call computes the recurrence",
+                 bound_ms=max(t_bytes, t_ops) * 1e3,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3, bytes=nbytes,
+                 flops=flops, exps=exps, kernel_flops=k_flops,
+                 kernel_exps=k_exps,
+                 shapes=f"r, k, v, logw ({B}, {T}, 64, 64) fp32, u (64, 64),"
+                        " chunk 64")
+        out[key] = r
+        log(f"[rwkv] wkv6_chunked {r['shapes']}: kernel {r['ms']:.4f} ms "
+            f"(as a CUDA graph {r['graph_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {nbytes / 1e6:.1f} MB {t_bytes * 1e3:.4f} "
+            f"ms; the recurrence's {flops / 1e9:.2f} GFLOP of which "
+            f"{exps / 1e9:.4f} G exp at the fp32 peak {t_ops * 1e3:.4f} ms; "
+            f"the chunked form does {k_flops / 1e9:.2f} GFLOP with "
+            f"{k_exps / 1e9:.3f} G exp)")
+        del ins
+    torch.cuda.empty_cache()
+    return out
+
+
+def expected_rwkv_launches(steps, mlless=False):
+    """Per step: fused AdamW once per leaf (17); the WKV kernel once per
+    layer in the forward and once more in the backward's recompute of
+    each checkpointed layer (2 x 4); MLLess's filter once per leaf."""
+    n = {"fused_adamw_flat": 17 * steps, "swa_attention_fwd": 0,
+         "wkv6_chunked": 2 * RWKV_LAYERS * steps, "block_norms": 0,
+         "masked_filter": 0}
+    if mlless:
+        n["block_norms"] = n["masked_filter"] = 17 * steps
+    return n
+
+
+def rwkv_config():
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(RWKV_ARCH), n_layers=RWKV_LAYERS)
+
+
+def rwkv_train_phase(init_method):
+    """The entry point on full-width rwkv6-7b cut to 4 layers over a
+    one-rank NCCL group, with the main path's launch counts; two steps
+    against the kernel-free path; MLLess; a profile."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.train import train
+
+    dist.init_process_group("nccl", init_method=init_method, rank=0,
+                            world_size=1)
+    try:
+        reset_lm_launches()
+        res = train(arch=RWKV_ARCH, n_layers=RWKV_LAYERS, batch=RWKV_BATCH,
+                    seq=RWKV_SEQ, steps=RWKV_STEPS, lr=RWKV_LR,
+                    fused_optimizer=True, device="cuda", log_every=5,
+                    log=log)
+        launches = lm_launches()
+        losses = res["losses"]
+        check(res["params"] == RWKV_PARAMS, f"params {res['params']}")
+        check(all(math.isfinite(l) for l in losses), f"loss not finite: "
+              f"{losses}")
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        check(last < first, f"loss did not fall: first five {first:.4f}, "
+              f"last five {last:.4f}")
+        want = expected_rwkv_launches(RWKV_STEPS)
+        check(launches == want, f"launches {launches}, expected {want}")
+        log(f"[rwkv] {RWKV_ARCH} full width cut to {RWKV_LAYERS} layers "
+            f"({res['params']:,} parameters), bf16, batch {RWKV_BATCH} x seq "
+            f"{RWKV_SEQ}, allreduce, fused AdamW lr {RWKV_LR}, {RWKV_STEPS} "
+            f"steps: loss {first:.4f} (first five) -> {last:.4f} (last "
+            f"five), every fifth {[round(l, 4) for l in losses[::5]]}; "
+            f"launches {launches} = "
+            f"{ {k: n // RWKV_STEPS for k, n in launches.items()} } a step; "
+            f"{res['ms_per_step']:.3f} ms/step after the first "
+            f"({res['first_step_ms']:.1f} ms); peak memory "
+            f"{res['peak_mem_bytes'] / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+        rwkv_kernel_vs_plain_step()
+        rwkv_default_lr_record()
+        reset_lm_launches()
+        r = train(arch=RWKV_ARCH, n_layers=RWKV_LAYERS, strategy="mlless",
+                  batch=RWKV_BATCH, seq=RWKV_SEQ, steps=2, lr=RWKV_LR,
+                  fused_optimizer=True, device="cuda", log=None)
+        got, want = lm_launches(), expected_rwkv_launches(2, mlless=True)
+        check(got == want, f"mlless: launches {got}, expected {want}")
+        check(all(map(math.isfinite, r["losses"])),
+              f"mlless: loss not finite {r['losses']}")
+        log(f"[rwkv] {RWKV_ARCH} mlless: losses "
+            f"{[round(l, 4) for l in r['losses']]}, {r['ms_per_step']:.3f} "
+            f"ms/step; launches {got}; significant_fraction "
+            f"{r['metrics']['significant_fraction']:.4f}")
+        torch.cuda.empty_cache()
+        profile = rwkv_profile()
+        return launches, {"allreduce": res, "mlless": r, "profile": profile}
+    finally:
+        dist.destroy_process_group()
+
+
+def _rwkv_steps(kernels, lr, batches, seed):
+    """Losses of ``batches`` through the kernels (WKV kernel, fused AdamW)
+    or through the kernel-free path (chunked WKV, plain AdamW)."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.core import build_train_step, get_strategy
+    from repro_torch.models import build_model
+    ts = build_train_step(build_model(rwkv_config(), use_kernel=kernels,
+                                      device="cuda", seed=seed),
+                          optim.adamw(lr, use_fused=kernels),
+                          get_strategy("allreduce"))
+    state = ts.init_state()
+    losses = [float(ts.step_fn(state, b)[1]["loss"]) for b in batches()]
+    del ts, state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _rwkv_batches(steps, seed):
+    import torch
+    from repro_torch.data import lm_batches, token_stream
+    vocab = rwkv_config().vocab_size
+
+    def gen():
+        it = lm_batches(token_stream(RWKV_BATCH * RWKV_SEQ * 64, vocab,
+                                     seed=seed), RWKV_BATCH, RWKV_SEQ,
+                        seed=seed)
+        for _ in range(steps):
+            yield {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+    return gen
+
+
+def rwkv_kernel_vs_plain_step(steps=2):
+    """Two steps of the 4-layer model from the same weights and batches,
+    through the kernels and through the kernel-free path: the fp32 WKV
+    outputs differ in the last bits, so bf16 activations differ by a
+    rounding here and there; losses must agree to half a bf16 step (2^-9
+    relative)."""
+    batches = _rwkv_batches(steps, seed=11)
+    reset_lm_launches()
+    lk = _rwkv_steps(True, RWKV_LR, batches, seed=3)
+    got = lm_launches()
+    want = expected_rwkv_launches(steps)
+    check(got == want, f"kernel steps: launches {got}, expected {want}")
+    lp = _rwkv_steps(False, RWKV_LR, batches, seed=3)
+    dloss = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    check(dloss <= LM_STEP_RTOL, f"rwkv kernel step vs kernel-free step: "
+          f"loss rel diff {dloss:.3e} > {LM_STEP_RTOL:.3e}")
+    log(f"[rwkv] {steps} steps through the kernels vs the kernel-free path "
+        f"(bf16, lr {RWKV_LR}): losses {lk} vs {lp} (rel diff {dloss:.3e}, "
+        f"tol 2^-9 = {LM_STEP_RTOL:.3e})")
+
+
+def rwkv_default_lr_record(lr=3e-3):
+    """A record, not a gate: the entry point's default lr on the train
+    phase's steps, through the kernels and through the kernel-free path,
+    so a rise of the loss there can be told from a fault of the kernels.
+    A run that diverges far enough drives a decay exponent past fp32's
+    range (logw = -inf), and both paths then give NaN; the record names
+    the first step whose loss is not finite."""
+    batches = _rwkv_batches(RWKV_STEPS, seed=0)
+    for kernels in (True, False):
+        losses = _rwkv_steps(kernels, lr, batches, seed=0)
+        bad = [i for i, l in enumerate(losses) if not math.isfinite(l)]
+        log(f"[rwkv] lr {lr} ({'kernels' if kernels else 'kernel-free path'}"
+            f"), {RWKV_STEPS} steps: losses "
+            f"{[round(l, 3) for l in losses]}; "
+            + (f"first loss not finite at step {bad[0]}" if bad else
+               "all finite"))
+
+
+def rwkv_full_depth(dtype):
+    """rwkv6-7b at all 32 layers, forward only, batch 4 x seq 2048, in
+    ``dtype`` (the config's bf16, and fp32): drawn on the card from a
+    seed, through the kernel (32 launches) and through the kernel-free
+    chunked path on the same weights and tokens, and the kernel-free path
+    again at another chunk as the witness of rounding alone."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import lm_batches, token_stream
+    from repro_torch.models import build_model, rwkv6
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), dtype=dtype)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, use_kernel=True, device="cuda", seed=5)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == RWKV_FULL_PARAMS, f"full depth: {n_params} params")
+    b = next(lm_batches(token_stream(FULL_BATCH * FULL_SEQ * 4,
+                                     cfg.vocab_size), FULL_BATCH, FULL_SEQ))
+    batch = {"tokens": torch.from_numpy(b["tokens"]).cuda()}
+    times = []
+    with torch.no_grad():
+        for _ in range(2):
+            reset_lm_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = model(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches = lm_launches()["wkv6_chunked"]
+            check(launches == cfg.n_layers, f"full depth: {launches} WKV "
+                  f"launches, expected {cfg.n_layers}")
+        peak = torch.cuda.max_memory_allocated()
+        model.use_kernel = False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain, _ = model(batch)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        # the witness: the model's layers look rwkv_apply up in rwkv6 at
+        # each call, so the kernel-free forward runs at the other chunk
+        apply = rwkv6.rwkv_apply
+        rwkv6.rwkv_apply = functools.partial(apply, chunk=FULL_WITNESS_CHUNK)
+        try:
+            witness, _ = model(batch)
+        finally:
+            rwkv6.rwkv_apply = apply
+    check(logits.shape == (FULL_BATCH, FULL_SEQ, 65536)
+          and bool(torch.isfinite(logits).all()),
+          f"full depth logits {tuple(logits.shape)} not finite")
+    a, p, w = logits.float(), plain.float(), witness.float()
+    del logits, plain, witness
+    norm = torch.linalg.vector_norm(p)
+    rel = float(torch.linalg.vector_norm(a - p) / norm)
+    w_rel = float(torch.linalg.vector_norm(w - p) / norm)
+    maxabs = float((a - p).abs().max())
+    agree = float((a.argmax(-1) == p.argmax(-1)).float().mean())
+    w_agree = float((w.argmax(-1) == p.argmax(-1)).float().mean())
+    if dtype in FULL_REL_TOL:
+        tol, tol_by = FULL_REL_TOL[dtype], "fixed"
+    else:
+        tol = FULL_WITNESS_FACTOR * w_rel
+        tol_by = f"{FULL_WITNESS_FACTOR:g} x the witness"
+    check(rel <= tol, f"full depth {dtype}: kernel vs kernel-free logits "
+          f"rel L2 diff {rel:.3e} > {tol:.3e} ({tol_by})")
+    log(f"[rwkv] {RWKV_ARCH} full depth ({cfg.n_layers} layers, "
+        f"{n_params:,} parameters, {dtype}) drawn on the card in "
+        f"{build_s:.2f} s; forward batch {FULL_BATCH} x seq {FULL_SEQ} "
+        f"through the kernel ({cfg.n_layers} launches): {times[0]:.1f} ms "
+        f"first, {times[1]:.1f} ms second; kernel-free forward "
+        f"{plain_ms:.1f} ms; peak memory {peak / 2**30:.2f} GiB; logits max "
+        f"|x| {float(p.abs().max()):.3f}, kernel vs kernel-free rel L2 diff "
+        f"{rel:.3e} (tol {tol:.3e}, {tol_by}), max abs diff {maxabs:.3e}, "
+        f"argmax agreement {agree:.4f}; witness, kernel-free at chunk "
+        f"{FULL_WITNESS_CHUNK} vs 128: rel L2 diff {w_rel:.3e}, argmax "
+        f"agreement {w_agree:.4f}")
+    del model, a, p, w
+    torch.cuda.empty_cache()
+    return {"build_s": build_s, "forward_ms": times, "plain_ms": plain_ms,
+            "peak_mem_bytes": peak, "rel_l2": rel, "rel_l2_tol": tol,
+            "max_abs": maxabs, "argmax_agreement": agree,
+            "witness_rel_l2": w_rel, "witness_argmax_agreement": w_agree}
+
+
+def rwkv_cuda_vs_cpu():
+    """Reduced rwkv6-7b logits through the WKV kernel on the card against
+    the same model on the CPU (the plain twin), same weights and tokens,
+    fp32 with TF32 off: 1e-4."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import lm_batches, token_stream
+    from repro_torch.kernels import wkv6
+    from repro_torch.models import build_model
+    cfg = get_config(RWKV_ARCH).reduced()
+    b = next(lm_batches(token_stream(4 * 128 * 8, cfg.vocab_size), 4, 128))
+    tokens = torch.from_numpy(b["tokens"])
+    before = wkv6.LAUNCHES["wkv6_chunked"]
+    model = build_model(cfg, use_kernel=True, device="cpu", seed=1)
+    with torch.no_grad():
+        gpu, _ = copy.deepcopy(model).cuda()({"tokens": tokens.cuda()})
+        cpu, _ = model({"tokens": tokens})
+    check(wkv6.LAUNCHES["wkv6_chunked"] == before + cfg.n_layers,
+          "the card's forward did not go through the kernel")
+    gpu = gpu.cpu()
+    check(gpu.shape == (4, 128, 512) and bool(torch.isfinite(gpu).all()),
+          f"logits {tuple(gpu.shape)} not finite")
+    err = float((gpu - cpu).abs().max())
+    check(err <= 1e-4, f"cuda vs cpu logits differ by {err:.3e}")
+    log(f"[rwkv] reduced rwkv6-7b logits (fp32), card (kernel) vs CPU "
+        f"(plain twin): max abs diff {err:.3e} (tol 1e-4)")
+    return err
+
+
+def rwkv_profile(steps=3):
+    """``torch.profiler`` over a few steps of the 4-layer model (batch 4 x
+    seq 512, fused AdamW, after warm-up): device time by kernel against
+    the host clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import optim
+    from repro_torch.core import build_train_step, get_strategy
+    from repro_torch.models import build_model
+    batch = next(_rwkv_batches(1, seed=2)())
+    ts = build_train_step(build_model(rwkv_config(), use_kernel=True,
+                                      device="cuda"),
+                          optim.adamw(RWKV_LR, use_fused=True),
+                          get_strategy("allreduce"))
+    state = ts.init_state()
+    for _ in range(2):
+        ts.step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ts.step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    del ts, state
+    torch.cuda.empty_cache()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms}
+    if busy_ms == 0:
+        log("[profile] the profiler recorded no device time: not measured")
+        return out
+    log(f"[profile] {RWKV_ARCH} {RWKV_LAYERS}-layer step (batch {RWKV_BATCH}"
+        f" x seq {RWKV_SEQ}, fused AdamW) under the profiler: {wall_ms:.3f} "
+        f"ms/step on the host clock, device busy {busy_ms:.3f} ms/step, idle"
+        f" share {1 - busy_ms / wall_ms:.3f}; device kernels per step "
+        f"{sum(e.count for e in kernels) / steps:.0f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms"
+            f"/step {e.count / steps:6.0f}/step  {e.key[:90]}")
+    for name in ("wkv6_kernel", "fused_adamw_kernel"):
+        mine = [e for e in kernels if name in e.key]
+        us = sum(e.self_device_time_total for e in mine) / steps
+        n = sum(e.count for e in mine) / steps
+        out[name] = {"us_per_step": us, "launches_per_step": n}
+        log(f"[profile]   {name}: {us:.1f} us/step of device time in "
+            f"{n:.0f} launches ({us / max(n, 1):.2f} us each)")
+    return out
+
+
+def rwkv_phase():
+    """The RWKV slice; returns its entry of the kernels line."""
+    import torch
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    err = rwkv_kernel_parity(dev)
+    times = rwkv_kernel_times(dev)
+    init = "file://" + os.path.join(
+        tempfile.mkdtemp(prefix="chip_smoke_rwkv_"), "pg")
+    launches, runs = rwkv_train_phase(init)
+    full = {dtype: rwkv_full_depth(dtype)
+            for dtype in ("bfloat16", "float32")}
+    cpu_err = rwkv_cuda_vs_cpu()
+    log(f"[rwkv] phase took {time.perf_counter() - t0:.1f} s")
+    return [
+        {"name": "wkv6_chunked", "route": "cuda", "source": WKV_SRC,
+         "replaces": "src/repro/kernels/wkv6.py:72",
+         "launches": launches["wkv6_chunked"],
+         "launches_run": f"{RWKV_ARCH} ({RWKV_LAYERS} of 32 layers) train, "
+                         f"batch {RWKV_BATCH} x seq {RWKV_SEQ}, "
+                         f"{RWKV_STEPS} steps",
+         "max_abs_err": err["f32"], "max_abs_err_strong_decay": err["strong"],
+         "max_abs_err_exact": err["exact"], "max_abs_err_bf16": err["bf16"],
+         "grad_max_abs_err": err["grad"], "cuda_vs_cpu_logits": cpu_err,
+         **times["long"], "train_shape": times["train"],
+         "full_depth_forward": full,
+         "profile": runs["profile"].get("wkv6_kernel")},
+    ]
+
+
 def main():
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the repository: src/repro_torch is "
@@ -1355,6 +1899,7 @@ def main():
                              f"{len(runs[run]['losses'])} steps",
              "max_abs_err": robust_err[name], **robust_t[name]})
     line["kernels"] += lm_phase()
+    line["kernels"] += rwkv_phase()
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 A copy of the reference's registry, cut to what the port runs: the
 ``CNNConfig`` of the paper's two CIFAR models and the reference's
-``ModelConfig`` with the dense transformer LMs whose layer kinds the
-port's ``models.transformer`` supports (global and sliding-window
-attention).  Configs are pure data; ``repro_torch.models`` interprets
+``ModelConfig`` with the transformer LMs whose layer kinds the port's
+``models.transformer`` supports (global and sliding-window attention,
+RWKV6 time-mix).  Configs are pure data; ``repro_torch.models`` interprets
 them.
 """
 from __future__ import annotations
@@ -151,4 +151,4 @@ def get_config(name: str):
 
 
 _ALL_MODULES = ["mobilenet_cifar", "resnet18_cifar", "smollm_135m",
-                "phi3_mini_3_8b", "qwen1_5_4b", "gemma3_4b"]
+                "phi3_mini_3_8b", "qwen1_5_4b", "gemma3_4b", "rwkv6_7b"]

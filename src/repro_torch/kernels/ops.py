@@ -2,7 +2,9 @@
 
 Dispatch follows the tensor: on CUDA the Hopper kernels run (or raise),
 on the CPU their plain twins in ``ref.py`` do.  The four robust-aggregation
-reductions are the wrappers of ``robust_agg.py`` themselves.
+reductions are the wrappers of ``robust_agg.py`` themselves.  ``wkv6``
+has no backward here: ``models.rwkv6`` wraps it in an ``autograd.Function``
+whose backward recomputes through the plain chunked form.
 
 ``swa_attention`` carries a backward that recomputes attention through the
 model library's chunked flash attention (``models.attention``), exactly as
@@ -16,6 +18,7 @@ import torch
 from repro_torch.kernels import block_significance as _bs
 from repro_torch.kernels import fused_adamw as _fa
 from repro_torch.kernels import swa_attention as _swa
+from repro_torch.kernels import wkv6 as _wkv
 from repro_torch.kernels.robust_agg import (  # noqa: F401
     coordinate_median, krum_pairwise, trimmed_mean, weiszfeld_step,
 )
@@ -77,3 +80,17 @@ def fused_adamw(g, m, v, p, *, lr, b1, b2, eps, wd, c1, c2):
         g.reshape(-1), m.view(-1), v.view(-1), p.reshape(-1), c1, c2,
         lr=lr, b1=b1, b2=b2, eps=eps, wd=wd)
     return u.view(p.shape), m, v
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 chunked WKV
+# ---------------------------------------------------------------------------
+def wkv6(r, k, v, logw, u, *, chunk=64):
+    """The chunked WKV recurrence from a zero state (the kernel's state
+    stays on chip).  Shapes as ``ref.wkv6``; the chunk is halved until it
+    divides T."""
+    T = r.shape[1]
+    c = chunk
+    while T % c:
+        c //= 2
+    return _wkv.wkv6_chunked(r, k, v, logw, u, chunk=max(c, 1))

@@ -210,3 +210,78 @@ def _sqrt_rn(x):
     float64 and rounded once.  PyTorch's vectorised CPU ``sqrt`` of fp32
     is off by one ulp in about 0.7% of values."""
     return torch.sqrt(x.double()).float()
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 WKV recurrence (the RWKV training path)
+# ---------------------------------------------------------------------------
+def wkv6(r, k, v, logw, u):
+    """The exact step-by-step RWKV6 recurrence (the oracle).
+
+    r, k, v, logw: (B, T, H, N); u: (H, N).  S_t = diag(w_t) S_{t-1} +
+    k_t v_t^T;  y_t = r_t (S_{t-1} + diag(u) k_t v_t^T).  Returns y in r's
+    dtype."""
+    B, T, H, N = r.shape
+    rf, kf, vf = (a.float() for a in (r, k, v))
+    w = torch.exp(logw.float())
+    uf = u.float()
+    S = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(T):
+        kv = torch.einsum("bhn,bhm->bhnm", kf[:, t], vf[:, t])
+        ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, t],
+                               S + uf[None, :, :, None] * kv))
+        S = w[:, t][..., None] * S + kv
+    if not ys:
+        return torch.zeros_like(r)
+    return torch.stack(ys, dim=1).to(r.dtype)
+
+
+def wkv6_chunk(r, k, v, logw, u, S):
+    """One chunk of the chunked WKV form, batched over (B, H): r, k, v,
+    logw (B, c, H, N) fp32, u (H, N), S (B, H, N, N) the state before the
+    chunk.  Returns (y (B, c, H, N), S after the chunk).
+
+    With L the inclusive cumsum of logw over the chunk and Lprev the
+    exclusive one, y_t = (r_t * exp(Lprev_t)) S + sum_{s<t} a[t,s] v_s +
+    (r_t . (u * k_t)) v_t, a[t,s] = sum_n r_t k_s exp(Lprev_t - L_s).  The
+    pairwise difference is masked to -inf for s >= t before the exp (it is
+    positive there and would overflow), and Lprev is L shifted by one step
+    rather than L - logw, so exp(Lprev_t - L_{t-1}) is exactly 1, as in
+    the kernel.  The model keeps its own chunk step (``models.rwkv6``, the
+    reference's ``chunk_step``): this one is only the kernel's yardstick."""
+    c = r.shape[1]
+    L = torch.cumsum(logw, dim=1)
+    Lprev = torch.cat([torch.zeros_like(L[:, :1]), L[:, :-1]], dim=1)
+    y = torch.einsum("bthn,bhnm->bthm", r * torch.exp(Lprev), S)
+    idx = torch.arange(c, device=r.device)
+    mask = (idx[:, None] > idx[None, :])[None, :, :, None, None]
+    diff = torch.where(mask, Lprev[:, :, None] - L[:, None],
+                       torch.tensor(float("-inf"), device=r.device))
+    a = torch.sum(r[:, :, None] * k[:, None] * torch.exp(diff), dim=-1)
+    y = y + torch.einsum("btsh,bshn->bthn", a, v)
+    y = y + torch.sum(r * u * k, dim=-1, keepdim=True) * v
+    L_last = L[:, -1]                                       # (B, H, N)
+    k_dec = k * torch.exp(L_last[:, None] - L)
+    S = torch.exp(L_last)[..., None] * S + torch.einsum(
+        "bshn,bshm->bhnm", k_dec, v)
+    return y, S
+
+
+def wkv6_chunked(r, k, v, logw, u, *, chunk=64):
+    """The kernel's function in plain PyTorch: the chunked form, chunk by
+    chunk from a zero state, fp32 inside.  r, k, v, logw: (B, T, H, N)
+    with T % chunk == 0; u: (H, N).  Returns y in r's dtype."""
+    B, T, H, N = r.shape
+    if T % chunk:
+        raise ValueError(f"T = {T} is not a multiple of chunk {chunk}")
+    uf = u.float()
+    S = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+    ys = []
+    for t0 in range(0, T, chunk):
+        y, S = wkv6_chunk(*(a[:, t0:t0 + chunk].float()
+                            for a in (r, k, v, logw)), uf, S)
+        ys.append(y)
+    if not ys:
+        return torch.zeros_like(r)
+    return torch.cat(ys, dim=1).to(r.dtype)

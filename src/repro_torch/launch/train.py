@@ -1,10 +1,12 @@
 """Training entry point (``repro.launch.train``): a model trained
 data-parallel with one of the five gradient-sync strategies.  A CIFAR CNN
 (the paper's experiment) trains with SGD, momentum 0.9, on the synthetic
-CIFAR-like set; a dense transformer LM trains with AdamW (b2 0.95) on the
-synthetic Markov token stream, its attention through the Hopper kernel
-(``use_kernel=True``), and with ``--fused-optimizer`` its update through
-the fused AdamW kernel.
+CIFAR-like set; a transformer LM trains with AdamW (b2 0.95) on the
+synthetic Markov token stream, its attention or its RWKV6 WKV recurrence
+through the Hopper kernels (``use_kernel=True``), and with
+``--fused-optimizer`` its update through the fused AdamW kernel.
+``--layers`` cuts the depth and nothing else (a full-width model that
+does not fit one card).
 
 Examples:
   # full-width MobileNet, MLLess, on one GPU
@@ -23,6 +25,10 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
       --reduced --device cpu --steps 3 --batch 4 --seq 64 --fused-optimizer
 
+  # full-width RWKV6-7B cut to 4 layers, through the WKV kernel, one GPU
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \
+      --layers 4 --fused-optimizer --steps 20 --batch 4 --seq 512
+
 One process per rank: NCCL on the GPU (rank r on card r % cards), gloo on
 the CPU and wherever ranks outnumber cards (NCCL refuses two ranks on
 one GPU), rendezvous through a ``file://`` init method in a fresh
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import tempfile
 import time
@@ -50,7 +57,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_cnn, build_model
 
 CNN_ARCHS = ("mobilenet-cifar", "resnet18-cifar")
-LM_ARCHS = ("smollm-135m", "phi3-mini-3.8b", "qwen1.5-4b", "gemma3-4b")
+LM_ARCHS = ("smollm-135m", "phi3-mini-3.8b", "qwen1.5-4b", "gemma3-4b",
+            "rwkv6-7b")
 
 
 def _rank_device(device, rank):
@@ -93,16 +101,17 @@ def process_group(dev, rank: int, world_size: int, init_method=None):
 def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
           batch: int = 16, seq: int = 128, lr: float = 3e-3,
           fused_optimizer: bool = False, device="cuda",
-          reduced: bool = False, seed: int = 0, rank: int = 0,
-          world_size: int = 1, init_method=None, init_params=None,
-          log_every: int = 10, log=print) -> dict:
+          reduced: bool = False, n_layers=None, seed: int = 0,
+          rank: int = 0, world_size: int = 1, init_method=None,
+          init_params=None, log_every: int = 10, log=print) -> dict:
     """Train ``steps`` steps as ``rank`` of ``world_size`` and return a
     summary: per-step losses, the last metrics, timings and, on a GPU,
     peak device memory.  ``batch`` is the global batch; each rank trains
     on its contiguous shard of it.  ``seq`` and ``fused_optimizer`` apply
-    to an LM.  ``init_params`` is a state dict to start from (for instance
-    ``params_from_reference`` of a reference tree) instead of the seeded
-    draw.  Joins the default process group when it is already
+    to an LM.  ``n_layers`` replaces the config's depth (after
+    ``reduced``), widths unchanged.  ``init_params`` is a state dict to
+    start from (for instance ``params_from_reference`` of a reference
+    tree) instead of the seeded draw.  Joins the default process group when it is already
     initialised; otherwise creates it from ``init_method`` (with one rank,
     a fresh ``file://`` path when None) and destroys it after.
     """
@@ -112,7 +121,7 @@ def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
     dev = _rank_device(device, rank)
     with process_group(dev, rank, world_size, init_method):
         return _train(arch, strategy, steps, batch, seq, lr, fused_optimizer,
-                      dev, reduced, seed, init_params, log_every,
+                      dev, reduced, n_layers, seed, init_params, log_every,
                       log if rank == 0 else None)
 
 
@@ -144,11 +153,15 @@ def _lm_setup(cfg, batch, seq, lr, fused_optimizer, dev, seed, rank,
 
 
 def _train(arch, strategy, steps, batch, seq, lr, fused_optimizer, dev,
-           reduced, seed, init_params, log_every, log):
+           reduced, n_layers, seed, init_params, log_every, log):
     rank, W = dist.get_rank(), dist.get_world_size()
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if n_layers is not None:
+        if cfg.family == "cnn":
+            raise ValueError(f"{arch}: the depth of a CNN cannot be cut")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     B_local = batch // W
     if cfg.family == "cnn":
         model, opt, next_batch = _cnn_setup(cfg, batch, lr, dev, seed, rank,
@@ -220,6 +233,8 @@ def main(argv=None):
                     help="LM: AdamW through the fused kernel")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced width (CPU-trainable)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="LM: cut the depth to this many layers")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--world-size", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
@@ -227,7 +242,8 @@ def main(argv=None):
     kwargs = dict(arch=args.arch, strategy=args.strategy, steps=args.steps,
                   batch=args.batch, seq=args.seq, lr=args.lr,
                   fused_optimizer=args.fused_optimizer, device=args.device,
-                  reduced=args.reduced, seed=args.seed,
+                  reduced=args.reduced, n_layers=args.layers,
+                  seed=args.seed,
                   world_size=args.world_size)
     if args.world_size == 1:
         res = train(**kwargs)

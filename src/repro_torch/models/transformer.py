@@ -12,21 +12,29 @@ for leaf:
 * weights are (in, out) for ``x @ W``; norms are fp32 vectors even in a
   bf16 model;
 * the leaf order is the sorted keys: ``blocks.j.attn.{wk,wo,wq,wv}``,
-  ``blocks.j.mlp.*``, ``blocks.j.norm{1,2}``, ``embed.table``,
-  ``final_norm``, ``tail.*``, ``unembed.table``.
+  ``blocks.j.mlp.*``, ``blocks.j.norm{1,2}``, an RWKV layer's
+  ``blocks.j.rwkv.{bonus_u,decay_a,decay_b,decay_base,mix,w_g,w_k,w_o,
+  w_r,w_v}`` in place of ``attn``, ``embed.table``, ``final_norm``,
+  ``tail.*``, ``unembed.table``.
 
 MLLess cuts each flattened gradient leaf into 256-wide blocks and the flat
 strategies pack the leaves in this order, so the layout is semantics, not
-taste (SmolLM-135M has 12 leaves, not one per layer and matrix).
+taste (SmolLM-135M has 12 leaves and RWKV6-7B 17, not one per layer and
+matrix).
 
 ``forward(batch)`` is the reference's ``apply``: token embedding, the
 pattern blocks (each block recomputed in the backward, as
 ``jax.checkpoint`` does, here with ``torch.utils.checkpoint``), the tail
 layers, the final norm and a separate unembedding over the vocab padded to
-a multiple of 128.  Layer kinds GLOBAL and LOCAL (sliding window) are
-supported; MoE, RG-LRU, RWKV, encoder-decoder and VLM configs raise.  With
-``use_kernel`` (the reference's ``use_pallas``) the causal self-attention
-goes through ``kernels.ops.swa_attention``, the Hopper kernel.
+a multiple of 128.  Layer kinds GLOBAL and LOCAL (sliding window) and
+RWKV (the RWKV6 time-mix of ``models.rwkv6``, no attention and no rotary
+embedding) are supported; MoE, RG-LRU, encoder-decoder and VLM configs
+raise.  With ``use_kernel`` (the reference's ``use_pallas``) the causal
+self-attention goes through ``kernels.ops.swa_attention`` and the WKV
+recurrence through ``kernels.ops.wkv6``, the Hopper kernels.
+
+The weights are drawn with the ``torch.Generator`` given, on its device:
+``build_model`` draws a model for the card on the card.
 """
 from __future__ import annotations
 
@@ -34,17 +42,19 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import GLOBAL, LOCAL
+from repro_torch.configs.base import GLOBAL, LOCAL, RWKV
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rwkv6
 from repro_torch.models import params as _params
 from repro_torch.models.params import (  # noqa: F401
     params_from_reference, reference_leaves,
 )
 
 _UNSUPPORTED = ("ROADMAP.md, Open items §1, slice 4: the transformer LM "
-                "family beyond the dense attention layers is not ported yet")
+                "family beyond the dense attention and RWKV layers is not "
+                "ported yet")
+_KINDS = (GLOBAL, LOCAL, RWKV)
 
 
 def _check_supported(cfg):
@@ -55,8 +65,8 @@ def _check_supported(cfg):
         what = "encoder-decoder models"
     elif cfg.family == "vlm":
         what = "VLM front ends"
-    elif any(kind not in (GLOBAL, LOCAL) for kind in cfg.layer_pattern):
-        what = f"layer kinds {sorted(set(cfg.layer_pattern) - {GLOBAL, LOCAL})}"
+    elif any(kind not in _KINDS for kind in cfg.layer_pattern):
+        what = f"layer kinds {sorted(set(cfg.layer_pattern) - set(_KINDS))}"
     if what is not None:
         raise NotImplementedError(f"{cfg.name}: {what} ({_UNSUPPORTED})")
 
@@ -85,13 +95,17 @@ def _module_tree(mod: nn.Module) -> dict:
     return tree
 
 
-def _layer_tree(gen, cfg, dtype, lead=()):
+def _layer_tree(gen, kind, cfg, dtype, lead=()):
     """One layer's parameters (``lead`` prepends the stacking dim)."""
-    return {"norm1": layers.rmsnorm_init(*lead, cfg.d_model),
+    tree = {"norm1": layers.rmsnorm_init(*lead, cfg.d_model),
             "norm2": layers.rmsnorm_init(*lead, cfg.d_model),
-            "attn": attention.attention_init(gen, cfg, dtype, lead),
             "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
                                    dtype, lead)}
+    if kind == RWKV:
+        tree["rwkv"] = rwkv6.rwkv_init(gen, cfg, dtype, lead)
+    else:
+        tree["attn"] = attention.attention_init(gen, cfg, dtype, lead)
+    return tree
 
 
 def _map(fn, tree):
@@ -116,17 +130,19 @@ class Model(nn.Module):
         self.n_blocks, self.tail_kinds = _split_depth(cfg)
         dtype = getattr(torch, cfg.dtype)
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
-        self.embed = _Table(layers.embed_init(
-            gen, (self.padded_vocab, cfg.d_model), dtype))
-        self.unembed = _Table(layers.dense_init(
-            gen, (cfg.d_model, self.padded_vocab), dtype))
-        self.final_norm = nn.Parameter(layers.rmsnorm_init(cfg.d_model))
-        self.blocks = nn.ModuleList(
-            [_tree_module(_layer_tree(gen, cfg, dtype, (self.n_blocks,)))
-             for _ in cfg.layer_pattern] if self.n_blocks else [])
-        self.tail = nn.ModuleList(
-            [_tree_module(_layer_tree(gen, cfg, dtype))
-             for _ in self.tail_kinds])
+        with torch.device(gen.device):
+            self.embed = _Table(layers.embed_init(
+                gen, (self.padded_vocab, cfg.d_model), dtype))
+            self.unembed = _Table(layers.dense_init(
+                gen, (cfg.d_model, self.padded_vocab), dtype))
+            self.final_norm = nn.Parameter(layers.rmsnorm_init(cfg.d_model))
+            self.blocks = nn.ModuleList(
+                [_tree_module(_layer_tree(gen, kind, cfg, dtype,
+                                          (self.n_blocks,)))
+                 for kind in cfg.layer_pattern] if self.n_blocks else [])
+            self.tail = nn.ModuleList(
+                [_tree_module(_layer_tree(gen, kind, cfg, dtype))
+                 for kind in self.tail_kinds])
 
     @property
     def padded_vocab(self) -> int:
@@ -135,8 +151,11 @@ class Model(nn.Module):
         return -(-self.cfg.vocab_size // 128) * 128
 
     def init(self, seed: int = 0):
-        """Redraws every parameter from ``seed`` (in place)."""
-        fresh = Model(self.cfg, gen=torch.Generator().manual_seed(seed))
+        """Redraws every parameter from ``seed`` (in place), on the
+        parameters' device."""
+        dev = self.final_norm.device
+        fresh = Model(self.cfg,
+                      gen=torch.Generator(device=dev).manual_seed(seed))
         with torch.no_grad():
             for p, q in zip(self.parameters(), fresh.parameters()):
                 p.copy_(q)
@@ -144,17 +163,25 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
     def _layer(self, p, kind, x, positions):
-        """Pre-norm layer: attention, then the MLP."""
+        """Pre-norm layer: the sequence mixer (attention or the RWKV6
+        time-mix), then the MLP."""
         cfg = self.cfg
         h = layers.rmsnorm(x, p["norm1"])
-        q, k, v = attention.project_qkv(p["attn"], h, cfg)
-        q = layers.apply_rope(q, positions, cfg.rope_theta)
-        k = layers.apply_rope(k, positions, cfg.rope_theta)
-        o = attention.chunked_attention(
-            q, k, v, causal=True, window=cfg.window if kind == LOCAL else None,
-            pallas_fn=kops.swa_attention if self.use_kernel else None)
-        B, S = o.shape[:2]
-        x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+        if kind == RWKV:
+            y, _ = rwkv6.rwkv_apply(p["rwkv"], h, cfg,
+                                    use_kernel=self.use_kernel,
+                                    with_state=False)
+            x = x + y
+        else:
+            q, k, v = attention.project_qkv(p["attn"], h, cfg)
+            q = layers.apply_rope(q, positions, cfg.rope_theta)
+            k = layers.apply_rope(k, positions, cfg.rope_theta)
+            o = attention.chunked_attention(
+                q, k, v, causal=True,
+                window=cfg.window if kind == LOCAL else None,
+                pallas_fn=kops.swa_attention if self.use_kernel else None)
+            B, S = o.shape[:2]
+            x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
         h = layers.rmsnorm(x, p["norm2"])
         return x + layers.mlp_apply(p["mlp"], h, cfg.mlp)
 
@@ -188,13 +215,13 @@ class Model(nn.Module):
 
 def build_model(cfg, *, use_kernel: bool = False, remat: bool = True,
                 device="cuda", seed: int = 0) -> Model:
-    """The LM for ``cfg`` on ``device``, weights drawn from ``seed`` (a
-    ``torch.Generator``; the reference's ``jax.random`` draws cannot be
-    reproduced, so parity starts from ``params_from_reference``)."""
+    """The LM for ``cfg`` on ``device``, weights drawn from ``seed`` by a
+    ``torch.Generator`` on that device (a card's draws differ from the
+    CPU's; the reference's ``jax.random`` draws cannot be reproduced, so
+    parity starts from ``params_from_reference``)."""
     dev = resolve_device(device)
-    model = Model(cfg, use_kernel=use_kernel, remat=remat,
-                  gen=torch.Generator().manual_seed(seed))
-    return model.to(dev)
+    return Model(cfg, use_kernel=use_kernel, remat=remat,
+                 gen=torch.Generator(device=dev).manual_seed(seed))
 
 
 # ---------------------------------------------------------------------------

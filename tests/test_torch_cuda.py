@@ -378,3 +378,125 @@ def test_lm_kernel_wrappers_validate_inputs(cuda):
                              c1, c2, **ADAMW_KW)
     with pytest.raises(ValueError, match="c1 is on"):
         tfa.fused_adamw_flat(g, m, v, p, c1.cpu(), c2, **ADAMW_KW)
+
+
+# ---------------------------------------------------------------------------
+# the RWKV6 WKV recurrence
+# ---------------------------------------------------------------------------
+from repro_torch.kernels import wkv6 as twkv  # noqa: E402
+
+# (B, T, H, N, chunk, mu), logw = -exp(N(mu, 0.5)): the reference's cases,
+# a ragged T for the halved chunk, chunk 1, rwkv6-7b's train shape, and
+# decays from mild to strong (mu 3: the Pallas body's unmasked exp
+# overflows)
+WKV_GPU_CASES = [
+    (2, 64, 2, 32, 16, -2.0),
+    (1, 128, 4, 64, 64, -2.0),
+    (2, 96, 3, 16, 32, -2.0),
+    (3, 64, 5, 16, 1, -2.0),
+    (4, 512, 64, 64, 64, -2.0),
+    (1, 256, 4, 64, 32, 0.0),
+    (1, 64, 2, 32, 64, 1.5),
+    (2, 128, 8, 64, 64, 3.0),
+]
+
+
+def _wkv_operands(B, T, H, N, mu, dtype, dev, seed=0):
+    rs = np.random.RandomState(seed)
+    arrs = [rs.randn(B, T, H, N) * 0.5 for _ in range(3)]
+    arrs.append(-np.exp(rs.randn(B, T, H, N) * 0.5 + mu))
+    arrs.append(rs.randn(H, N) * 0.5)
+    return [torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+            for a in arrs]
+
+
+@pytest.mark.parametrize("case", WKV_GPU_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wkv6_kernel_matches_plain(cuda, case, dtype):
+    """The kernel against its plain chunked twin on the card (and the
+    exact recurrence for T <= 128), same inputs: 1e-4 in fp32 (the
+    reference test's tolerance); in bf16 5e-2 plus one bf16 step
+    (2^-7 relative), since each side rounds its fp32 result once."""
+    B, T, H, N, chunk, mu = case
+    r, k, v, lw, u = _wkv_operands(B, T, H, N, mu, dtype, cuda, seed=T + N)
+    before = twkv.LAUNCHES["wkv6_chunked"]
+    got = twkv.wkv6_chunked(r, k, v, lw, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert twkv.LAUNCHES["wkv6_chunked"] == before + 1
+    assert got.dtype == dtype and got.shape == r.shape
+    assert bool(torch.isfinite(got).all())
+    wants = [tref.wkv6_chunked(r, k, v, lw, u, chunk=chunk)]
+    if T <= 128:
+        wants.append(tref.wkv6(r, k, v, lw, u))
+    for want in wants:
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2 ** -7, atol=5e-2)
+
+
+def test_wkv6_gradient_on_cuda(cuda):
+    """The gradient through ``ops.wkv6`` (the kernel forward in the
+    model's autograd Function, the chunk-128 recompute backward) on the
+    card against the same on the CPU, fp32 with TF32 off: 1e-4."""
+    from repro_torch.models import rwkv6
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ins = _wkv_operands(2, 256, 4, 64, -1.0, torch.float32, "cpu", seed=9)
+    gy = torch.from_numpy(np.random.RandomState(10).randn(2, 256, 4, 64)
+                          .astype(np.float32))
+    a = [t.to(cuda).requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    before = twkv.LAUNCHES["wkv6_chunked"]
+    ya = rwkv6._WkvKernel.apply(*a)
+    ya.backward(gy.to(cuda))
+    rwkv6._WkvKernel.apply(*b).backward(gy)
+    assert twkv.LAUNCHES["wkv6_chunked"] == before + 1
+    torch.testing.assert_close(ya.detach().cpu(), tops.wkv6(*ins), rtol=0,
+                               atol=1e-4)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad.cpu(), y.grad, rtol=0, atol=1e-4)
+
+
+def test_wkv6_launches_follow_the_reference_gate(cuda):
+    """Reduced rwkv6-7b on the card: a forward at T 64 launches the
+    kernel once a layer, a remat train step twice (forward and
+    recompute), a T that is not a multiple of 64 never (the plain chunked
+    path, the reference's gate)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("rwkv6-7b").reduced()
+    model = build_model(cfg, use_kernel=True, device=cuda, seed=0)
+    n = cfg.n_layers
+    for T, grad, want in ((64, False, n), (64, True, 2 * n), (96, True, 0)):
+        tokens = torch.randint(0, cfg.vocab_size, (2, T), device=cuda)
+        before = twkv.LAUNCHES["wkv6_chunked"]
+        with torch.set_grad_enabled(grad):
+            logits, _ = model({"tokens": tokens})
+            if grad:
+                logits.float().square().mean().backward()
+        torch.cuda.synchronize()
+        assert twkv.LAUNCHES["wkv6_chunked"] - before == want, (T, grad)
+        assert bool(torch.isfinite(logits).all())
+
+
+def test_wkv6_wrapper_validates_inputs(cuda):
+    """It raises on what the kernel does not take; it never gives way to
+    the plain version."""
+    r = torch.randn(1, 64, 2, 48, device=cuda)
+    u = torch.randn(2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim N 48"):
+        twkv.wkv6_chunked(r, r, r, -r.abs(), u)
+    r = torch.randn(1, 128, 2, 32, device=cuda)
+    u = torch.randn(2, 32, device=cuda)
+    with pytest.raises(ValueError, match="chunk 128"):
+        twkv.wkv6_chunked(r, r, r, -r.abs(), u, chunk=128)
+    with pytest.raises(ValueError, match="power of two"):
+        twkv.wkv6_chunked(r, r, r, -r.abs(), u, chunk=48)
+    with pytest.raises(TypeError, match="share"):
+        twkv.wkv6_chunked(r, r.bfloat16(), r, -r.abs(), u)
+    with pytest.raises(TypeError, match="share"):
+        twkv.wkv6_chunked(*(t.half() for t in (r, r, r, -r.abs(), u)))
+    with pytest.raises(ValueError, match="one device"):
+        twkv.wkv6_chunked(r, r, r, -r.abs(), u.cpu())

@@ -33,7 +33,8 @@ def test_port_has_modules_to_check():
     for rel in ("kernels/ops.py", "kernels/fused_adamw.py",
                 "kernels/swa_attention.py", "models/transformer.py",
                 "models/attention.py", "models/layers.py", "models/params.py",
-                "configs/smollm_135m.py", "configs/gemma3_4b.py"):
+                "configs/smollm_135m.py", "configs/gemma3_4b.py",
+                "configs/rwkv6_7b.py", "kernels/wkv6.py", "models/rwkv6.py"):
         assert port / rel in FILES, rel
 
 

@@ -25,7 +25,7 @@ from repro.data import token_stream as jtoken_stream  # noqa: E402
 from repro.models.transformer import build_model as jbuild_model  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import RWKV, ModelConfig  # noqa: E402
+from repro_torch.configs.base import RGLRU, ModelConfig  # noqa: E402
 from repro_torch.core import build_train_step, get_strategy, losses  # noqa: E402
 from repro_torch.data import lm_batches, token_stream  # noqa: E402
 from repro_torch.kernels import fused_adamw, swa_attention  # noqa: E402
@@ -33,10 +33,12 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 # (arch, reduced() arguments): SmolLM's GLOBAL layers; Gemma-3's 5 LOCAL
-# (window 64 after reduced()) + 1 GLOBAL with GELU; Qwen's qkv bias
+# (window 64 after reduced()) + 1 GLOBAL with GELU; Qwen's qkv bias;
+# RWKV6's time-mix layers
 ARCHS = {"smollm": ("smollm-135m", {}),
          "gemma6": ("gemma3-4b", {"n_layers": 6}),
-         "qwen": ("qwen1.5-4b", {})}
+         "qwen": ("qwen1.5-4b", {}),
+         "rwkv": ("rwkv6-7b", {})}
 
 
 def _configs(name):
@@ -58,7 +60,8 @@ def _port(cfg, tree, use_kernel=False):
 
 
 def test_configs_match_reference():
-    for arch in ("smollm-135m", "phi3-mini-3.8b", "qwen1.5-4b", "gemma3-4b"):
+    for arch in ("smollm-135m", "phi3-mini-3.8b", "qwen1.5-4b", "gemma3-4b",
+                 "rwkv6-7b"):
         a, b = get_config(arch), jget_config(arch)
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
         assert dataclasses.asdict(a.reduced(n_layers=6)) == \
@@ -86,10 +89,12 @@ def test_params_bridge_round_trips(name):
 
 
 @pytest.mark.parametrize("arch,n_leaves", [("smollm-135m", 12),
-                                           ("gemma3-4b", 8 * 6 + 8 * 4 + 3)])
+                                           ("gemma3-4b", 8 * 6 + 8 * 4 + 3),
+                                           ("rwkv6-7b", 17)])
 def test_leaves_match_the_reference_tree(arch, n_leaves):
     """Leaf for leaf in the reference's order, stacked (n_blocks, in, out)
-    and tail layers alike (Gemma-3: 5 blocks of 6 and a tail of 4)."""
+    and tail layers alike (Gemma-3: 5 blocks of 6 and a tail of 4; RWKV6:
+    one stacked block of 32 time-mix layers)."""
     cfg = get_config(arch)
     small = dataclasses.replace(cfg, d_model=64, n_heads=2, n_kv_heads=1,
                                 head_dim=32, d_ff=96, vocab_size=300)
@@ -160,7 +165,7 @@ def test_loss_matches_reference():
 def test_unsupported_layer_kinds_raise():
     base = get_config("smollm-135m").reduced()
     for change in (dict(n_experts=4, experts_per_token=2),
-                   dict(layer_pattern=(RWKV,)),
+                   dict(layer_pattern=(RGLRU,)),
                    dict(is_encoder_decoder=True), dict(family="vlm")):
         cfg = dataclasses.replace(base, **change)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
