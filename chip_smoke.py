@@ -32,17 +32,22 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    must repeat its losses; each kernel's launches are counted per rank;
    a profiler window covers rank 0's steps.
 
-6. lm: the LM kernels (fused AdamW, sliding-window attention) against
-   their plain versions at every SmolLM-135M leaf, at SmolLM's train and
-   long shapes, windows 64 and 1024, a ragged S and head_dims 96 and 128,
-   and the attention gradient; their times against bound, plain version
-   and library call; then the LM entry point on full-width SmolLM-135M
-   (bf16, batch 16 x seq 128, fused AdamW, 30 steps, one-rank NCCL group)
-   at lr 1e-3 with each kernel's launches counted per step, two steps
-   through the kernels against the kernel-free path, a record of the
-   entry point's default lr 3e-3 on the same steps, reduced logits on the
-   card against the CPU, SPIRT and MLLess for 3 steps each, 5 steps at
-   seq 2048, and a profiler window.
+6. lm: the LM kernels (fused AdamW, sliding-window attention: bf16 on
+   the tensor cores, fp32 on the CUDA cores) against their plain versions
+   at every SmolLM-135M leaf, at SmolLM's train and long shapes, windows
+   64 and 1024, a ragged S and head_dims 96 and 128, and the attention
+   gradient in fp32 and bf16; the tensor-core kernel's SASS (wgmma and TMA); their times
+   against bound, plain version, library call and, for attention, the
+   CUDA-core kernel in bf16; then the LM entry point on full-width
+   SmolLM-135M (bf16, batch 16 x seq 128, fused AdamW, 30 steps, one-rank
+   NCCL group) at lr 1e-3 with each kernel's launches counted per step
+   (every attention launch on the tensor-core route), two steps through
+   the kernels against the kernel-free path, a record of the entry point's
+   default lr 3e-3 on the same steps, reduced logits on the card against
+   the CPU, SPIRT and MLLess for 3 steps each, 5 steps at seq 2048, and
+   profiler windows at seq 128 and seq 2048, the second with attention's
+   device time split into the kernel, the plain recompute and the
+   backward.
 7. rwkv: the WKV recurrence kernel against its plain chunked twin (and
    the exact recurrence where T <= 128) at N 16, 32 and 64, chunks 1 to
    64, a ragged T, B*H from 1 to 256, fp32 and bf16, decays up to the
@@ -782,6 +787,7 @@ def byzantine_phase():
 LM_ARCH = "smollm-135m"
 ADAMW_SRC = "src/repro_torch/kernels/csrc/fused_adamw.cu"
 SWA_SRC = "src/repro_torch/kernels/csrc/swa_attention.cu"
+SWA_TC_SRC = "src/repro_torch/kernels/csrc/swa_attention_tc.cu"
 LM_BATCH, LM_SEQ, LM_STEPS = 16, 128, 30
 # the entry point's default lr 3e-3 makes full-width SmolLM's loss rise
 # over 30 steps (11.21 -> 11.58, first and last five); 1e-3 trains (PERF.md)
@@ -875,10 +881,14 @@ def lm_kernel_parity(dev):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev)
                        .to(dtype) for n in (H, KV, KV))
+            before = swa.LAUNCHES["swa_attention_fwd_wgmma"]
             got = swa.swa_attention_fwd(q, k, v, window=window,
                                         causal=causal)
             want = ref.swa_attention(q, k, v, window=window, causal=causal)
             torch.cuda.synchronize()
+            check(swa.LAUNCHES["swa_attention_fwd_wgmma"] - before
+                  == (dtype == torch.bfloat16),
+                  f"swa_attention_fwd at {label} {dtype}: wrong route")
             diff = (got.float() - want.float()).abs()
             if dtype == torch.float32:
                 ok = bool((diff <= SWA_F32_ATOL).all())
@@ -899,16 +909,88 @@ def lm_kernel_parity(dev):
     torch.sum(torch.tanh(ref.swa_attention(*b, window=128))).backward()
     gerr = max(float((x.grad - y.grad).abs().max()) for x, y in zip(a, b))
     check(gerr <= 1e-4, f"swa_attention gradient differs by {gerr:.3e}")
-    log(f"[lm] swa_attention_fwd against its plain version at "
+    # bf16, the main path's dtype (the forward on the tensor-core kernel):
+    # held within one bf16 step (2^-7) of the largest plain fp32 gradient
+    # of the same values, as in tests/test_torch_cuda.py; plain bf16
+    # autograd is measured beside it as the witness of rounding alone.
+    grads = {}
+    for name, fn, dtype in (("kernel", ops.swa_attention, torch.bfloat16),
+                            ("plain_bf16", ref.swa_attention, torch.bfloat16),
+                            ("plain_fp32", ref.swa_attention, torch.float32)):
+        x = [t.bfloat16().to(dtype).requires_grad_() for t in qkv]
+        before = swa.LAUNCHES["swa_attention_fwd_wgmma"]
+        torch.sum(torch.tanh(fn(*x, window=128).float())).backward()
+        check(swa.LAUNCHES["swa_attention_fwd_wgmma"] - before
+              == (name == "kernel"), f"swa_attention {name}: wrong route")
+        grads[name] = [t.grad.float() for t in x]
+    scale = max(float(g.abs().max()) for g in grads["plain_fp32"])
+    gerr16, witness = (max(float((x - y).abs().max()) / scale for x, y in
+                           zip(grads[name], grads["plain_fp32"]))
+                       for name in ("kernel", "plain_bf16"))
+    check(gerr16 <= 2 ** -7, f"swa_attention bf16 gradient differs by "
+          f"{gerr16:.3e} of the largest fp32 gradient")
+    log(f"[lm] swa_attention_fwd (bf16 on the tensor-core kernel, fp32 on "
+        f"the CUDA-core kernel) against its plain version at "
         f"{len(SWA_PARITY)} shapes x bf16/fp32 "
         f"({', '.join(c[0] for c in SWA_PARITY)}): max abs err fp32 "
         f"{err[torch.float32]:.3e} (tol {SWA_F32_ATOL}), bf16 "
         f"{err[torch.bfloat16]:.3e} (tol one bf16 step, {SWA_BF16_RTOL} "
         f"relative + {SWA_BF16_ATOL}); gradient through ops.swa_attention "
-        f"(B 2, S 512, window 128, fp32) max abs err {gerr:.3e} (tol 1e-4)")
+        f"(B 2, S 512, window 128) fp32 max abs err {gerr:.3e} (tol 1e-4), "
+        f"bf16 max abs err {gerr16:.3e} of the largest fp32 gradient "
+        f"{scale:.3e} (tol 2^-7; plain bf16 autograd lands {witness:.3e} "
+        f"of it away)")
     return {"fused_adamw_flat": 0.0, "swa_attention_fwd": err[torch.float32],
             "swa_attention_fwd_bf16": err[torch.bfloat16],
-            "swa_attention_grad": gerr}
+            "swa_attention_grad": gerr, "swa_attention_grad_bf16": gerr16,
+            "swa_attention_grad_bf16_plain": witness}
+
+
+def swa_sass():
+    """The tensor-core attention kernel's SASS: counts of wgmma (HGMMA),
+    TMA loads (UTMALDG) and stores (UTMASTG) in each instantiation of
+    ``swa_wgmma_kernel``; fails unless every one has wgmma and TMA loads."""
+    import shutil
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "",
+                                                     "bin", "cuobjdump")
+    lib = _build._build_all()["swa_attention_tc"]
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
+    counts = {}
+    for body in res.stdout.split("Function : ")[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if "swa_wgmma_kernel" in name:
+            hd = "hd<=64" if "ILi64E" in name else "hd>64"
+            counts[hd] = {op: body.count(op)
+                          for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    check(len(counts) == 2 and all(c["HGMMA"] and c["UTMALDG"]
+                                   for c in counts.values()),
+          f"swa_wgmma_kernel SASS lacks wgmma or TMA: {counts}")
+    log(f"[lm] swa_wgmma_kernel SASS (cuobjdump -sass): {counts}")
+    return counts
+
+
+def cuda_core_bf16(q, k, v, window):
+    """The CUDA-core attention kernel on bf16 (causal), which no route of
+    the port takes since the tensor-core kernel replaced it there: launched
+    through its C entry point only to time the two designs in one run;
+    counts nothing."""
+    import math
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import swa_attention as swa
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    lib = _build._library("swa_attention", swa._SIGNATURES)
+    err = lib.rt_swa_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, B, S, H,
+        k.shape[2], hd, 0 if window is None else window, 1,
+        1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"CUDA-core attention kernel failed: CUDA error {err}")
+    return out
 
 
 def lm_kernel_times(dev):
@@ -991,7 +1073,11 @@ def lm_kernel_times(dev):
             lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=band, enable_gqa=True)
         fn = lambda: swa.swa_attention_fwd(q, k, v, window=window)  # noqa: E731
+        old = lambda: cuda_core_bf16(q, k, v, window)  # noqa: E731
         r = dict(ms=time_ms(fn, reps=10), graph_ms=graphed_ms(fn),
+                 cuda_core_ms=time_ms(old, reps=10),
+                 cuda_core_graph_ms=graphed_ms(old),
+                 design_bound_ms=1.5 * t_ops * 1e3,
                  plain_ms=time_ms(lambda: ref.swa_attention(
                      q, k, v, window=window), reps=3, warmup=1),
                  library_ms=time_ms(lib_fn, reps=10), library=library,
@@ -1002,8 +1088,11 @@ def lm_kernel_times(dev):
                  shapes=f"q ({B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, "
                         f"{hd}) bf16, causal, window {window}")
         out[f"swa_attention_fwd/{key}"] = r
-        log(f"[lm] swa_attention_fwd {r['shapes']}: kernel {r['ms']:.4f} ms "
-            f"(as a CUDA graph {r['graph_ms']:.4f} ms), plain "
+        log(f"[lm] swa_attention_fwd {r['shapes']}: tensor-core kernel "
+            f"{r['ms']:.4f} ms (as a CUDA graph {r['graph_ms']:.4f} ms; its "
+            f"design's three products {r['design_bound_ms']:.4f} ms at "
+            f"peak), CUDA-core kernel {r['cuda_core_ms']:.4f} ms (graph "
+            f"{r['cuda_core_graph_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
             f"({library}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
             f"{flops / 1e9:.2f} GFLOP at bf16 tensor-core peak; "
@@ -1035,11 +1124,13 @@ def reset_lm_launches():
 def expected_lm_launches(steps, microbatches=1, mlless=False):
     """Per ``steps``: fused AdamW once per leaf (12); the attention kernel
     once per layer in the forward and once more in the backward's
-    recompute of each checkpointed layer, per microbatch (2 x 30 x Ke);
-    MLLess's filter once per leaf."""
+    recompute of each checkpointed layer, per microbatch (2 x 30 x Ke),
+    every launch on the tensor-core route (the model is bf16); MLLess's
+    filter once per leaf."""
     n = {"fused_adamw_flat": 12 * steps,
          "swa_attention_fwd": 2 * 30 * microbatches * steps,
          "wkv6_chunked": 0, "block_norms": 0, "masked_filter": 0}
+    n["swa_attention_fwd_wgmma"] = n["swa_attention_fwd"]   # bf16: all
     if mlless:
         n["block_norms"] = n["masked_filter"] = 12 * steps
     return n
@@ -1116,6 +1207,8 @@ def lm_train_phase(init_method):
         runs["long"] = r
         torch.cuda.empty_cache()
         runs["profile"] = lm_profile()
+        runs["long_profile"] = lm_profile(LONG_BATCH, LONG_SEQ,
+                                          split_attention=True)
         return launches, runs
     finally:
         dist.destroy_process_group()
@@ -1228,10 +1321,14 @@ def lm_cuda_vs_cpu():
         f"max abs diff {err:.3e} (tol 1e-4)")
 
 
-def lm_profile(steps=3):
-    """``torch.profiler`` over a few full-width SmolLM-135M steps (batch
-    16 x seq 128, fused AdamW, after warm-up): device time by kernel
-    against the host clock."""
+def lm_profile(batch=LM_BATCH, seq=LM_SEQ, steps=3, split_attention=False):
+    """``torch.profiler`` over a few full-width SmolLM-135M steps (fused
+    AdamW, after warm-up): device time by kernel against the host clock.
+    With ``split_attention``, attention's device time a step split into the
+    forward kernel (its launches in the forward and in the remat
+    recompute), the backward's plain recompute of the forward (the chunked
+    ``_Flash`` forward inside ``_SwaAttentionBackward``) and the plain
+    backward itself (``_FlashBackward``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1241,31 +1338,34 @@ def lm_profile(steps=3):
     from repro_torch.data import lm_batches, token_stream
     from repro_torch.models import build_model
     cfg = get_config(LM_ARCH)
-    it = lm_batches(token_stream(LM_BATCH * LM_SEQ * 8, cfg.vocab_size),
-                    LM_BATCH, LM_SEQ)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+    it = lm_batches(token_stream(batch * seq * 8, cfg.vocab_size), batch,
+                    seq)
+    data = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
     ts = build_train_step(build_model(cfg, use_kernel=True, device="cuda"),
                           optim.adamw(LM_LR, use_fused=True),
                           get_strategy("allreduce"))
     state = ts.init_state()
     for _ in range(2):
-        ts.step_fn(state, batch)
+        ts.step_fn(state, data)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            ts.step_fn(state, batch)
+            ts.step_fn(state, data)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    del ts, state
+    torch.cuda.empty_cache()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    out = {"wall_ms": wall_ms, "busy_ms": busy_ms}
+    out = {"batch": batch, "seq": seq, "wall_ms": wall_ms,
+           "busy_ms": busy_ms}
     if busy_ms == 0:
         log("[profile] the profiler recorded no device time: not measured")
         return out
-    log(f"[profile] {LM_ARCH} step (batch {LM_BATCH} x seq {LM_SEQ}, fused "
+    log(f"[profile] {LM_ARCH} step (batch {batch} x seq {seq}, fused "
         f"AdamW) under the profiler: {wall_ms:.3f} ms/step on the host "
         f"clock, device busy {busy_ms:.3f} ms/step, idle share "
         f"{1 - busy_ms / wall_ms:.3f}; device kernels per step "
@@ -1273,13 +1373,35 @@ def lm_profile(steps=3):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms"
             f"/step {e.count / steps:6.0f}/step  {e.key[:90]}")
-    for name in ("swa_fwd_kernel", "fused_adamw_kernel"):
+    for name in ("swa_wgmma_kernel", "fused_adamw_kernel"):
         mine = [e for e in kernels if name in e.key]
         us = sum(e.self_device_time_total for e in mine) / steps
         n = sum(e.count for e in mine) / steps
         out[name] = {"us_per_step": us, "launches_per_step": n}
         log(f"[profile]   {name}: {us:.1f} us/step of device time in "
             f"{n:.0f} launches ({us / max(n, 1):.2f} us each)")
+    if split_attention:
+        events = prof.events()
+
+        def under(fn):   # device ms a step under one autograd node's calls
+            key = f"autograd::engine::evaluate_function: {fn}"
+            return sum(e.device_time_total for e in events
+                       if e.name == key) / 1e3 / steps
+        backward_all = under("_SwaAttentionBackward")
+        backward = under("_FlashBackward")
+        kernel = out["swa_wgmma_kernel"]["us_per_step"] / 1e3
+        att = {"kernel_ms": kernel, "recompute_ms": backward_all - backward,
+               "backward_ms": backward, "total_ms": kernel + backward_all}
+        att["share_of_busy"] = att["total_ms"] / busy_ms
+        out["attention"] = att
+        if backward_all == 0:
+            log("[profile]   attention's backward: no device time under "
+                "_SwaAttentionBackward, its split is not measured")
+        else:
+            log(f"[profile]   attention: {att['total_ms']:.3f} ms/step of "
+                f"device time ({att['share_of_busy']:.3f} of busy): forward "
+                f"kernel {kernel:.3f}, plain recompute "
+                f"{att['recompute_ms']:.3f}, plain backward {backward:.3f}")
     return out
 
 
@@ -1289,6 +1411,7 @@ def lm_phase():
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     err = lm_kernel_parity(dev)
+    sass = swa_sass()
     times = lm_kernel_times(dev)
     init = "file://" + os.path.join(tempfile.mkdtemp(prefix="chip_smoke_lm_"),
                                     "pg")
@@ -1303,17 +1426,23 @@ def lm_phase():
          "launches": launches["fused_adamw_flat"], "launches_run": main_path,
          "max_abs_err": err["fused_adamw_flat"],
          **times["fused_adamw_flat"]},
-        {"name": "swa_attention_fwd", "route": "cuda", "source": SWA_SRC,
+        {"name": "swa_attention_fwd", "route": "cuda", "source": SWA_TC_SRC,
+         "fp32_source": SWA_SRC,
          "replaces": "src/repro/kernels/swa_attention.py:81",
          "launches": launches["swa_attention_fwd"],
+         "launches_wgmma": launches["swa_attention_fwd_wgmma"],
          "launches_run": main_path,
-         "max_abs_err": err["swa_attention_fwd"],
-         "max_abs_err_bf16": err["swa_attention_fwd_bf16"],
+         "max_abs_err": err["swa_attention_fwd_bf16"],
+         "max_abs_err_fp32": err["swa_attention_fwd"],
          "grad_max_abs_err": err["swa_attention_grad"],
+         "grad_bf16_rel_err": err["swa_attention_grad_bf16"],
+         "grad_bf16_plain_rel_err": err["swa_attention_grad_bf16_plain"],
          **long,
          "train_shape": times["swa_attention_fwd/train"],
          "window_1024": times["swa_attention_fwd/long_window_1024"],
-         "profile": runs["profile"].get("swa_fwd_kernel")},
+         "sass": sass,
+         "profile": runs["profile"].get("swa_wgmma_kernel"),
+         "long_profile": runs["long_profile"]},
     ]
 
 
@@ -1501,6 +1630,7 @@ def expected_rwkv_launches(steps, mlless=False):
     layer in the forward and once more in the backward's recompute of
     each checkpointed layer (2 x 4); MLLess's filter once per leaf."""
     n = {"fused_adamw_flat": 17 * steps, "swa_attention_fwd": 0,
+         "swa_attention_fwd_wgmma": 0,
          "wkv6_chunked": 2 * RWKV_LAYERS * steps, "block_norms": 0,
          "masked_filter": 0}
     if mlless:

@@ -1,15 +1,21 @@
-"""Sliding-window attention forward: the wrapper of the Hopper kernel in
-``csrc/swa_attention.cu``.
+"""Sliding-window attention forward: the wrapper of the Hopper kernels in
+``csrc/swa_attention_tc.cu`` (bf16) and ``csrc/swa_attention.cu`` (fp32).
 
 ``swa_attention_fwd`` replaces the Pallas kernel
 ``repro/kernels/swa_attention.py:swa_attention_fwd``: causal GQA attention
-with an optional sliding window and an fp32 online softmax.  The source
-states the kernel's bound and design.  The gradient is
-``kernels.ops.swa_attention``.
+with an optional sliding window and an fp32 online softmax.  The route
+follows the dtype: bf16 runs on the tensor cores (wgmma and TMA, P.V as
+two bf16 products of P's high and low halves); fp32 runs on the CUDA
+cores, since a tensor-core fp32 product is TF32.  The sources state each
+kernel's bound and design.  The gradient is ``kernels.ops.swa_attention``.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
-tensor it returns the plain version from ``ref.py``.  ``LAUNCHES``
-counts the kernel launches.
+On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
+it returns the plain version from ``ref.py``.  ``LAUNCHES`` counts the
+launches of both routes under ``"swa_attention_fwd"`` and those of the
+tensor-core route under ``"swa_attention_fwd_wgmma"`` as well.  The bf16
+instantiation in ``csrc/swa_attention.cu`` is on no route: only
+``chip_smoke.py`` launches it, to time the CUDA-core design beside the
+tensor-core one.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES = {"swa_attention_fwd": 0}
+LAUNCHES = {"swa_attention_fwd": 0, "swa_attention_fwd_wgmma": 0}
 
 HEAD_DIMS = (32, 64, 96, 128)   # head_dims the kernel is built for
 MAX_GROUP = 64                  # H / KV: a q tile holds 64 (query, head) rows
@@ -30,6 +36,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "rt_swa_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _F, _P],
+}
+_TC_SIGNATURES = {
+    "rt_swa_attention_fwd_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _F, _P],
 }
 
 
@@ -74,19 +84,26 @@ def swa_attention_fwd(q, k, v, *, window=None, causal=True):
                          f"built for head_dim in {HEAD_DIMS}")
     if H // KV > MAX_GROUP:
         raise ValueError(f"H / KV = {H // KV} > {MAX_GROUP} heads a kv head")
+    wgmma = q.dtype == torch.bfloat16
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build._library("swa_attention", _SIGNATURES)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, KV, hd, 0 if window is None else int(window),
+            int(bool(causal)), 1.0 / math.sqrt(hd)]
     with torch.cuda.device(q.device):
-        err = lib.rt_swa_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, S, H, KV, hd,
-            0 if window is None else int(window), int(bool(causal)),
-            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if wgmma:
+            lib = _build._library("swa_attention_tc", _TC_SIGNATURES)
+            err = lib.rt_swa_attention_fwd_wgmma(*args, stream)
+        else:
+            lib = _build._library("swa_attention", _SIGNATURES)
+            err = lib.rt_swa_attention_fwd(*args[:4], _DTYPES[q.dtype],
+                                           *args[4:], stream)
     if err:
         raise RuntimeError(f"swa_attention_fwd kernel launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["swa_attention_fwd"] += 1
+    LAUNCHES["swa_attention_fwd_wgmma"] += wgmma
     return out

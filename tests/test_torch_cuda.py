@@ -320,16 +320,20 @@ SWA_GPU_CASES = [
                          ids=["f32", "bf16"])
 def test_swa_attention_kernel_matches_plain(cuda, case, dtype):
     """Both compute in fp32 from the same inputs, in other orders: 2e-5
-    in fp32; in bf16 each rounds its fp32 result once, so they may sit
+    in fp32 (the CUDA-core kernel); in bf16 (the tensor-core kernel, P.V
+    as two bf16 products) each rounds its result once, so they may sit
     one bf16 step (2^-7 relative) apart."""
     B, S, H, KV, hd, window, causal = case
     gen = torch.Generator(device=cuda).manual_seed(S + H + hd)
     q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=cuda)
                .to(dtype) for n in (H, KV, KV))
-    before = tswa.LAUNCHES["swa_attention_fwd"]
+    before = dict(tswa.LAUNCHES)
     got = tswa.swa_attention_fwd(q, k, v, window=window, causal=causal)
     torch.cuda.synchronize()
-    assert tswa.LAUNCHES["swa_attention_fwd"] == before + 1
+    assert tswa.LAUNCHES["swa_attention_fwd"] == \
+        before["swa_attention_fwd"] + 1
+    assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
+        before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
     want = tref.swa_attention(q, k, v, window=window, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
@@ -340,22 +344,72 @@ def test_swa_attention_kernel_matches_plain(cuda, case, dtype):
                                    atol=1e-5)
 
 
-def test_swa_attention_gradient_on_cuda(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_swa_attention_gradient_on_cuda(cuda, dtype):
     """The gradient through ``ops.swa_attention`` (kernel forward, chunked
-    flash backward) against plain autograd through the naive version,
-    fp32 with TF32 off: 1e-4."""
+    flash backward) against plain fp32 autograd through the naive version
+    on the same values, TF32 off.  fp32: 1e-4.  bf16 (the forward on the
+    tensor-core route): the gradient is fp32 arithmetic on bf16 operands
+    (the loss's gradient, taken from the bf16 output, among them) rounded
+    to bf16, so it is held within one bf16 step (2^-7) of the largest
+    fp32 gradient; plain bf16 autograd through the naive version lands
+    about 2^-8 of it away at this shape (NVIDIA H100)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda).manual_seed(1)
-    qkv = [torch.randn(1, 256, n, 64, generator=gen, device=cuda)
+    qkv = [torch.randn(1, 256, n, 64, generator=gen, device=cuda).to(dtype)
            for n in (4, 2, 2)]
     a = [t.clone().requires_grad_() for t in qkv]
-    b = [t.clone().requires_grad_() for t in qkv]
-    before = tswa.LAUNCHES["swa_attention_fwd"]
-    torch.sum(torch.tanh(tops.swa_attention(*a, window=64))).backward()
+    b = [t.float().requires_grad_() for t in qkv]
+    before = dict(tswa.LAUNCHES)
+    torch.sum(torch.tanh(tops.swa_attention(*a, window=64).float())) \
+        .backward()
     torch.sum(torch.tanh(tref.swa_attention(*b, window=64))).backward()
-    assert tswa.LAUNCHES["swa_attention_fwd"] == before + 1
+    assert tswa.LAUNCHES["swa_attention_fwd"] == \
+        before["swa_attention_fwd"] + 1
+    assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
+        before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
     for x, y in zip(a, b):
-        torch.testing.assert_close(x.grad, y.grad, rtol=0, atol=1e-4)
+        assert x.grad.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(x.grad, y.grad, rtol=0, atol=1e-4)
+        else:
+            err = float((x.grad.float() - y.grad).abs().max())
+            assert err <= 2 ** -7 * float(y.grad.abs().max()), err
+
+
+def test_swa_wgmma_kernel_is_built_on_tensor_cores_and_tma(cuda):
+    """The tensor-core kernel's SASS holds wgmma (HGMMA) and TMA loads
+    (UTMALDG), as compiled for sm_90a from ``csrc/swa_attention_tc.cu``."""
+    import shutil
+    import subprocess
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or f"{CUDA_HOME}/bin/cuobjdump"
+    lib = _build._build_all()["swa_attention_tc"]
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    kernels = [f for f in sass.split("Function : ")[1:]
+               if "swa_wgmma_kernel" in f.split("\n", 1)[0]]
+    assert kernels, "no swa_wgmma_kernel in the library"
+    for body in kernels:
+        assert "HGMMA" in body and "UTMALDG" in body
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(0, 128, 9, 64), (2, 0, 9, 64)],
+                         ids=["B0", "S0"])
+def test_swa_attention_empty_input_launches_nothing(cuda, dtype, shape):
+    """An empty q returns an empty output without a launch, so neither
+    counter moves on either route."""
+    B, S, H, hd = shape
+    q = torch.zeros(B, S, H, hd, device=cuda, dtype=dtype)
+    kv = torch.zeros(B, S, 3, hd, device=cuda, dtype=dtype)
+    before = dict(tswa.LAUNCHES)
+    got = tswa.swa_attention_fwd(q, kv, kv)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert tswa.LAUNCHES == before
 
 
 def test_lm_kernel_wrappers_validate_inputs(cuda):
