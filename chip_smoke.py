@@ -9,16 +9,20 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    and prints the compiler's register report and the card's name and
    power limit.  TF32 is off for convolutions and matrix products, so
    every phase runs in full fp32.
-2. kernels: each Hopper kernel against its plain PyTorch twin at the
-   block view of every full-width MobileNet leaf, a ragged row count, an
-   unpacked row width and bf16; then times the kernel, the twin and a
-   library call at the shapes of one MLLess step (the 83 leaf views).
+2. kernels: the per-leaf MLLess kernels against their plain PyTorch
+   twins at the block view of every full-width MobileNet leaf, a ragged
+   row count, an unpacked row width and bf16, timed (kernel, twin, library
+   call) at one MLLess step's 83 leaf views; then the segmented pair,
+   which the MLLess step runs (every leaf at once), against its twins at
+   the 83 MobileNet and 62 ResNet-18 leaves in fp32 and bf16 and a ragged
+   layout aligned and not, timed at one MobileNet and one ResNet-18 step.
 3. train: the training entry point on full-width MobileNet, batch 96,
    MLLess, 30 steps on a one-rank NCCL group; the loss must fall and each
-   kernel must launch 83 times a step.  One step through the kernels is
-   held against the same step through the twins, a reduced model's logits
-   against the same model on the CPU, and the other four strategies and
-   ResNet-18 take a few steps each.
+   segmented kernel must launch once a step (no per-leaf launch).  One
+   step through the kernels is held against the same step through the
+   twins, a reduced model's logits against the same model on the CPU;
+   profiler windows over the MLLess step of MobileNet and ResNet-18; the
+   other four strategies and ResNet-18 take a few steps each.
 4. robust kernels: the four robust-aggregation kernels against their
    plain versions at W = 4 stacks of the full-width MobileNet and
    ResNet-18 gradients and at W = 3..16 over a ragged D, with tie and
@@ -48,7 +52,16 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    profiler windows at seq 128 and seq 2048, the second with attention's
    device time split into the kernel, the plain recompute and the
    backward.
-7. rwkv: the WKV recurrence kernel against its plain chunked twin (and
+7. gemma: attention at the head_dims beyond the tensor-core kernel's
+   (Gemma-3's 320 at its train shape, local and global, and a ragged S;
+   160; 256) against its plain version in bf16 and fp32, every launch on
+   the CUDA-core route; its times at Gemma-3's shape against bound, plain
+   version and ``F.scaled_dot_product_attention``; then the LM entry point
+   on full-width gemma3-4b cut to 6 layers (one 5:1 local/global group;
+   bf16, batch 1 x seq 2048, fused AdamW lr 3e-4, 10 steps) with 12
+   attention launches a step, peak memory, two steps against the
+   kernel-free path and a record of lr 3e-3 and 1e-3.
+8. rwkv: the WKV recurrence kernel against its plain chunked twin (and
    the exact recurrence where T <= 128) at N 16, 32 and 64, chunks 1 to
    64, a ragged T, B*H from 1 to 256, fp32 and bf16, decays up to the
    strong ones where the Pallas body overflows, and the gradient through
@@ -66,6 +79,11 @@ Phases, each of which must pass (the script exits nonzero otherwise):
 
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --compare-mlless ROOT
+
+times only the MLLess step of MobileNet and ResNet-18 (``profile_step``)
+on the checkout at ROOT and on this one, in turns, one process each.
 """
 import copy
 import functools
@@ -129,10 +147,14 @@ def setup():
         f"{sorted(libs)}")
     for stem, path in sorted(libs.items()):
         report = path.with_suffix(".log")
-        if report.exists():
-            for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[setup] {stem}: {line.strip()}")
+        if not report.exists():
+            continue
+        entry = ""
+        for line in report.read_text().splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"[setup] {stem} {entry}: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -266,6 +288,156 @@ def kernel_times(views):
     }
 
 
+def layout_shapes(arch):
+    """The leaf shapes of a full-width CIFAR CNN, in MLLess's order."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_cnn, reference_leaves
+    return [tuple(p.shape) for p in reference_leaves(
+        build_cnn(get_config(arch), device="cpu"))]
+
+
+def segment_case(shapes, gdtype, dev, gen, misalign=False):
+    """Seeded gradients of ``shapes`` (mixed-scale 256-wide rows, so the
+    masks vary), a padded fp32 residual and their layout.  ``misalign``
+    cuts the gradients from one buffer at odd element offsets, so no leaf
+    is 16-byte aligned and the kernels take their one-value path."""
+    import torch
+    from repro_torch.kernels.block_significance import SegmentLayout
+    grads = []
+    for shape in shapes:
+        n = math.prod(shape)
+        rows = -(-n // BLOCK)
+        scale = torch.rand((rows, 1), generator=gen, device=dev) ** 3 * 4
+        g = (torch.randn((rows, BLOCK), generator=gen, device=dev) * scale)
+        g = g.reshape(-1)[:n].to(gdtype)
+        if misalign:
+            g = torch.cat([g.new_zeros(1), g])[1:]
+        grads.append(g.view(shape))
+    layout = SegmentLayout(grads)
+    resid = layout.pack([0.3 * torch.randn(g.shape, generator=gen,
+                                           device=dev) for g in grads], dev)
+    return grads, resid, layout
+
+
+def segment_parity(dev):
+    """The segmented pair against its plain twins on the card: the 83
+    MobileNet leaves and the 62 ResNet-18 leaves in fp32 and bf16
+    (fp32 residuals), and a ragged layout (1, 255, 257 and 100,003
+    values) aligned and not.  Sums of squares within 1e-5 relative; masks
+    equal wherever a row's norm is more than 1e-4 from the leaf's cut
+    (the margin is checked from the twin's own numbers); counts the sum
+    of the kernel's mask; kept and residual bit-exact given the mask."""
+    import torch
+    from repro_torch.kernels import block_significance as bs
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cases = []
+    for arch in ("mobilenet-cifar", "resnet18-cifar"):
+        for gdtype in (torch.float32, torch.bfloat16):
+            cases.append((f"{arch} {str(gdtype)[6:]}", layout_shapes(arch),
+                          gdtype, False))
+    ragged = [(1,), (255,), (257,), (100_003,)]
+    for gdtype in (torch.float32, torch.bfloat16):
+        for mis in (False, True):
+            cases.append((f"ragged {str(gdtype)[6:]}"
+                          + (" misaligned" if mis else ""), ragged, gdtype,
+                          mis))
+    abs_err, rel_err, near, rows = 0.0, 0.0, 0, 0
+    for label, shapes, gdtype, mis in cases:
+        grads, resid, layout = segment_case(shapes, gdtype, dev, gen, mis)
+        sq, mask, counts = bs.segment_norms(grads, resid, layout, 0.5)
+        sq2, mask2, _ = ref.segment_norms(grads, resid, layout, 0.5)
+        torch.cuda.synchronize()
+        check(sq.shape == sq2.shape and mask.dtype == torch.bool
+              and counts.shape == (len(shapes),),
+              f"segment_norms {label}: shapes {sq.shape} {mask.dtype} "
+              f"{counts.shape}")
+        diff = (sq - sq2).abs()
+        rel = float((diff / sq2.abs().clamp_min(1e-30)).max())
+        abs_err, rel_err = max(abs_err, float(diff.max())), max(rel_err, rel)
+        check(rel <= 1e-5, f"segment_norms {label}: rel err {rel:.3e}")
+        # each row's distance from its leaf's cut, from the twin's numbers
+        cut = torch.cat([
+            0.5 * torch.sqrt(sq2[b0:b0 + nb].double().mean() + 1e-20)
+            .expand(nb) for b0, nb in zip(layout.block0, layout.blocks)])
+        margin = (sq2.double().sqrt() / cut - 1).abs()
+        far = margin > 1e-4
+        check(torch.equal(mask[far], mask2[far]),
+              f"segment_norms {label}: masks differ away from the cut")
+        near += int((~far).sum())
+        rows += layout.n_rows
+        per_leaf = torch.stack([mask[b0:b0 + nb].sum() for b0, nb in
+                                zip(layout.block0, layout.blocks)])
+        check(torch.equal(counts, per_leaf),
+              f"segment_norms {label}: counts {counts} vs mask {per_leaf}")
+        kept, new = bs.segment_filter(grads, resid, layout, mask)
+        kept2, new2 = ref.segment_filter(grads, resid, layout, mask)
+        torch.cuda.synchronize()
+        check(torch.equal(kept, kept2) and torch.equal(new, new2),
+              f"segment_filter {label}: differs from its twin")
+        del grads, resid, kept, new, kept2, new2
+    log(f"[segments] parity on {len(cases)} layouts "
+        f"({', '.join(c[0] for c in cases)}): segment_norms max rel err "
+        f"{rel_err:.3e} (tol 1e-5; max abs err {abs_err:.3e}), masks equal "
+        f"away from the cut "
+        f"({near} of {rows} rows within 1e-4 of it), counts exact; "
+        "segment_filter bit-exact")
+    return abs_err, rel_err
+
+
+def segment_times(dev):
+    """The segmented pair at one MLLess step of full-width MobileNet and
+    ResNet-18 (fp32 gradients): called back to back, as a CUDA graph,
+    the plain twins; bounds count g and the residual read once and every
+    output written once."""
+    import torch
+    from repro_torch.kernels import block_significance as bs
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for arch in ("mobilenet-cifar", "resnet18-cifar"):
+        grads, resid, layout = segment_case(layout_shapes(arch),
+                                            torch.float32, dev, gen)
+        _, mask, _ = ref.segment_norms(grads, resid, layout, 0.5)
+        L, rows = len(layout.numels), layout.n_rows
+        g_bytes = sum(g.numel() * g.element_size() for g in grads)
+        r_bytes = resid.numel() * 4
+        nbytes = {"segment_norms": g_bytes + r_bytes + 5 * rows + 8 * L,
+                  "segment_filter": g_bytes + r_bytes + rows
+                  + 4 * layout.numel + r_bytes}
+        fns = {"segment_norms": (
+                   lambda: bs.segment_norms(grads, resid, layout, 0.5),
+                   lambda: ref.segment_norms(grads, resid, layout, 0.5)),
+               "segment_filter": (
+                   lambda: bs.segment_filter(grads, resid, layout, mask),
+                   lambda: ref.segment_filter(grads, resid, layout, mask))}
+        for name, (kernel, plain) in fns.items():
+            t_bytes = nbytes[name] / H100_BYTES_PER_S
+            t_ops = 2 * layout.numel / H100_FP32_FLOP_PER_S
+            out.setdefault(name, {})[arch] = dict(
+                ms=time_ms(kernel), graph_ms=graphed_ms(kernel),
+                plain_ms=time_ms(plain, reps=10),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes[name], leaves=L, rows=rows)
+            r = out[name][arch]
+            log(f"[segments] {name}, one {arch} MLLess step ({L} leaves, "
+                f"{rows} rows, fp32): kernel {r['ms']:.5f} ms (as a CUDA "
+                f"graph {r['graph_ms']:.5f} ms), plain {r['plain_ms']:.4f} "
+                f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+                f"{r['bytes'] / 1e6:.2f} MB)")
+        del grads, resid, mask
+    return out
+
+
+MLLESS_STEP = {"segment_norms": 1, "segment_filter": 1, "block_norms": 0,
+               "masked_filter": 0}   # launches an MLLess step, any model
+
+
+def mlless_launches(steps):
+    return {k: n * steps for k, n in MLLESS_STEP.items()}
+
+
 def train_phase(init_method):
     import torch
     import torch.distributed as dist
@@ -288,19 +460,20 @@ def train_phase(init_method):
         first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
         check(last < first, f"loss did not fall: first five {first:.4f}, "
               f"last five {last:.4f}")
-        for k, n in launches.items():
-            check(n == 83 * steps, f"{k} launched {n} times in {steps} "
-                  f"steps, expected {83 * steps}")
+        check(launches == mlless_launches(steps), f"launches {launches} in "
+              f"{steps} steps, expected {mlless_launches(steps)}")
         log(f"[train] mobilenet-cifar full width, batch 96, mlless, "
             f"{steps} steps: loss {first:.4f} (first five) -> {last:.4f} "
-            f"(last five); launches {launches} = 83/step; "
+            f"(last five); launches {launches} = {MLLESS_STEP} a step "
+            f"(83 leaves); "
             f"{res['ms_per_step']:.3f} ms/step after the first "
             f"({res['first_step_ms']:.1f} ms); peak memory "
             f"{res['peak_mem_bytes'] / 2**20:.1f} MiB; "
             f"significant_fraction {res['metrics']['significant_fraction']:.4f}")
         kernels_vs_twins()
         cuda_vs_cpu()
-        profile_step("mlless")
+        profiles = {arch: profile_step("mlless", arch)
+                    for arch in ("mobilenet-cifar", "resnet18-cifar")}
         profile_step("allreduce")
         for strategy in ("allreduce", "parameter_server", "scatterreduce",
                          "spirt"):
@@ -323,9 +496,10 @@ def train_phase(init_method):
                 f", losses {[round(l, 4) for l in rn['losses']]}, "
                 f"{rn['ms_per_step']:.3f} ms/step, peak memory "
                 f"{rn['peak_mem_bytes'] / 2**20:.1f} MiB")
-        check(all(n == 62 * 4 for n in bs.LAUNCHES.values()),
-              f"resnet18 mlless launches {bs.LAUNCHES}, expected 62/step")
-        return launches
+        check(bs.LAUNCHES == mlless_launches(4),
+              f"resnet18 mlless launches {bs.LAUNCHES}, expected "
+              f"{mlless_launches(4)} (62 leaves, {MLLESS_STEP} a step)")
+        return launches, profiles
     finally:
         dist.destroy_process_group()
 
@@ -370,10 +544,19 @@ def kernels_vs_twins():
         f"diff {dparam:.3e} (tol 1e-5)")
 
 
-def profile_step(strategy, steps=5):
-    """Where a step's time goes: ``torch.profiler`` over a few steps of
-    full-width MobileNet at batch 96 (after warm-up), device time by
-    kernel against the host clock."""
+# the MLLess filter's kernels, per-leaf and segmented, as the profiler
+# names them
+MLLESS_KERNELS = ("block_norms_kernel", "masked_filter_kernel",
+                  "segment_norms_kernel", "segment_significance_kernel",
+                  "segment_filter_kernel")
+
+
+def profile_step(strategy, arch="mobilenet-cifar", steps=5):
+    """Where a step's time goes: ``torch.profiler`` over a few steps of a
+    full-width CIFAR CNN at batch 96 (after warm-up), device time by
+    kernel against the host clock; returns the step's numbers.  It runs
+    on whichever ``repro_torch`` is first on ``sys.path``, so
+    ``--compare-mlless`` applies it to another checkout too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -386,13 +569,18 @@ def profile_step(strategy, steps=5):
     imgs, labels = cifar_like(96, seed=9)
     batch = {"images": torch.from_numpy(imgs).cuda(),
              "labels": torch.from_numpy(labels).cuda()}
-    model = build_cnn(get_config("mobilenet-cifar"), device="cuda")
+    model = build_cnn(get_config(arch), device="cuda")
     ts = build_train_step(model, optim.sgd(0.01, momentum=0.9),
                           get_strategy(strategy))
     state = ts.init_state()
     for _ in range(3):
         ts.step_fn(state, batch)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ts.step_fn(state, batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -403,25 +591,77 @@ def profile_step(strategy, steps=5):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    out = {"arch": arch, "strategy": strategy, "ms_per_step": plain_ms,
+           "profiled_ms_per_step": wall_ms, "busy_ms": busy_ms,
+           "kernels_per_step": sum(e.count for e in kernels) / steps}
     if busy_ms == 0:
         log("[profile] the profiler recorded no device time: not measured")
-        return
-    log(f"[profile] {strategy} step under the profiler: {wall_ms:.3f} "
-        f"ms/step on the host clock, device busy {busy_ms:.3f} ms/step, "
-        f"idle share "
-        f"{1 - busy_ms / wall_ms:.3f}; device kernels launched per step "
-        f"{sum(e.count for e in kernels) / steps:.0f}")
+        return out
+    out["idle_share"] = 1 - busy_ms / wall_ms
+    log(f"[profile] {arch} {strategy}: {plain_ms:.3f} ms/step unprofiled; "
+        f"under the profiler {wall_ms:.3f} ms/step on the host clock, "
+        f"device busy {busy_ms:.3f} ms/step, idle share "
+        f"{out['idle_share']:.3f}; device kernels launched per step "
+        f"{out['kernels_per_step']:.0f}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms"
             f"/step {e.count / steps:6.0f}/step  {e.key[:90]}")
     if strategy != "mlless":
-        return
-    for name in ("block_norms_kernel", "masked_filter_kernel"):
+        return out
+    for name in MLLESS_KERNELS:
         mine = [e for e in kernels if name in e.key]
+        if not mine:
+            continue
         us = sum(e.self_device_time_total for e in mine) / steps
         n = sum(e.count for e in mine) / steps
+        out[name] = {"us_per_step": us, "launches_per_step": n}
         log(f"[profile]   {name}: {us:.1f} us/step of device time in "
             f"{n:.0f} launches ({us / max(n, 1):.2f} us each)")
+    return out
+
+
+def compare_mlless(parent, rounds=("parent", "change", "change", "parent")):
+    """The MLLess step (``profile_step``) of MobileNet and ResNet-18 on
+    another checkout (``parent``, its root) and on this one, in turns,
+    one process each, on the one card; prints one JSON line per run."""
+    trees = {"parent": Path(parent).resolve(), "change": ROOT}
+    for name, tree in trees.items():
+        check((tree / "src" / "repro_torch").is_dir(),
+              f"{name}: {tree} holds no src/repro_torch")
+    runs = []
+    for arch in ("mobilenet-cifar", "resnet18-cifar"):
+        for who in rounds:
+            res = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--mlless-step", arch, "--src", str(trees[who] / "src")],
+                capture_output=True, text=True, timeout=600)
+            check(res.returncode == 0, f"{who} {arch}: {res.stderr[-2000:]}")
+            run = json.loads(res.stdout.strip().splitlines()[-1])
+            run["tree"] = who
+            runs.append(run)
+            log(f"[compare] {who} {arch}: {run['ms_per_step']:.3f} ms/step "
+                f"unprofiled, {run['profiled_ms_per_step']:.3f} profiled, "
+                f"busy {run['busy_ms']:.3f}, idle share "
+                f"{run.get('idle_share', float('nan')):.3f}, "
+                f"{run['kernels_per_step']:.0f} kernels a step")
+    return runs
+
+
+def mlless_step(arch):
+    """One checkout's MLLess step under ``profile_step`` (the child of
+    ``compare_mlless``); its last line is the JSON of the numbers."""
+    import torch
+    import torch.distributed as dist
+    setup()
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tempfile.mkdtemp(prefix="chip_smoke_cmp_"), "pg"), rank=0,
+        world_size=1)
+    try:
+        out = profile_step("mlless", arch)
+    finally:
+        dist.destroy_process_group()
+    out["device"] = torch.cuda.get_device_name(0)
+    print(json.dumps(out))
 
 
 def cuda_vs_cpu():
@@ -448,11 +688,8 @@ def cuda_vs_cpu():
 
 def flat_sizes():
     """D of the full-width MobileNet and ResNet-18 gradients."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.models import build_cnn, reference_leaves
-    return {arch: sum(p.numel() for p in reference_leaves(
-        build_cnn(get_config(arch), device="cpu")))
-        for arch in ("mobilenet-cifar", "resnet18-cifar")}
+    return {arch: sum(map(math.prod, layout_shapes(arch)))
+            for arch in ("mobilenet-cifar", "resnet18-cifar")}
 
 
 def robust_stack(W, D, dev, gen, edges):
@@ -1126,13 +1363,11 @@ def expected_lm_launches(steps, microbatches=1, mlless=False):
     once per layer in the forward and once more in the backward's
     recompute of each checkpointed layer, per microbatch (2 x 30 x Ke),
     every launch on the tensor-core route (the model is bf16); MLLess's
-    filter once per leaf."""
+    segmented filter once over all 12 leaves."""
     n = {"fused_adamw_flat": 12 * steps,
          "swa_attention_fwd": 2 * 30 * microbatches * steps,
-         "wkv6_chunked": 0, "block_norms": 0, "masked_filter": 0}
+         "wkv6_chunked": 0, **mlless_launches(steps if mlless else 0)}
     n["swa_attention_fwd_wgmma"] = n["swa_attention_fwd"]   # bf16: all
-    if mlless:
-        n["block_norms"] = n["masked_filter"] = 12 * steps
     return n
 
 
@@ -1447,6 +1682,261 @@ def lm_phase():
 
 
 # ---------------------------------------------------------------------------
+# Gemma-3: attention at head_dim 320, on the CUDA-core kernel
+# ---------------------------------------------------------------------------
+GEMMA_ARCH = "gemma3-4b"
+# one 5:1 local/global group at full width (d_model 2560, 8 / 4 heads of
+# 320, d_ff 10240, vocab 262144): the depth is cut from 34 to 6 layers only
+# because this script runs under a time limit
+GEMMA_LAYERS, GEMMA_PARAMS, GEMMA_LEAVES = 6, 1_774_748_160, 51
+GEMMA_BATCH, GEMMA_SEQ, GEMMA_STEPS = 1, 2048, 10
+# the entry point's default lr 3e-3 makes the loss jump (12.97 -> 23.68 at
+# the eighth step) and 1e-3 spikes (17.21 at the eighth); 3e-4 trains
+# (PERF.md)
+GEMMA_LR = 3e-4
+# (label, B, S, H, KV, hd, window, causal): Gemma-3's local and global
+# layers at its train shape, a ragged S, pixtral-12b's hd 160 (32 heads on
+# 8) and recurrentgemma-2b's hd 256 (10 heads on 1), non-causal at 256
+GEMMA_PARITY = [
+    ("gemma3 local", 1, 2048, 8, 4, 320, 1024, True),
+    ("gemma3 global", 1, 2048, 8, 4, 320, None, True),
+    ("hd 320 ragged S 1000, window 100", 2, 1000, 8, 4, 320, 100, True),
+    ("hd 160", 1, 512, 32, 8, 160, None, True),
+    ("hd 256", 1, 512, 10, 1, 256, 128, True),
+    ("hd 256 full", 2, 300, 4, 2, 256, None, False),
+]
+
+
+def gemma_kernel_parity(dev):
+    """Attention against its plain version at ``GEMMA_PARITY`` in bf16
+    and fp32, every launch on the CUDA-core route, at the gates of
+    ``lm_kernel_parity``."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as swa
+    gen = torch.Generator(device=dev).manual_seed(14)
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for label, B, S, H, KV, hd, window, causal in GEMMA_PARITY:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev)
+                       .to(dtype) for n in (H, KV, KV))
+            before = dict(swa.LAUNCHES)
+            got = swa.swa_attention_fwd(q, k, v, window=window,
+                                        causal=causal)
+            want = ref.swa_attention(q, k, v, window=window, causal=causal)
+            torch.cuda.synchronize()
+            check(swa.LAUNCHES["swa_attention_fwd"]
+                  == before["swa_attention_fwd"] + 1
+                  and swa.LAUNCHES["swa_attention_fwd_wgmma"]
+                  == before["swa_attention_fwd_wgmma"],
+                  f"swa_attention_fwd at {label} {dtype}: not one launch on "
+                  "the CUDA-core route")
+            diff = (got.float() - want.float()).abs()
+            if dtype == torch.float32:
+                ok = bool((diff <= SWA_F32_ATOL).all())
+            else:
+                ok = bool((diff <= SWA_BF16_ATOL + SWA_BF16_RTOL
+                           * want.float().abs()).all())
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"swa_attention_fwd at {label} {dtype}: max abs diff "
+                  f"{float(diff.max()):.3e}")
+            err[dtype] = max(err[dtype], float(diff.max()))
+            del q, k, v, got, want, diff
+    log(f"[gemma] swa_attention_fwd on the CUDA-core kernel against its "
+        f"plain version at {len(GEMMA_PARITY)} shapes x bf16/fp32 "
+        f"({', '.join(c[0] for c in GEMMA_PARITY)}): max abs err fp32 "
+        f"{err[torch.float32]:.3e} (tol {SWA_F32_ATOL}), bf16 "
+        f"{err[torch.bfloat16]:.3e} (tol one bf16 step)")
+    return {"max_abs_err": err[torch.bfloat16],
+            "max_abs_err_fp32": err[torch.float32]}
+
+
+def gemma_kernel_times(dev):
+    """Attention at Gemma-3's train shape (B 1, S 2048, H 8, KV 4, hd 320,
+    bf16), the local layers' window 1024 and the global layer's none: the
+    wrapper called back to back, as a CUDA graph, the plain version and
+    ``F.scaled_dot_product_attention(enable_gqa=True)``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as swa
+    gen = torch.Generator(device=dev).manual_seed(15)
+    B, S, H, KV, hd = GEMMA_BATCH, GEMMA_SEQ, 8, 4, 320
+    out = {}
+    for key, window in (("local", 1024), ("global", None)):
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev)
+                   .bfloat16() for n in (H, KV, KV))
+        flops = 4 * B * H * hd * attention_pairs(S, window, True)
+        nbytes = 2 * (q.numel() * 2 + k.numel() * 2)
+        t_ops, t_bytes = flops / H100_BF16_FLOP_PER_S, nbytes / H100_BYTES_PER_S
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if window is None:
+            library = ("F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True), (B, H, S, hd)")
+            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(S, device=dev)
+            band = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+            library = ("F.scaled_dot_product_attention(attn_mask=band, "
+                       "enable_gqa=True), (B, H, S, hd)")
+            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
+        fn = lambda: swa.swa_attention_fwd(q, k, v, window=window)  # noqa: E731
+        r = dict(ms=time_ms(fn, reps=10), graph_ms=graphed_ms(fn),
+                 plain_ms=time_ms(lambda: ref.swa_attention(
+                     q, k, v, window=window), reps=3, warmup=1),
+                 library_ms=time_ms(lib_fn, reps=10), library=library,
+                 bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 fp32_core_bound_ms=flops / H100_FP32_FLOP_PER_S * 1e3,
+                 flops=flops, bytes=nbytes,
+                 shapes=f"q ({B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, "
+                        f"{hd}) bf16, causal, window {window}")
+        out[key] = r
+        log(f"[gemma] swa_attention_fwd {r['shapes']}: CUDA-core kernel "
+            f"{r['ms']:.4f} ms (as a CUDA graph {r['graph_ms']:.4f} ms), "
+            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+            f"ms ({library}), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {flops / 1e9:.2f} GFLOP at the bf16 "
+            f"tensor-core peak; {nbytes / 1e6:.1f} MB; fp32 CUDA-core bound "
+            f"{r['fp32_core_bound_ms']:.4f} ms)")
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def gemma_config():
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(GEMMA_ARCH), n_layers=GEMMA_LAYERS)
+
+
+def expected_gemma_launches(steps):
+    """Per step: fused AdamW once per leaf (51); attention once per layer
+    in the forward and once more in the backward's recompute of the
+    checkpointed block (2 x 6), all on the CUDA-core route (hd 320)."""
+    return {"fused_adamw_flat": GEMMA_LEAVES * steps,
+            "swa_attention_fwd": 2 * GEMMA_LAYERS * steps,
+            "swa_attention_fwd_wgmma": 0, "wkv6_chunked": 0,
+            **mlless_launches(0)}
+
+
+def _gemma_steps(kernels, lr, steps, seed):
+    """Losses of ``steps`` seeded batches through the kernels (attention
+    kernel, fused AdamW) or through the kernel-free path (chunked flash
+    attention, plain AdamW), from the weights of ``seed``."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.core import build_train_step, get_strategy
+    from repro_torch.data import lm_batches, token_stream
+    from repro_torch.models import build_model
+    cfg = gemma_config()
+    it = lm_batches(token_stream(GEMMA_BATCH * GEMMA_SEQ * 8, cfg.vocab_size,
+                                 seed=11), GEMMA_BATCH, GEMMA_SEQ, seed=11)
+    ts = build_train_step(build_model(cfg, use_kernel=kernels,
+                                      device="cuda", seed=seed),
+                          optim.adamw(lr, use_fused=kernels),
+                          get_strategy("allreduce"))
+    state = ts.init_state()
+    losses = []
+    for _ in range(steps):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+        losses.append(float(ts.step_fn(state, batch)[1]["loss"]))
+    del ts, state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def gemma_train_phase(init_method):
+    """The LM entry point on full-width gemma3-4b cut to 6 layers over a
+    one-rank NCCL group, with the main path's launch counts and peak
+    memory; two steps against the kernel-free path; the default lr."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.train import train
+    dist.init_process_group("nccl", init_method=init_method, rank=0,
+                            world_size=1)
+    try:
+        torch.cuda.empty_cache()
+        reset_lm_launches()
+        res = train(arch=GEMMA_ARCH, n_layers=GEMMA_LAYERS,
+                    batch=GEMMA_BATCH, seq=GEMMA_SEQ, steps=GEMMA_STEPS,
+                    lr=GEMMA_LR, fused_optimizer=True, device="cuda",
+                    log_every=5, log=log)
+        launches = lm_launches()
+        losses = res["losses"]
+        check(res["params"] == GEMMA_PARAMS, f"params {res['params']}")
+        check(all(math.isfinite(l) for l in losses), f"loss not finite: "
+              f"{losses}")
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        check(last < first, f"loss did not fall: first five {first:.4f}, "
+              f"last five {last:.4f}")
+        want = expected_gemma_launches(GEMMA_STEPS)
+        check(launches == want, f"launches {launches}, expected {want}")
+        log(f"[gemma] {GEMMA_ARCH} full width cut to {GEMMA_LAYERS} layers "
+            f"({res['params']:,} parameters), bf16, batch {GEMMA_BATCH} x "
+            f"seq {GEMMA_SEQ}, allreduce, fused AdamW lr {GEMMA_LR}, "
+            f"{GEMMA_STEPS} steps: loss {first:.4f} (first five) -> "
+            f"{last:.4f} (last five), {[round(l, 4) for l in losses]}; "
+            f"launches {launches} = "
+            f"{ {k: n // GEMMA_STEPS for k, n in launches.items()} } a step; "
+            f"{res['ms_per_step']:.3f} ms/step after the first "
+            f"({res['first_step_ms']:.1f} ms); peak memory "
+            f"{res['peak_mem_bytes'] / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+        reset_lm_launches()
+        lk = _gemma_steps(True, GEMMA_LR, 2, seed=3)
+        got = lm_launches()
+        check(got == expected_gemma_launches(2), f"kernel steps: launches "
+              f"{got}, expected {expected_gemma_launches(2)}")
+        lp = _gemma_steps(False, GEMMA_LR, 2, seed=3)
+        dloss = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+        check(dloss <= LM_STEP_RTOL, f"gemma kernel step vs kernel-free "
+              f"step: loss rel diff {dloss:.3e} > {LM_STEP_RTOL:.3e}")
+        log(f"[gemma] 2 steps through the kernels vs the kernel-free path "
+            f"(bf16, lr {GEMMA_LR}): losses {lk} vs {lp} (rel diff "
+            f"{dloss:.3e}, tol 2^-9 = {LM_STEP_RTOL:.3e})")
+        # a record, not a gate: the entry point's default lr and SmolLM's
+        others = {}
+        for lr in (3e-3, 1e-3):
+            others[lr] = _gemma_steps(True, lr, GEMMA_STEPS, seed=0)
+            log(f"[gemma] lr {lr} (kernels), {GEMMA_STEPS} steps: losses "
+                f"{[round(l, 4) for l in others[lr]]}")
+        return launches, {"train": res, "kernel_vs_plain_rel": dloss,
+                          "other_lr_losses": others}
+    finally:
+        dist.destroy_process_group()
+
+
+def gemma_phase():
+    """Kernel 8 at head_dims 160, 256 and 320 and Gemma-3's training;
+    returns the numbers for the kernels line's attention entry."""
+    import torch
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    err = gemma_kernel_parity(dev)
+    times = gemma_kernel_times(dev)
+    init = "file://" + os.path.join(
+        tempfile.mkdtemp(prefix="chip_smoke_gemma_"), "pg")
+    launches, runs = gemma_train_phase(init)
+    log(f"[gemma] phase took {time.perf_counter() - t0:.1f} s")
+    res = runs["train"]
+    return {"launches": launches["swa_attention_fwd"],
+            "launches_wgmma": launches["swa_attention_fwd_wgmma"],
+            "launches_run": f"{GEMMA_ARCH} ({GEMMA_LAYERS} of 34 layers) "
+                            f"train, batch {GEMMA_BATCH} x seq {GEMMA_SEQ}, "
+                            f"{GEMMA_STEPS} steps",
+            **err, **times["local"], "global": times["global"],
+            "ms_per_step": res["ms_per_step"],
+            "peak_mem_bytes": res["peak_mem_bytes"],
+            "losses": res["losses"],
+            "kernel_vs_plain_rel": runs["kernel_vs_plain_rel"],
+            "other_lr_losses": runs["other_lr_losses"]}
+
+
+# ---------------------------------------------------------------------------
 # the RWKV slice: the WKV recurrence
 # ---------------------------------------------------------------------------
 RWKV_ARCH = "rwkv6-7b"
@@ -1628,14 +2118,12 @@ def rwkv_kernel_times(dev):
 def expected_rwkv_launches(steps, mlless=False):
     """Per step: fused AdamW once per leaf (17); the WKV kernel once per
     layer in the forward and once more in the backward's recompute of
-    each checkpointed layer (2 x 4); MLLess's filter once per leaf."""
-    n = {"fused_adamw_flat": 17 * steps, "swa_attention_fwd": 0,
-         "swa_attention_fwd_wgmma": 0,
-         "wkv6_chunked": 2 * RWKV_LAYERS * steps, "block_norms": 0,
-         "masked_filter": 0}
-    if mlless:
-        n["block_norms"] = n["masked_filter"] = 17 * steps
-    return n
+    each checkpointed layer (2 x 4); MLLess's segmented filter once over
+    all 17 leaves."""
+    return {"fused_adamw_flat": 17 * steps, "swa_attention_fwd": 0,
+            "swa_attention_fwd_wgmma": 0,
+            "wkv6_chunked": 2 * RWKV_LAYERS * steps,
+            **mlless_launches(steps if mlless else 0)}
 
 
 def rwkv_config():
@@ -1974,48 +2462,81 @@ def rwkv_phase():
     ]
 
 
-def main():
+def main(argv):
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the repository: src/repro_torch is "
               "missing", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare-mlless", metavar="ROOT",
+                    help="only time the MLLess step of this checkout and of "
+                         "the one at ROOT, in turns")
+    ap.add_argument("--mlless-step", metavar="ARCH", help=argparse.SUPPRESS)
+    ap.add_argument("--src", default=str(SRC), help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, args.src)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.mlless_step:
+        mlless_step(args.mlless_step)
+        return 0
     t0 = time.perf_counter()
     setup()
+    if args.compare_mlless:
+        print(json.dumps({"compare_mlless": compare_mlless(
+            args.compare_mlless)}))
+        return 0
     dev = torch.device("cuda", 0)
     views = leaf_views(dev)
     check(len(views) == 83 and sum(v.shape[0] for v in views) == 12582,
           "MobileNet leaf views")
     norm_abs, norm_rel = kernel_parity(views, dev)
     times = kernel_times(views)
+    seg_abs, seg_rel = segment_parity(dev)
+    seg_times = segment_times(dev)
     init = "file://" + os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"),
                                     "pg")
-    launches = train_phase(init)
+    launches, profiles = train_phase(init)
     sizes = flat_sizes()
     robust_err = robust_parity(sizes, dev)
     robust_t = robust_times(sizes, dev)
     torch.cuda.empty_cache()
     runs = byzantine_phase()
     src = "src/repro_torch/kernels/csrc/block_significance.cu"
+    main_path = "mobilenet-cifar MLLess train, batch 96, 30 steps"
+    per_leaf = ("none: the MLLess step runs the segmented pair; timed here "
+                "as one MLLess MobileNet step's 83 per-leaf calls")
     line = {"kernels": [
         {"name": "block_norms", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/block_significance.py:24",
-         "launches": launches["block_norms"], "max_abs_err": norm_abs,
-         "max_rel_err": norm_rel,
+         "launches": launches["block_norms"], "launches_run": per_leaf,
+         "max_abs_err": norm_abs, "max_rel_err": norm_rel,
          **times["block_norms"],
          "shapes": "one MLLess step: 83 views (n_i, 256) fp32, 12582 rows",
          "library": "torch.linalg.vecdot(x, x, dim=1)"},
         {"name": "masked_filter", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/block_significance.py:55",
-         "launches": launches["masked_filter"], "max_abs_err": 0.0,
-         **times["masked_filter"],
+         "launches": launches["masked_filter"], "launches_run": per_leaf,
+         "max_abs_err": 0.0, **times["masked_filter"],
          "shapes": "one MLLess step: 83 views (n_i, 256) fp32, 12582 rows",
          "library": None},
     ]}
+    for name, line_no, err in (("segment_norms", 24, seg_abs),
+                               ("segment_filter", 55, 0.0)):
+        mobile = seg_times[name]["mobilenet-cifar"]
+        line["kernels"].append(
+            {"name": name, "route": "cuda", "source": src,
+             "replaces": f"src/repro/kernels/block_significance.py:{line_no}",
+             "launches": launches[name], "launches_run": main_path,
+             "max_abs_err": err, **mobile, "library_ms": None,
+             "max_rel_err": seg_rel if name == "segment_norms" else 0.0,
+             "library": None, "resnet18": seg_times[name]["resnet18-cifar"],
+             "shapes": "one MLLess MobileNet step: 83 leaves, fp32 "
+                       "gradients, 12582 rows",
+             "step_profile": profiles})
     for name, line_no, run in (("trimmed_mean", 192, "trimmed_mean"),
                                ("coordinate_median", 213,
                                 "coordinate_median"),
@@ -2029,6 +2550,10 @@ def main():
                              f"{len(runs[run]['losses'])} steps",
              "max_abs_err": robust_err[name], **robust_t[name]})
     line["kernels"] += lm_phase()
+    gemma = gemma_phase()
+    attention = next(k for k in line["kernels"]
+                     if k["name"] == "swa_attention_fwd")
+    attention["gemma3"] = gemma
     line["kernels"] += rwkv_phase()
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
@@ -2039,4 +2564,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

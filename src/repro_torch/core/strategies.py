@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.block_significance import SegmentLayout
 
 
 def _leaf_bytes(tree) -> int:
@@ -155,6 +156,27 @@ class Spirt(Strategy):
         return int(2 * G * (n_workers - 1) / n_workers / self.microbatches)
 
 
+class _Residual(tuple):
+    """MLLess's per-rank state: each leaf's fp32 residual, a view of one
+    flat buffer in which every leaf fills whole blocks (``flat``, the
+    segmented kernels' layout), with that ``layout`` cached beside it."""
+
+    def __new__(cls, layout, flat):
+        self = super().__new__(cls, layout.residual_views(flat))
+        self.layout, self.flat = layout, flat
+        return self
+
+    @classmethod
+    def of(cls, state, grads, block):
+        """``state`` itself where it fits ``grads``; else its leaves
+        packed into a new layout's buffer."""
+        if isinstance(state, cls) and state.layout.block == block \
+                and state.layout.matches(grads):
+            return state
+        layout = SegmentLayout(grads, block)
+        return cls(layout, layout.pack(state, grads[0].device))
+
+
 @dataclasses.dataclass(frozen=True)
 class MLLess(Strategy):
     """Block-wise significance filter: only gradient blocks whose L2 norm
@@ -164,10 +186,12 @@ class MLLess(Strategy):
 
     A dense all-reduce moves the same wire bytes whatever the mask, so
     ``info["significant_fraction"]`` reports the effective volume, the
-    quantity MLLess bills for.  Each leaf's filter runs through
-    ``kernels.ops.significance_filter`` (the two Hopper kernels on CUDA);
-    ``use_kernel=False`` takes the plain twins in ``kernels.ref``, which
-    give the same numbers.
+    quantity MLLess bills for.  The filter runs over every leaf at once
+    (``kernels.ops.segment_norms`` and ``segment_filter``, three kernel
+    launches on CUDA) and writes the kept blocks straight into the flat
+    buffer that is all-reduced; ``use_kernel=False`` takes the plain twins
+    in ``kernels.ref``, which give the same numbers.  The state is the
+    residual of each leaf (``init_state``), views of one flat buffer.
     """
     name: str = "mlless"
     threshold: float = 0.5
@@ -175,28 +199,23 @@ class MLLess(Strategy):
     use_kernel: bool = True
 
     def init_state(self, grads_like):
-        return [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
-                for g in grads_like]
+        layout = SegmentLayout(grads_like, self.block)
+        return _Residual(layout, torch.zeros(
+            layout.n_rows * self.block, dtype=torch.float32,
+            device=grads_like[0].device))
 
     def sync(self, grads, state, group=None):
-        sig_filter = (kops.significance_filter if self.use_kernel
-                      else kref.significance_filter)
-        filtered, new_resid, sig_counts = [], [], []
-        tot_count = 0
-        for g, r in zip(grads, state):
-            acc = g.float() + r
-            n, pad = acc.numel(), (-acc.numel()) % self.block
-            flat = F.pad(acc.reshape(-1), (0, pad)) if pad \
-                else acc.reshape(-1)
-            blocks = flat.view(-1, self.block)
-            kept, resid, mask = sig_filter(blocks, self.threshold)
-            filtered.append(kept.view(-1)[:n].view(g.shape))
-            new_resid.append(resid.view(-1)[:n].view(g.shape))
-            sig_counts.append(mask.sum())
-            tot_count += mask.shape[0]
-        out = _pmean32(filtered, group)
-        frac = torch.stack(sig_counts).sum().float() / max(tot_count, 1)
-        return out, new_resid, {"significant_fraction": frac}
+        k = kops if self.use_kernel else kref
+        resid = _Residual.of(state, grads, self.block)
+        layout = resid.layout
+        _, mask, counts = k.segment_norms(grads, resid.flat, layout,
+                                          self.threshold)
+        kept, new_resid = k.segment_filter(grads, resid.flat, layout, mask)
+        dist.all_reduce(kept, op=dist.ReduceOp.SUM, group=group)
+        out = layout.leaf_views(kept / dist.get_world_size(group))
+        frac = counts.sum().float() / max(layout.n_rows, 1)
+        return out, _Residual(layout, new_resid), \
+            {"significant_fraction": frac}
 
     def comm_bytes(self, grads_like, n_workers, significant_fraction=0.3):
         G = _leaf_bytes(grads_like)

@@ -2,7 +2,9 @@
 
 Dispatch follows the tensor: on CUDA the Hopper kernels run (or raise),
 on the CPU their plain twins in ``ref.py`` do.  The four robust-aggregation
-reductions are the wrappers of ``robust_agg.py`` themselves.  ``wkv6``
+reductions and MLLess's segmented filter (``segment_norms``,
+``segment_filter``) are the wrappers of ``robust_agg.py`` and
+``block_significance.py`` themselves.  ``wkv6``
 has no backward here: ``models.rwkv6`` wraps it in an ``autograd.Function``
 whose backward recomputes through the plain chunked form.
 
@@ -19,6 +21,9 @@ from repro_torch.kernels import block_significance as _bs
 from repro_torch.kernels import fused_adamw as _fa
 from repro_torch.kernels import swa_attention as _swa
 from repro_torch.kernels import wkv6 as _wkv
+from repro_torch.kernels.block_significance import (  # noqa: F401
+    segment_filter, segment_norms,
+)
 from repro_torch.kernels.robust_agg import (  # noqa: F401
     coordinate_median, krum_pairwise, trimmed_mean, weiszfeld_step,
 )

@@ -6,6 +6,7 @@ each kernel against on the card.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def block_norms(blocks):
@@ -36,6 +37,49 @@ def significance_filter(blocks, threshold):
     mask = block_significance(blocks, threshold)
     kept, resid = masked_filter(blocks, mask)
     return kept, resid, mask
+
+
+def _segment_blocks(grads, resid, layout):
+    """Each leaf's acc = g.float() + r, zero-padded to whole rows and cut
+    into (rows, block) blocks, as MLLess cuts it."""
+    B = layout.block
+    for g, n, b0, nb in zip(grads, layout.numels, layout.block0,
+                            layout.blocks):
+        acc = g.reshape(-1).float() + resid[b0 * B:b0 * B + n]
+        pad = nb * B - n
+        yield (F.pad(acc, (0, pad)) if pad else acc).view(-1, B)
+
+
+def segment_norms(grads, resid, layout, threshold):
+    """Leaf by leaf: each row's sum of squares, the leaf's mask (its RMS
+    from ``torch.mean`` of its rows, as ``block_significance``) and its
+    count of significant rows.  Returns (sq, mask, counts) over all rows
+    and leaves."""
+    sqs, masks, counts = [], [], []
+    for blocks in _segment_blocks(grads, resid, layout):
+        sq = block_norms(blocks)
+        rms = torch.sqrt(torch.mean(sq) + 1e-20)
+        mask = torch.sqrt(sq) > threshold * rms
+        sqs.append(sq)
+        masks.append(mask)
+        counts.append(mask.sum())
+    return torch.cat(sqs), torch.cat(masks), torch.stack(counts)
+
+
+def segment_filter(grads, resid, layout, mask):
+    """Leaf by leaf: ``masked_filter`` of the leaf's rows; returns (kept,
+    unpadded and flat, each leaf at its offset; the padded flat
+    residual)."""
+    B = layout.block
+    kept = resid.new_empty(layout.numel)
+    new_resid = torch.empty_like(resid)
+    for blocks, n, b0, nb, off in zip(
+            _segment_blocks(grads, resid, layout), layout.numels,
+            layout.block0, layout.blocks, layout.offsets):
+        k, r = masked_filter(blocks, mask[b0:b0 + nb])
+        kept[off:off + n] = k.view(-1)[:n]
+        new_resid[b0 * B:(b0 + nb) * B] = r.view(-1)
+    return kept, new_resid
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,24 @@
 """Sliding-window attention forward: the wrapper of the Hopper kernels in
-``csrc/swa_attention_tc.cu`` (bf16) and ``csrc/swa_attention.cu`` (fp32).
+``csrc/swa_attention_tc.cu`` (tensor cores) and ``csrc/swa_attention.cu``
+(CUDA cores).
 
 ``swa_attention_fwd`` replaces the Pallas kernel
 ``repro/kernels/swa_attention.py:swa_attention_fwd``: causal GQA attention
 with an optional sliding window and an fp32 online softmax.  The route
-follows the dtype: bf16 runs on the tensor cores (wgmma and TMA, P.V as
-two bf16 products of P's high and low halves); fp32 runs on the CUDA
-cores, since a tensor-core fp32 product is TF32.  The sources state each
-kernel's bound and design.  The gradient is ``kernels.ops.swa_attention``.
+follows the dtype and the head_dim: bf16 at a head_dim of
+``WGMMA_HEAD_DIMS`` runs on the tensor cores (wgmma and TMA, P.V as two
+bf16 products of P's high and low halves); fp32 at any head_dim of
+``HEAD_DIMS`` runs on the CUDA cores, since a tensor-core fp32 product is
+TF32; so does bf16 at head_dims 160, 256 and 320 (pixtral-12b,
+recurrentgemma-2b, gemma3-4b), which the tensor-core kernel does not take.
+The sources state each kernel's bound and design.  The gradient is
+``kernels.ops.swa_attention``.
 
 On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
 it returns the plain version from ``ref.py``.  ``LAUNCHES`` counts the
 launches of both routes under ``"swa_attention_fwd"`` and those of the
-tensor-core route under ``"swa_attention_fwd_wgmma"`` as well.  The bf16
-instantiation in ``csrc/swa_attention.cu`` is on no route: only
-``chip_smoke.py`` launches it, to time the CUDA-core design beside the
-tensor-core one.
+tensor-core route under ``"swa_attention_fwd_wgmma"`` as well, so a run
+shows which route each launch took.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"swa_attention_fwd": 0, "swa_attention_fwd_wgmma": 0}
 
-HEAD_DIMS = (32, 64, 96, 128)   # head_dims the kernel is built for
+WGMMA_HEAD_DIMS = (32, 64, 96, 128)       # the tensor-core kernel's
+HEAD_DIMS = WGMMA_HEAD_DIMS + (160, 256, 320)   # the CUDA-core kernel's
 MAX_GROUP = 64                  # H / KV: a q tile holds 64 (query, head) rows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -80,11 +84,11 @@ def swa_attention_fwd(q, k, v, *, window=None, causal=True):
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} is not supported: the kernel is "
+        raise ValueError(f"head_dim {hd} is not supported: the kernels are "
                          f"built for head_dim in {HEAD_DIMS}")
     if H // KV > MAX_GROUP:
         raise ValueError(f"H / KV = {H // KV} > {MAX_GROUP} heads a kv head")
-    wgmma = q.dtype == torch.bfloat16
+    wgmma = q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:

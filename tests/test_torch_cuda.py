@@ -92,6 +92,133 @@ def test_kernel_wrappers_validate_inputs(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the segmented MLLess filter (every leaf at once)
+# ---------------------------------------------------------------------------
+# the ragged layout: a one-value leaf, leaves of one row less and one value
+# more than a row, a 391-row leaf
+RAGGED = [(1,), (255,), (257,), (100_003,), (3, 3, 3, 32)]
+
+
+def _segment_case(shapes, dtype, dev, seed, misalign=False):
+    """Mixed-scale 256-wide rows and a residual from numpy, and their
+    layout; ``misalign`` puts every leaf one value off 16-byte alignment
+    (the kernels' one-value path)."""
+    rs = np.random.RandomState(seed)
+    grads, leaves = [], []
+    for shape in shapes:
+        n = int(np.prod(shape))
+        scale = np.repeat(rs.lognormal(sigma=1.5, size=-(-n // 256)), 256)
+        g = torch.from_numpy((rs.randn(n) * scale[:n]).astype(np.float32))
+        g = g.to(dev, dtype)
+        if misalign:
+            g = torch.cat([g.new_zeros(1), g])[1:]
+        grads.append(g.view(shape))
+        leaves.append(torch.from_numpy(
+            (0.3 * rs.randn(*shape)).astype(np.float32)).to(dev))
+    layout = tbs.SegmentLayout(grads)
+    return grads, layout.pack(leaves, dev), layout
+
+
+def _far_rows(sq, layout, threshold=0.5):
+    """Rows whose norm is more than 1e-4 from their leaf's cut, from the
+    twin's sums: there the fp32 sums' order cannot flip the mask."""
+    cut = torch.cat([threshold * torch.sqrt(sq[b0:b0 + nb].double().mean())
+                     .expand(nb) for b0, nb in zip(layout.block0,
+                                                   layout.blocks)])
+    return (sq.double().sqrt() / cut - 1).abs() > 1e-4
+
+
+def _mobilenet_shapes():
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_cnn, reference_leaves
+    return [tuple(p.shape) for p in reference_leaves(
+        build_cnn(get_config("mobilenet-cifar"), device="cpu"))]
+
+
+@pytest.mark.parametrize("layout", ["mobilenet", "ragged",
+                                    "ragged-misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_segment_kernels_match_twins(cuda, layout, dtype):
+    """One launch each: sums of squares within 1e-5 relative (fp32 fma in
+    another order), masks equal away from the cut, counts the kernel
+    mask's per leaf, and kept and residual bit-exact given the mask."""
+    shapes = _mobilenet_shapes() if layout == "mobilenet" else RAGGED
+    grads, resid, lay = _segment_case(shapes, dtype, cuda, seed=3,
+                                      misalign=layout.endswith("misaligned"))
+    before = dict(tbs.LAUNCHES)
+    sq, mask, counts = tbs.segment_norms(grads, resid, lay, 0.5)
+    kept, new = tbs.segment_filter(grads, resid, lay, mask)
+    torch.cuda.synchronize()
+    assert tbs.LAUNCHES == {**before,
+                            "segment_norms": before["segment_norms"] + 1,
+                            "segment_filter": before["segment_filter"] + 1}
+    sq2, mask2, _ = tref.segment_norms(grads, resid, lay, 0.5)
+    np.testing.assert_allclose(sq.cpu().numpy(), sq2.cpu().numpy(),
+                               rtol=1e-5)
+    far = _far_rows(sq2, lay)
+    assert torch.equal(mask[far], mask2[far])
+    assert counts.dtype == torch.int64 and counts.tolist() == [
+        int(mask[b0:b0 + nb].sum()) for b0, nb in zip(lay.block0,
+                                                      lay.blocks)]
+    kept2, new2 = tref.segment_filter(grads, resid, lay, mask)
+    assert torch.equal(kept, kept2) and torch.equal(new, new2)
+
+
+def test_mlless_sync_runs_the_segmented_pair_on_cuda(cuda, tmp_path):
+    """``MLLess.sync`` on CUDA gradients (one gloo rank): one launch of
+    each segmented kernel, none of the per-leaf ones; outputs, residuals
+    and fraction equal the plain twins' on the card where every row lies
+    away from the cut."""
+    import torch.distributed as dist
+    from repro_torch.core import get_strategy
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        grads, resid, lay = _segment_case(RAGGED, torch.float32, cuda, 4)
+        runs = []
+        for use_kernel in (True, False):
+            s = get_strategy("mlless", use_kernel=use_kernel)
+            state = s.init_state(grads)
+            for r, leaf in zip(state, lay.residual_views(resid)):
+                r.copy_(leaf)
+            before = dict(tbs.LAUNCHES)
+            runs.append(s.sync(grads, state))
+            torch.cuda.synchronize()
+            moved = {k: tbs.LAUNCHES[k] - before[k] for k in before}
+            assert moved == {"block_norms": 0, "masked_filter": 0,
+                             "segment_norms": int(use_kernel),
+                             "segment_filter": int(use_kernel)}
+    finally:
+        dist.destroy_process_group()
+    sq, _, _ = tref.segment_norms(grads, resid, lay, 0.5)
+    assert bool(_far_rows(sq, lay).all())
+    (out, st, info), (out2, st2, info2) = runs
+    for a, b in zip(list(out) + list(st), list(out2) + list(st2)):
+        assert a.is_cuda and torch.equal(a, b)
+    assert float(info["significant_fraction"]) == \
+        float(info2["significant_fraction"])
+
+
+def test_segment_wrappers_validate_inputs(cuda):
+    grads, resid, lay = _segment_case(RAGGED[:3], torch.float32, cuda, 5)
+    mask = torch.zeros(lay.n_rows, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="do not match"):
+        tbs.segment_norms(grads[:2], resid, lay, 0.5)
+    with pytest.raises(ValueError, match="resid must be"):
+        tbs.segment_norms(grads, resid[:-1], lay, 0.5)
+    with pytest.raises(ValueError, match="resid must be"):
+        tbs.segment_filter(grads, resid.double(), lay, mask)
+    with pytest.raises(ValueError, match="mask must be"):
+        tbs.segment_filter(grads, resid, lay, mask[:-1])
+    with pytest.raises(ValueError, match="is on"):
+        tbs.segment_norms([g.cpu() for g in grads], resid, lay, 0.5)
+    half = [g.half() for g in grads]
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        tbs.segment_norms(half, resid, tbs.SegmentLayout(half), 0.5)
+
+
+# ---------------------------------------------------------------------------
 # robust aggregation
 # ---------------------------------------------------------------------------
 from repro_torch.kernels import robust_agg as tra  # noqa: E402
@@ -315,6 +442,47 @@ SWA_GPU_CASES = [
 ]
 
 
+# head_dims beyond the tensor-core kernel's, on the CUDA-core route in
+# bf16 too: Gemma-3's 320 (its local and global layers at its train shape,
+# a ragged S), pixtral-12b's 160 (32 heads on 8), recurrentgemma-2b's 256
+# (10 heads on 1) and a full (non-causal) call at 256
+SWA_WIDE_CASES = [
+    (1, 2048, 8, 4, 320, 1024, True),
+    (1, 2048, 8, 4, 320, None, True),
+    (2, 1000, 8, 4, 320, 100, True),
+    (1, 512, 32, 8, 160, None, True),
+    (1, 512, 10, 1, 256, 128, True),
+    (2, 300, 4, 2, 256, None, False),
+]
+
+
+@pytest.mark.parametrize("case", SWA_WIDE_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_swa_attention_wide_head_dims_match_plain(cuda, case, dtype):
+    """One launch on the CUDA-core kernel in both dtypes (the tensor-core
+    counter stays), at the gates of the narrower head_dims: 2e-5 in fp32,
+    one bf16 step in bf16."""
+    B, S, H, KV, hd, window, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(S + H + hd)
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=cuda)
+               .to(dtype) for n in (H, KV, KV))
+    before = dict(tswa.LAUNCHES)
+    got = tswa.swa_attention_fwd(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert tswa.LAUNCHES == {
+        "swa_attention_fwd": before["swa_attention_fwd"] + 1,
+        "swa_attention_fwd_wgmma": before["swa_attention_fwd_wgmma"]}
+    want = tref.swa_attention(q, k, v, window=window, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-5)
+
+
 @pytest.mark.parametrize("case", SWA_GPU_CASES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -415,8 +583,8 @@ def test_swa_attention_empty_input_launches_nothing(cuda, dtype, shape):
 def test_lm_kernel_wrappers_validate_inputs(cuda):
     """They raise on what the kernels do not take; they never give way to
     the plain version."""
-    q = torch.randn(1, 64, 8, 320, device=cuda)
-    with pytest.raises(ValueError, match="head_dim 320"):
+    q = torch.randn(1, 64, 8, 384, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 384"):
         tswa.swa_attention_fwd(q, q[:, :, :4], q[:, :, :4])
     q = torch.randn(1, 64, 4, 64, device=cuda)
     with pytest.raises(TypeError, match="share"):

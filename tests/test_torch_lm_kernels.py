@@ -3,6 +3,7 @@ attention and fused AdamW against the JAX oracles and the Pallas kernels
 (interpret mode), the attention gradient, and the wrappers' dispatch.  The
 Hopper kernels themselves are held against these plain versions on a GPU
 in ``test_torch_cuda.py``."""
+import dataclasses
 from pathlib import Path
 
 import pytest
@@ -14,14 +15,18 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.analysis import analyze_sources  # noqa: E402
+from repro.configs.base import get_config as jget_config  # noqa: E402
 from repro.kernels import fused_adamw as jfa  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import swa_attention as jswa  # noqa: E402
+from repro.models.transformer import build_model as jbuild_model  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import fused_adamw as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import swa_attention as tswa  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import bias_corrections  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -78,6 +83,49 @@ def test_swa_plain_matches_pallas_kernel_at_smollm_heads():
                                   interpret=True)
     np.testing.assert_allclose(_np(tswa.swa_attention_fwd(q, k, v)),
                                _np(want), atol=2e-5)
+
+
+def test_swa_plain_matches_pallas_kernel_at_gemma3_head_dim():
+    """Gemma-3's head_dim 320 (8 heads on 4 kv heads), window 64, against
+    the Pallas kernel called directly in interpret mode: 2e-5, as at
+    SmolLM's heads."""
+    (q, k, v), (jq, jk, jv) = _qkv(1, 128, 8, 4, 320, "float32", seed=4)
+    want = jswa.swa_attention_fwd(jq, jk, jv, window=64, q_block=64,
+                                  kv_block=64, interpret=True)
+    got = tswa.swa_attention_fwd(q, k, v, window=64)
+    assert got.shape == (1, 128, 8, 320)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True],
+                         ids=["chunked", "kernel"])
+def test_gemma3_logits_match_reference_at_head_dim_320(use_kernel):
+    """Six layers (one 5:1 local/global group) at a narrow width whose
+    head_dim, d_model / n_heads = 640 / 2, is Gemma-3's 320; one kv head,
+    window 64, vocab 512, fp32, seq 128.  The kernel path (the plain
+    attention on the CPU) against ``Model(use_pallas=True)`` (the Pallas
+    kernel in interpret mode) and the chunked path against the
+    reference's: to 1e-5 of the largest logit, the tolerance of
+    ``test_torch_transformer.test_logits_match_reference``."""
+    narrow = dict(n_layers=6, d_model=640, n_heads=2, n_kv_heads=1,
+                  head_dim=None, d_ff=1280, vocab_size=512, window=64,
+                  dtype="float32")
+    jcfg = dataclasses.replace(jget_config("gemma3-4b"), **narrow)
+    cfg = dataclasses.replace(get_config("gemma3-4b"), **narrow)
+    assert cfg.head_dim == jcfg.head_dim == 320
+    jmodel = jbuild_model(jcfg, use_pallas=use_kernel)
+    tree = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(7)))
+    model = transformer.Model(cfg, use_kernel=use_kernel)
+    model.load_state_dict(transformer.params_from_reference(tree))
+    tokens = np.random.RandomState(7).randint(0, 512, (2, 128)).astype(
+        np.int32)
+    want, _ = jmodel.apply(tree, {"tokens": jnp.asarray(tokens)})
+    want = np.asarray(want)
+    with torch.no_grad():
+        got, _ = model({"tokens": torch.from_numpy(tokens)})
+    assert got.shape == want.shape == (2, 128, 512)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
 
 
 def test_swa_gradient_matches_jax():
