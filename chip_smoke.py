@@ -61,16 +61,23 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    bf16, batch 1 x seq 2048, fused AdamW lr 3e-4, 10 steps) with 12
    attention launches a step, peak memory, two steps against the
    kernel-free path and a record of lr 3e-3 and 1e-3.
-8. rwkv: the WKV recurrence kernel against its plain chunked twin (and
-   the exact recurrence where T <= 128) at N 16, 32 and 64, chunks 1 to
-   64, a ragged T, B*H from 1 to 256, fp32 and bf16, decays up to the
-   strong ones where the Pallas body overflows, and the gradient through
-   ``ops.wkv6`` on the card against the CPU; its times at rwkv6-7b's train
-   shape and a long shape against bound and plain twin; then the LM entry
+8. rwkv: the WKV recurrence's two routes (the tensor-core kernel at N
+   32/64 with chunks 16/32/64, the CUDA-core kernel elsewhere and, through
+   its C entry point, at those shapes too) against the plain chunked twin
+   (and the exact recurrence where T <= 128, and the tensor-core route
+   against its two-level twin) at N 16, 32 and 64, chunks 1 to 64, a
+   ragged T, B*H from 1 to 256, fp32 and bf16, decays up to the strong
+   ones where the Pallas body overflows, and the gradient through
+   ``ops.wkv6`` on the card against the CPU; the tensor-core kernel's SASS
+   (TF32 mma); both routes' times at rwkv6-7b's train shape and a long
+   shape in turns, against bound and plain twins; then the LM entry
    point on full-width rwkv6-7b cut to 4 layers (bf16, batch 4 x seq 512,
-   fused AdamW lr 3e-4, 20 steps, one-rank NCCL group) with 8 WKV and 17
+   fused AdamW lr 3e-4, 20 steps, one-rank NCCL group) with 8 WKV launches
+   a step, all on the tensor cores, and 17
    fused-AdamW launches a step, two steps against the kernel-free path, a
-   record of the default lr 3e-3 on both paths, MLLess for 2 steps and a
+   record of the default lr 3e-3 on both paths (every WKV call of the
+   kernel path watched, every form of WKV run on the first call with an
+   input or output that is not finite), MLLess for 2 steps and a
    profiler window; the full 32-layer model's forward at batch 4 x seq
    2048 through the kernel (32 launches) against the kernel-free forward,
    with the kernel-free forward at another chunk as the witness of what
@@ -101,6 +108,7 @@ SRC = ROOT / "src"
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12     # fp32 outside the tensor cores
 H100_BF16_FLOP_PER_S = 989e12    # bf16 dense tensor cores
+H100_TF32_FLOP_PER_S = 495e12    # TF32 dense tensor cores
 BLOCK = 256
 ROBUST_SRC = "src/repro_torch/kernels/csrc/robust_agg.cu"
 BYZ_RANKS = 4
@@ -1183,26 +1191,35 @@ def lm_kernel_parity(dev):
             "swa_attention_grad_bf16_plain": witness}
 
 
-def swa_sass():
-    """The tensor-core attention kernel's SASS: counts of wgmma (HGMMA),
-    TMA loads (UTMALDG) and stores (UTMASTG) in each instantiation of
-    ``swa_wgmma_kernel``; fails unless every one has wgmma and TMA loads."""
+def sass_counts(stem, kernel, ops):
+    """{mangled name: {op: count}} for each instantiation of ``kernel`` in
+    the library built from ``csrc/<stem>.cu`` (``cuobjdump -sass``)."""
     import shutil
     from torch.utils.cpp_extension import CUDA_HOME
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "",
                                                      "bin", "cuobjdump")
-    lib = _build._build_all()["swa_attention_tc"]
+    lib = _build._build_all()[stem]
     res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True, timeout=120)
     check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
     counts = {}
     for body in res.stdout.split("Function : ")[1:]:
         name = body.split("\n", 1)[0].strip()
-        if "swa_wgmma_kernel" in name:
-            hd = "hd<=64" if "ILi64E" in name else "hd>64"
-            counts[hd] = {op: body.count(op)
-                          for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+        if kernel in name:
+            counts[name] = {op: body.count(op) for op in ops}
+    return counts
+
+
+def swa_sass():
+    """The tensor-core attention kernel's SASS: counts of wgmma (HGMMA),
+    TMA loads (UTMALDG) and stores (UTMASTG) in each instantiation of
+    ``swa_wgmma_kernel``; fails unless every one has wgmma and TMA loads."""
+    counts = {"hd<=64" if "ILi64E" in name else "hd>64": c
+              for name, c in sass_counts("swa_attention_tc",
+                                         "swa_wgmma_kernel",
+                                         ("HGMMA", "UTMALDG",
+                                          "UTMASTG")).items()}
     check(len(counts) == 2 and all(c["HGMMA"] and c["UTMALDG"]
                                    for c in counts.values()),
           f"swa_wgmma_kernel SASS lacks wgmma or TMA: {counts}")
@@ -1366,7 +1383,8 @@ def expected_lm_launches(steps, microbatches=1, mlless=False):
     segmented filter once over all 12 leaves."""
     n = {"fused_adamw_flat": 12 * steps,
          "swa_attention_fwd": 2 * 30 * microbatches * steps,
-         "wkv6_chunked": 0, **mlless_launches(steps if mlless else 0)}
+         "wkv6_chunked": 0, "wkv6_chunked_tc": 0,
+         **mlless_launches(steps if mlless else 0)}
     n["swa_attention_fwd_wgmma"] = n["swa_attention_fwd"]   # bf16: all
     return n
 
@@ -1820,7 +1838,7 @@ def expected_gemma_launches(steps):
     return {"fused_adamw_flat": GEMMA_LEAVES * steps,
             "swa_attention_fwd": 2 * GEMMA_LAYERS * steps,
             "swa_attention_fwd_wgmma": 0, "wkv6_chunked": 0,
-            **mlless_launches(0)}
+            "wkv6_chunked_tc": 0, **mlless_launches(0)}
 
 
 def _gemma_steps(kernels, lr, steps, seed):
@@ -1941,6 +1959,7 @@ def gemma_phase():
 # ---------------------------------------------------------------------------
 RWKV_ARCH = "rwkv6-7b"
 WKV_SRC = "src/repro_torch/kernels/csrc/wkv6.cu"
+WKV_TC_SRC = "src/repro_torch/kernels/csrc/wkv6_tc.cu"
 # AdamW's training state (12 B a parameter) of the full 32 layers, 84 GB,
 # does not fit one 80 GB card: training runs full width at 4 layers
 RWKV_LAYERS, RWKV_PARAMS, RWKV_FULL_PARAMS = 4, 1_344_425_984, 6_997_282_816
@@ -2013,71 +2032,156 @@ def wkv_kernel_work(B, T, H, N, c):
     return n * ops, n * exps
 
 
+def wkv_tc_work(B, T, H, N, c, sub=16):
+    """(tensor-core FLOP, CUDA-core operations, exps) of one call of the
+    tensor-core kernel's two-level form (``csrc/wkv6_tc.cu``).  Products,
+    counted as issued, three TF32 products each (3xTF32): the cross
+    blocks (rho D kap^T) and the block-triangular a V every chunk, the S
+    product and the state update every chunk but the first and the last.
+    CUDA cores: the scan, w, rho and kap (4 an element), each diagonal
+    block's pairs s < t (a multiply-add and the running product, 2 N a
+    pair) and its bonus (2 N a row).  Exps: w, rho, kap (3 an element) and
+    the per-column factors.  Printed beside the bound, not used for it."""
+    n, ns = T // c, c // sub
+    np_ = ns * (ns - 1) // 2
+    mac = ((n - 1) * 2 * c * N * N + n * (ns * (ns + 1) // 2 + np_)
+           * sub * sub * N)
+    core = n * (4 * c * N + ns * (sub * (sub - 1) // 2 + sub) * 2 * N)
+    exps = n * (3 * c * N + (2 * (ns - 1) + (ns - 1) * (ns - 2) // 2 + 1)
+                * N)
+    return B * H * 3 * 2 * mac, B * H * core, B * H * exps
+
+
+def wkv_cuda_core(ins, c):
+    """The CUDA-core WKV kernel (``csrc/wkv6.cu``) at a shape the wrapper
+    sends to the tensor cores: launched through its C entry point only to
+    hold and time the two routes in one run; counts nothing."""
+    import torch
+    from repro_torch.kernels import _build, wkv6
+    r = ins[0]
+    B, T, H, N = r.shape
+    y = torch.empty_like(r)
+    lib = _build._library("wkv6", wkv6._SIGNATURES)
+    err = lib.rt_wkv6_chunked(*(t.data_ptr() for t in ins), y.data_ptr(),
+                              wkv6._DTYPES[r.dtype], B, T, H, N, c,
+                              torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"CUDA-core WKV kernel failed: CUDA error {err}")
+    return y
+
+
+def wkv_sass():
+    """The tensor-core WKV kernel's SASS: its count of TF32 mma (HMMA)
+    in each instantiation of ``wkv6_tc_kernel`` (dtype, N, c); fails
+    unless every one of the 12 has them."""
+    counts = {name[name.index("wkv6_tc_kernel") + 15:name.index("EEEv")]:
+              c["HMMA"] for name, c in sass_counts(
+                  "wkv6_tc", "wkv6_tc_kernel", ("HMMA",)).items()}
+    check(len(counts) == 12 and all(counts.values()),
+          f"wkv6_tc_kernel SASS lacks tensor-core mma: {counts}")
+    log(f"[rwkv] wkv6_tc_kernel SASS (cuobjdump -sass): HMMA in all "
+        f"{len(counts)} instantiations, {min(counts.values())} to "
+        f"{max(counts.values())} each")
+    return counts
+
+
 def rwkv_kernel_parity(dev):
-    """The WKV kernel against its plain chunked twin (and the exact
-    recurrence for T <= 128) at ``WKV_PARITY`` in fp32 and bf16; the
-    gradient through ``ops.wkv6`` (the model's autograd Function) on the
-    card against the same on the CPU.  Returns the largest errors."""
+    """Both WKV routes against the plain chunked twin (and the exact
+    recurrence for T <= 128) at ``WKV_PARITY`` in fp32 and bf16: the
+    wrapper, which takes the tensor-core kernel at N 32/64 with chunk
+    16/32/64 (checked by its counter) and the CUDA-core kernel elsewhere,
+    and at the tensor-core shapes the CUDA-core kernel too, through its C
+    entry point; the tensor-core route also against its own twin
+    ``ref.wkv6_subchunked``.  The gradient through ``ops.wkv6`` (the
+    model's autograd Function) on the card against the same on the CPU.
+    Returns the largest errors, per route."""
     import torch
     from repro_torch.kernels import ref, wkv6
     from repro_torch.models import rwkv6
     gen = torch.Generator(device=dev).manual_seed(7)
-    err = {"f32": 0.0, "bf16": 0.0, "strong": 0.0, "exact": 0.0}
+    keys = ("f32", "bf16", "strong", "exact")
+    err = {route: dict.fromkeys(keys, 0.0) for route in ("tc", "cuda_core")}
+    tc_cases = 0
     for label, B, T, H, N, c, mu in WKV_PARITY:
+        tc = N in wkv6.TC_HEAD_DIMS and c in wkv6.TC_CHUNKS
+        tc_cases += tc
         for dtype in (torch.float32, torch.bfloat16):
             ins = wkv_operands(B, T, H, N, mu, dtype, dev, gen)
-            got = wkv6.wkv6_chunked(*ins, chunk=c)
+            before = wkv6.LAUNCHES["wkv6_chunked_tc"]
+            outs = {"tc" if tc else "cuda_core":
+                    wkv6.wkv6_chunked(*ins, chunk=c)}
+            check(wkv6.LAUNCHES["wkv6_chunked_tc"] - before == tc,
+                  f"wkv6_chunked at {label}: the tensor-core route was "
+                  f"{'not ' if tc else ''}taken")
+            if tc:
+                outs["cuda_core"] = wkv_cuda_core(ins, c)
             wants = {"twin": ref.wkv6_chunked(*ins, chunk=c)}
+            if tc:
+                wants["tc twin"] = ref.wkv6_subchunked(*ins, chunk=c)
             if T <= 128:
                 wants["exact"] = ref.wkv6(*ins)
             torch.cuda.synchronize()
-            check(got.dtype == dtype and bool(torch.isfinite(got).all()),
-                  f"wkv6_chunked at {label} {dtype}: {got.dtype}, not "
-                  "finite or")
-            for name, want in wants.items():
-                diff = (got.float() - want.float()).abs()
-                if dtype == torch.float32:
-                    ok = bool((diff <= WKV_F32_ATOL).all())
-                    key = "exact" if name == "exact" else (
-                        "strong" if mu > 0 else "f32")
-                else:
-                    ok = bool((diff <= WKV_BF16_ATOL + WKV_BF16_RTOL
-                               * want.float().abs()).all())
-                    key = "bf16"
-                check(ok, f"wkv6_chunked at {label} {dtype} vs {name}: "
-                          f"max abs diff {float(diff.max()):.3e}")
-                err[key] = max(err[key], float(diff.max()))
-            del ins, got, wants
+            for route, got in outs.items():
+                check(got.dtype == dtype and bool(torch.isfinite(got).all()),
+                      f"wkv6_chunked ({route}) at {label} {dtype}: "
+                      f"{got.dtype}, not finite or")
+                for name, want in wants.items():
+                    if name == "tc twin" and route != "tc":
+                        continue
+                    diff = (got.float() - want.float()).abs()
+                    if dtype == torch.float32:
+                        ok = bool((diff <= WKV_F32_ATOL).all())
+                        key = "exact" if name == "exact" else (
+                            "strong" if mu > 0 else "f32")
+                    else:
+                        ok = bool((diff <= WKV_BF16_ATOL + WKV_BF16_RTOL
+                                   * want.float().abs()).all())
+                        key = "bf16"
+                    check(ok, f"wkv6_chunked ({route}) at {label} {dtype} "
+                              f"vs {name}: max abs diff "
+                              f"{float(diff.max()):.3e}")
+                    err[route][key] = max(err[route][key],
+                                          float(diff.max()))
+            del ins, outs, wants
     ins = wkv_operands(2, 256, 4, 64, -1.0, torch.float32, dev, gen)
     gy = torch.randn(2, 256, 4, 64, generator=gen, device=dev)
     a = [t.clone().requires_grad_() for t in ins]
     b = [t.cpu().requires_grad_() for t in ins]
+    before = wkv6.LAUNCHES["wkv6_chunked_tc"]
     rwkv6._WkvKernel.apply(*a).backward(gy)
+    check(wkv6.LAUNCHES["wkv6_chunked_tc"] == before + 1,
+          "the gradient's forward did not take the tensor-core route")
     rwkv6._WkvKernel.apply(*b).backward(gy.cpu())
     gerr = max(float((x.grad.cpu() - y.grad).abs().max())
                for x, y in zip(a, b))
     check(gerr <= 1e-4, f"wkv6 gradient, card vs CPU: {gerr:.3e}")
     err["grad"] = gerr
-    log(f"[rwkv] wkv6_chunked against its plain chunked twin at "
-        f"{len(WKV_PARITY)} shapes x fp32/bf16 "
-        f"({'; '.join(c[0] for c in WKV_PARITY)}): max abs err fp32 "
-        f"{err['f32']:.3e}, strong decay {err['strong']:.3e} (tol "
-        f"{WKV_F32_ATOL}), against the exact recurrence (T <= 128) "
-        f"{err['exact']:.3e} (tol {WKV_F32_ATOL}); bf16 {err['bf16']:.3e} "
-        f"(tol {WKV_BF16_ATOL} + one bf16 step); no NaN; gradient through "
-        f"ops.wkv6 (B 2, T 256, H 4, N 64), card vs CPU, max abs err "
-        f"{gerr:.3e} (tol 1e-4)")
+    n_cases = {"tensor-core": tc_cases, "CUDA-core": len(WKV_PARITY)}
+    for route, e in (("tensor-core", err["tc"]),
+                     ("CUDA-core", err["cuda_core"])):
+        log(f"[rwkv] wkv6_chunked, {route} route, against its plain "
+            f"chunked twin at {n_cases[route]} "
+            f"shapes x fp32/bf16: max abs err fp32 {e['f32']:.3e}, strong "
+            f"decay {e['strong']:.3e} (tol {WKV_F32_ATOL}), against the "
+            f"exact recurrence (T <= 128) {e['exact']:.3e} (tol "
+            f"{WKV_F32_ATOL}); bf16 {e['bf16']:.3e} (tol {WKV_BF16_ATOL} + "
+            f"one bf16 step); no NaN")
+    log(f"[rwkv] shapes ({'; '.join(c[0] for c in WKV_PARITY)}): "
+        f"{tc_cases} on the tensor cores, the rest on the CUDA cores; "
+        f"gradient through ops.wkv6 (B 2, T 256, H 4, N 64, tensor-core "
+        f"forward), card vs CPU, max abs err {gerr:.3e} (tol 1e-4)")
     return err
 
 
 def rwkv_kernel_times(dev):
     """The kernel at rwkv6-7b's train shape (B 4, T 512) and a long shape
     (B 4, T 2048), H 64, N 64, fp32 as the model calls it, chunk 64: the
-    wrapper called back to back, as a CUDA graph, the plain twin, and the
-    bound (the larger of the bytes at the memory rate and the operations
-    the recurrence needs, an exp counted as one, at the fp32 CUDA-core
-    peak).  No one PyTorch
-    call computes the recurrence."""
+    wrapper (the tensor-core route) called back to back and as a CUDA
+    graph, the CUDA-core kernel on the same inputs in the same turns
+    (before, tc, tc, before), the plain twins (chunked, and the
+    two-level twin of the tensor-core kernel), and the bound (the larger
+    of the bytes at the memory rate and the operations the recurrence
+    needs, an exp counted as one, at the fp32 CUDA-core peak).  No one
+    PyTorch call computes the recurrence."""
     import torch
     from repro_torch.kernels import ref, wkv6
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -2085,31 +2189,54 @@ def rwkv_kernel_times(dev):
     for key, B, T in (("long", 4, 2048), ("train", RWKV_BATCH, RWKV_SEQ)):
         ins = wkv_operands(B, T, 64, 64, -2.0, torch.float32, dev, gen)
         fn = lambda: wkv6.wkv6_chunked(*ins, chunk=64)  # noqa: E731
-        nbytes = sum(t.numel() * 4 for t in ins) + ins[0].numel() * 4
+        core = lambda: wkv_cuda_core(ins, 64)  # noqa: E731
+        turns = [(name, f, time_ms(f, reps=10), graphed_ms(f))
+                 for name, f in (("cuda_core", core), ("tc", fn),
+                                 ("tc", fn), ("cuda_core", core))]
+        t = {name: (min(a for n, _, a, _ in turns if n == name),
+                    min(g for n, _, _, g in turns if n == name))
+             for name in ("tc", "cuda_core")}
+        nbytes = sum(t_.numel() * 4 for t_ in ins) + ins[0].numel() * 4
         flops, exps = wkv_work(B, T, 64, 64)
         k_flops, k_exps = wkv_kernel_work(B, T, 64, 64, 64)
+        tc_flops, tc_core, tc_exps = wkv_tc_work(B, T, 64, 64, 64)
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOP_PER_S
-        r = dict(ms=time_ms(fn, reps=10), graph_ms=graphed_ms(fn),
+        bound = max(t_bytes, t_ops) * 1e3
+        r = dict(ms=t["tc"][0], graph_ms=t["tc"][1],
+                 turns_graph_ms=[round(g, 5) for _, _, _, g in turns],
+                 cuda_core_ms=t["cuda_core"][0],
+                 cuda_core_graph_ms=t["cuda_core"][1],
                  plain_ms=time_ms(lambda: ref.wkv6_chunked(*ins, chunk=64),
                                   reps=2, warmup=1),
+                 plain_tc_twin_ms=time_ms(
+                     lambda: ref.wkv6_subchunked(*ins, chunk=64), reps=2,
+                     warmup=1),
                  library_ms=None,
                  library="none: no one PyTorch call computes the recurrence",
-                 bound_ms=max(t_bytes, t_ops) * 1e3,
+                 bound_ms=bound,
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
                  bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3, bytes=nbytes,
-                 flops=flops, exps=exps, kernel_flops=k_flops,
-                 kernel_exps=k_exps,
+                 flops=flops, exps=exps,
                  shapes=f"r, k, v, logw ({B}, {T}, 64, 64) fp32, u (64, 64),"
                         " chunk 64")
         out[key] = r
-        log(f"[rwkv] wkv6_chunked {r['shapes']}: kernel {r['ms']:.4f} ms "
-            f"(as a CUDA graph {r['graph_ms']:.4f} ms), plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}: {nbytes / 1e6:.1f} MB {t_bytes * 1e3:.4f} "
-            f"ms; the recurrence's {flops / 1e9:.2f} GFLOP of which "
-            f"{exps / 1e9:.4f} G exp at the fp32 peak {t_ops * 1e3:.4f} ms; "
-            f"the chunked form does {k_flops / 1e9:.2f} GFLOP with "
-            f"{k_exps / 1e9:.3f} G exp)")
+        log(f"[rwkv] wkv6_chunked {r['shapes']}: tensor-core kernel "
+            f"{r['ms']:.4f} ms (as a CUDA graph {r['graph_ms']:.4f} ms, "
+            f"{bound / r['graph_ms']:.3f} of the bound), CUDA-core kernel "
+            f"{r['cuda_core_ms']:.4f} ms (graph {r['cuda_core_graph_ms']:.4f}"
+            f" ms) in the same turns (graph ms, core/tc/tc/core: "
+            f"{r['turns_graph_ms']}); plain {r['plain_ms']:.4f} ms, its "
+            f"two-level twin {r['plain_tc_twin_ms']:.4f} ms; bound "
+            f"{bound:.4f} ms ({r['bound_by']}: {nbytes / 1e6:.1f} MB "
+            f"{t_bytes * 1e3:.4f} ms; the recurrence's {flops / 1e9:.2f} "
+            f"GFLOP of which {exps / 1e9:.4f} G exp at the fp32 peak "
+            f"{t_ops * 1e3:.4f} ms); the two-level form issues "
+            f"{tc_flops / 1e9:.2f} GFLOP of 3xTF32 products "
+            f"({tc_flops / H100_TF32_FLOP_PER_S * 1e3:.4f} ms at the TF32 "
+            f"peak), "
+            f"{tc_core / 1e9:.2f} G CUDA-core operations and "
+            f"{tc_exps / 1e9:.4f} G exp; the CUDA-core kernel's chunked "
+            f"form {k_flops / 1e9:.2f} GFLOP with {k_exps / 1e9:.3f} G exp")
         del ins
     torch.cuda.empty_cache()
     return out
@@ -2118,11 +2245,12 @@ def rwkv_kernel_times(dev):
 def expected_rwkv_launches(steps, mlless=False):
     """Per step: fused AdamW once per leaf (17); the WKV kernel once per
     layer in the forward and once more in the backward's recompute of
-    each checkpointed layer (2 x 4); MLLess's segmented filter once over
-    all 17 leaves."""
+    each checkpointed layer (2 x 4), every launch on the tensor-core route
+    (N 64, chunk 64); MLLess's segmented filter once over all 17 leaves."""
+    wkv = 2 * RWKV_LAYERS * steps
     return {"fused_adamw_flat": 17 * steps, "swa_attention_fwd": 0,
-            "swa_attention_fwd_wgmma": 0,
-            "wkv6_chunked": 2 * RWKV_LAYERS * steps,
+            "swa_attention_fwd_wgmma": 0, "wkv6_chunked": wkv,
+            "wkv6_chunked_tc": wkv,
             **mlless_launches(steps if mlless else 0)}
 
 
@@ -2170,7 +2298,7 @@ def rwkv_train_phase(init_method):
             f"{res['peak_mem_bytes'] / 2**30:.2f} GiB")
         torch.cuda.empty_cache()
         rwkv_kernel_vs_plain_step()
-        rwkv_default_lr_record()
+        default_lr = rwkv_default_lr_record()
         reset_lm_launches()
         r = train(arch=RWKV_ARCH, n_layers=RWKV_LAYERS, strategy="mlless",
                   batch=RWKV_BATCH, seq=RWKV_SEQ, steps=2, lr=RWKV_LR,
@@ -2185,7 +2313,8 @@ def rwkv_train_phase(init_method):
             f"{r['metrics']['significant_fraction']:.4f}")
         torch.cuda.empty_cache()
         profile = rwkv_profile()
-        return launches, {"allreduce": res, "mlless": r, "profile": profile}
+        return launches, {"allreduce": res, "mlless": r, "profile": profile,
+                          "default_lr": default_lr}
     finally:
         dist.destroy_process_group()
 
@@ -2243,22 +2372,113 @@ def rwkv_kernel_vs_plain_step(steps=2):
         f"tol 2^-9 = {LM_STEP_RTOL:.3e})")
 
 
+class _WkvWatch:
+    """Watches every call of the WKV wrapper while a run goes on (the model
+    looks the wrapper up at each call): the first call with an input that
+    is not finite, and the first whose inputs are all finite and whose
+    output is not, each with its inputs kept.  A training step calls it
+    twice a layer (the forward and the recompute of the checkpointed
+    layer)."""
+
+    NAMES = ("r", "k", "v", "logw", "u")
+
+    def __init__(self, calls_per_step):
+        from repro_torch.kernels import wkv6
+        self.module, self.inner = wkv6, wkv6.wkv6_chunked
+        self.per_step, self.calls = calls_per_step, 0
+        self.bad_input = self.bad_output = None
+
+    def __enter__(self):
+        self.module.wkv6_chunked = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.wkv6_chunked = self.inner
+
+    def __call__(self, *ins, chunk=64):
+        import torch
+        y = self.inner(*ins, chunk=chunk)
+        call, self.calls = self.calls, self.calls + 1
+        bad = [n for n, t in zip(self.NAMES, ins)
+               if not bool(torch.isfinite(t).all())]
+        where = {"call": call, "step": call // self.per_step}
+        if bad and self.bad_input is None:
+            self.bad_input = {**where, "chunk": chunk, "not_finite": bad,
+                              "logw_neg_inf": bool(torch.isneginf(
+                                  ins[3]).any()),
+                              "inputs": [t.detach().clone() for t in ins]}
+        if (not bad and self.bad_output is None
+                and not bool(torch.isfinite(y).all())):
+            self.bad_output = {**where, "chunk": chunk,
+                               "inputs": [t.detach().clone() for t in ins]}
+        return y
+
+
+def wkv_routes_on(ins, chunk):
+    """Every form of WKV on one set of inputs: the tensor-core route (the
+    wrapper), the CUDA-core kernel, the plain chunked twin and the exact
+    recurrence; for each, the count of outputs that are not finite.  With
+    the inputs' extremes: the most negative logw, the most negative sum of
+    logw over one chunk (-inf where fp32 overflows, as every chunked form's
+    cumsum does), and the largest |r|, |k|, |v|, |u|."""
+    import torch
+    from repro_torch.kernels import ref, wkv6
+    r, k, v, logw, u = ins
+    B, T, H, N = r.shape
+    outs = {"tensor_core": wkv6.wkv6_chunked(*ins, chunk=chunk),
+            "cuda_core": wkv_cuda_core(ins, chunk),
+            "plain_chunked": ref.wkv6_chunked(*ins, chunk=chunk),
+            "exact": ref.wkv6(*ins)}
+    torch.cuda.synchronize()
+    sums = logw.float().reshape(B, T // chunk, chunk, H, N).sum(2)
+    return {"not_finite": {name: int((~torch.isfinite(y)).sum())
+                           for name, y in outs.items()},
+            "outputs": r.numel(),
+            "logw_min": float(logw.min()), "chunk_sum_min": float(sums.min()),
+            **{f"max_abs_{n}": float(t.abs().max())
+               for n, t in zip(("r", "k", "v", "u"), (r, k, v, u))}}
+
+
 def rwkv_default_lr_record(lr=3e-3):
     """A record, not a gate: the entry point's default lr on the train
     phase's steps, through the kernels and through the kernel-free path,
     so a rise of the loss there can be told from a fault of the kernels.
-    A run that diverges far enough drives a decay exponent past fp32's
-    range (logw = -inf), and both paths then give NaN; the record names
-    the first step whose loss is not finite."""
+    The record names the first step whose loss is not finite.  On the
+    kernel path every WKV call is watched (``_WkvWatch``); every form of
+    WKV is run (``wkv_routes_on``) on the inputs of the first call with an
+    input that is not finite and of the first that turns finite inputs
+    into an output that is not, to name the forms that give NaN there.
+    Returns what was found."""
     batches = _rwkv_batches(RWKV_STEPS, seed=0)
+    out = {}
     for kernels in (True, False):
-        losses = _rwkv_steps(kernels, lr, batches, seed=0)
+        if kernels:
+            with _WkvWatch(2 * RWKV_LAYERS) as watch:
+                losses = _rwkv_steps(kernels, lr, batches, seed=0)
+        else:
+            losses = _rwkv_steps(kernels, lr, batches, seed=0)
         bad = [i for i, l in enumerate(losses) if not math.isfinite(l)]
-        log(f"[rwkv] lr {lr} ({'kernels' if kernels else 'kernel-free path'}"
-            f"), {RWKV_STEPS} steps: losses "
+        path = "kernels" if kernels else "kernel-free path"
+        out[path] = {"losses": losses, "first_not_finite": bad[0] if bad
+                     else None}
+        log(f"[rwkv] lr {lr} ({path}), {RWKV_STEPS} steps: losses "
             f"{[round(l, 3) for l in losses]}; "
             + (f"first loss not finite at step {bad[0]}" if bad else
                "all finite"))
+    watched = {"calls": watch.calls}
+    for key in ("bad_input", "bad_output"):
+        found = getattr(watch, key)
+        if found is not None:
+            found = dict(found)
+            found["routes"] = wkv_routes_on(found.pop("inputs"),
+                                            found["chunk"])
+        watched[key] = found
+    out["watch"] = watched
+    log(f"[rwkv] lr {lr}, kernel path, {watch.calls} WKV calls watched: "
+        f"first with an input not finite: {watched['bad_input']}; first "
+        f"turning finite inputs into an output not finite: "
+        f"{watched['bad_output']}")
+    return out
 
 
 def rwkv_full_depth(dtype):
@@ -2294,9 +2514,11 @@ def rwkv_full_depth(dtype):
             logits, _ = model(batch)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-            launches = lm_launches()["wkv6_chunked"]
-            check(launches == cfg.n_layers, f"full depth: {launches} WKV "
-                  f"launches, expected {cfg.n_layers}")
+            got = lm_launches()
+            launches, tc = got["wkv6_chunked"], got["wkv6_chunked_tc"]
+            check(launches == tc == cfg.n_layers, f"full depth: {launches} "
+                  f"WKV launches, {tc} on the tensor cores, expected "
+                  f"{cfg.n_layers} and {cfg.n_layers}")
         peak = torch.cuda.max_memory_allocated()
         model.use_kernel = False
         torch.cuda.synchronize()
@@ -2333,7 +2555,8 @@ def rwkv_full_depth(dtype):
     log(f"[rwkv] {RWKV_ARCH} full depth ({cfg.n_layers} layers, "
         f"{n_params:,} parameters, {dtype}) drawn on the card in "
         f"{build_s:.2f} s; forward batch {FULL_BATCH} x seq {FULL_SEQ} "
-        f"through the kernel ({cfg.n_layers} launches): {times[0]:.1f} ms "
+        f"through the kernel ({cfg.n_layers} launches, all on the tensor "
+        f"cores): {times[0]:.1f} ms "
         f"first, {times[1]:.1f} ms second; kernel-free forward "
         f"{plain_ms:.1f} ms; peak memory {peak / 2**30:.2f} GiB; logits max "
         f"|x| {float(p.abs().max()):.3f}, kernel vs kernel-free rel L2 diff "
@@ -2361,20 +2584,21 @@ def rwkv_cuda_vs_cpu():
     cfg = get_config(RWKV_ARCH).reduced()
     b = next(lm_batches(token_stream(4 * 128 * 8, cfg.vocab_size), 4, 128))
     tokens = torch.from_numpy(b["tokens"])
-    before = wkv6.LAUNCHES["wkv6_chunked"]
+    before = dict(wkv6.LAUNCHES)
     model = build_model(cfg, use_kernel=True, device="cpu", seed=1)
     with torch.no_grad():
         gpu, _ = copy.deepcopy(model).cuda()({"tokens": tokens.cuda()})
         cpu, _ = model({"tokens": tokens})
-    check(wkv6.LAUNCHES["wkv6_chunked"] == before + cfg.n_layers,
-          "the card's forward did not go through the kernel")
+    check(all(wkv6.LAUNCHES[k] == before[k] + cfg.n_layers
+              for k in ("wkv6_chunked", "wkv6_chunked_tc")),
+          "the card's forward did not go through the tensor-core kernel")
     gpu = gpu.cpu()
     check(gpu.shape == (4, 128, 512) and bool(torch.isfinite(gpu).all()),
           f"logits {tuple(gpu.shape)} not finite")
     err = float((gpu - cpu).abs().max())
     check(err <= 1e-4, f"cuda vs cpu logits differ by {err:.3e}")
-    log(f"[rwkv] reduced rwkv6-7b logits (fp32), card (kernel) vs CPU "
-        f"(plain twin): max abs diff {err:.3e} (tol 1e-4)")
+    log(f"[rwkv] reduced rwkv6-7b logits (fp32, N 32), card (tensor-core "
+        f"kernel) vs CPU (plain twin): max abs diff {err:.3e} (tol 1e-4)")
     return err
 
 
@@ -2421,7 +2645,7 @@ def rwkv_profile(steps=3):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms"
             f"/step {e.count / steps:6.0f}/step  {e.key[:90]}")
-    for name in ("wkv6_kernel", "fused_adamw_kernel"):
+    for name in ("wkv6_tc_kernel", "wkv6_kernel", "fused_adamw_kernel"):
         mine = [e for e in kernels if name in e.key]
         us = sum(e.self_device_time_total for e in mine) / steps
         n = sum(e.count for e in mine) / steps
@@ -2437,6 +2661,7 @@ def rwkv_phase():
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
+    sass = wkv_sass()
     err = rwkv_kernel_parity(dev)
     times = rwkv_kernel_times(dev)
     init = "file://" + os.path.join(
@@ -2447,18 +2672,25 @@ def rwkv_phase():
     cpu_err = rwkv_cuda_vs_cpu()
     log(f"[rwkv] phase took {time.perf_counter() - t0:.1f} s")
     return [
-        {"name": "wkv6_chunked", "route": "cuda", "source": WKV_SRC,
+        {"name": "wkv6_chunked", "route": "cuda", "source": WKV_TC_SRC,
+         "cuda_core_source": WKV_SRC,
          "replaces": "src/repro/kernels/wkv6.py:72",
          "launches": launches["wkv6_chunked"],
+         "launches_tc": launches["wkv6_chunked_tc"],
          "launches_run": f"{RWKV_ARCH} ({RWKV_LAYERS} of 32 layers) train, "
                          f"batch {RWKV_BATCH} x seq {RWKV_SEQ}, "
                          f"{RWKV_STEPS} steps",
-         "max_abs_err": err["f32"], "max_abs_err_strong_decay": err["strong"],
-         "max_abs_err_exact": err["exact"], "max_abs_err_bf16": err["bf16"],
+         "max_abs_err": err["tc"]["f32"],
+         "max_abs_err_strong_decay": err["tc"]["strong"],
+         "max_abs_err_exact": err["tc"]["exact"],
+         "max_abs_err_bf16": err["tc"]["bf16"],
+         "cuda_core_max_abs_err": err["cuda_core"],
          "grad_max_abs_err": err["grad"], "cuda_vs_cpu_logits": cpu_err,
          **times["long"], "train_shape": times["train"],
-         "full_depth_forward": full,
-         "profile": runs["profile"].get("wkv6_kernel")},
+         "full_depth_forward": full, "sass_hmma": sass,
+         "profile": runs["profile"].get("wkv6_tc_kernel"),
+         "profile_cuda_core": runs["profile"].get("wkv6_kernel"),
+         "default_lr_record": runs["default_lr"]},
     ]
 
 

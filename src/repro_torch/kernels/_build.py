@@ -72,6 +72,13 @@ def _build_all() -> dict:
     return {src.stem: _target(src) for src in sources}
 
 
+def _aligned(t):
+    """``t`` contiguous with a 16-byte aligned data pointer (a copy where
+    a view starts elsewhere), as the kernels' 16-byte loads need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _library(stem: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library of ``csrc/<stem>.cu``, with ``argtypes`` set
     from ``signatures`` ({function: [ctypes types]}; every function

@@ -329,3 +329,107 @@ def wkv6_chunked(r, k, v, logw, u, *, chunk=64):
     if not ys:
         return torch.zeros_like(r)
     return torch.cat(ys, dim=1).to(r.dtype)
+
+
+LOG2E = 1.4426950408889634
+
+
+def tf32_trunc(x):
+    """fp32 -> TF32 by dropping the 13 low mantissa bits: what a TF32
+    ``mma`` reads of an fp32 register."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    """x = hi + lo as the tensor-core kernel splits an mma operand: hi is x
+    truncated to TF32 (the kernel passes x itself and the mma reads its top
+    19 bits), lo = x - hi, exact in fp32.  Finite for every finite x (a
+    rounded hi would carry into inf at the top of fp32's range); an
+    infinite x gives a NaN lo."""
+    hi = tf32_trunc(x)
+    return hi, x - hi
+
+
+def _mm_tf32x3(a, b):
+    """a @ b as the tensor-core kernel forms it: each fp32 operand split
+    by ``tf32_split``, lo truncated to TF32 by the mma, three products
+    (lo.hi, hi.lo, hi.hi) summed in fp32; lo.lo is dropped."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    al, bl = tf32_trunc(al), tf32_trunc(bl)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def wkv6_subchunked(r, k, v, logw, u, *, chunk=64, sub=16, tf32x3=True):
+    """The arithmetic of the tensor-core WKV kernel (``csrc/wkv6_tc.cu``)
+    in plain PyTorch: the same function as ``wkv6_chunked``, in the
+    two-level form.  Each chunk is cut into sub-chunks of ``sub``; L is
+    the inclusive cumsum of logw * log2(e), Lprev the exclusive one, E_i
+    the L at the end of sub-chunk i and Lam_i = E_{i-1} (0 for the first).
+
+    - A sub-chunk's own block of a keeps the exact pairwise decay for
+      s < t, as the kernel forms it: the running product of the per-step
+      decays w_m = exp2(logw_m * log2(e)) for s < m < t (never above 1),
+      and the bonus r_t . (u * k_t) on its diagonal.
+    - Across sub-chunks (t in i, s in j < i) a[t, s] = rho_t . (D_ij *
+      kap_s) with rho_t = r_t exp2(Lprev_t - Lam_i), kap_s = k_s
+      exp2(E_j - L_s) and D_ij = exp2(Lam_i - E_j): every exponent is
+      <= 0, so nothing overflows under any decay.
+    - y = (rho * exp2(Lam)) S + a V; S <- exp2(L_last) S + (kap *
+      exp2(L_last - E))^T V.
+
+    With ``tf32x3`` the four products (rho.kap^T, the S product, a V and
+    the state update) split and truncate their operands as the kernel's
+    3xTF32 ``mma.sync`` does (``_mm_tf32x3``); without it they are fp32
+    products.  r, k, v, logw: (B, T, H, N), T % chunk == 0; u: (H, N).
+    Returns y in r's dtype."""
+    B, T, H, N = r.shape
+    if T % chunk:
+        raise ValueError(f"T = {T} is not a multiple of chunk {chunk}")
+    sub = min(sub, chunk)
+    if chunk % sub:
+        raise ValueError(f"chunk {chunk} is not a multiple of sub {sub}")
+    mm = _mm_tf32x3 if tf32x3 else torch.matmul
+    ns = chunk // sub
+    rf, kf, vf = (a.float().permute(0, 2, 1, 3) for a in (r, k, v))
+    lw = logw.float().permute(0, 2, 1, 3) * LOG2E          # (B, H, T, N)
+    uf = u.float()[None, :, None, :]
+    eye = torch.eye(sub, dtype=torch.float32, device=r.device)
+    S = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+    ys = []
+    for t0 in range(0, T, chunk):
+        rc, kc, vc = (a[:, :, t0:t0 + chunk] for a in (rf, kf, vf))
+        L = torch.cumsum(lw[:, :, t0:t0 + chunk], dim=2)
+        Lp = torch.cat([torch.zeros_like(L[:, :, :1]), L[:, :, :-1]], dim=2)
+        Ls, Lps, rs, ks = (a.reshape(B, H, ns, sub, N)
+                           for a in (L, Lp, rc, kc))
+        E = Ls[:, :, :, -1]                                  # (B, H, ns, N)
+        Lam = torch.cat([torch.zeros_like(E[:, :, :1]), E[:, :, :-1]], dim=2)
+        ws = torch.exp2(lw[:, :, t0:t0 + chunk]).reshape(B, H, ns, sub, N)
+        a_diag = torch.sum(rs * uf[:, :, None] * ks, dim=-1,
+                           keepdim=True) * eye
+        dec = torch.ones_like(rs)               # prod_{t-d<m<t} w_m at row t
+        for d in range(1, sub):
+            t, s = torch.arange(d, sub), torch.arange(0, sub - d)
+            a_diag[:, :, :, t, s] = torch.sum(
+                rs[:, :, :, t] * ks[:, :, :, s] * dec[:, :, :, t], dim=-1)
+            dec[:, :, :, t] = dec[:, :, :, t] * ws[:, :, :, s]
+        rho = rs * torch.exp2(Lps - Lam[:, :, :, None])
+        kap = ks * torch.exp2(E[:, :, :, None] - Ls)
+        a = torch.zeros((B, H, chunk, chunk), dtype=torch.float32,
+                        device=r.device)
+        for i in range(ns):
+            ri = slice(i * sub, (i + 1) * sub)
+            a[:, :, ri, ri] = a_diag[:, :, i]
+            for j in range(i):
+                D = torch.exp2(Lam[:, :, i] - E[:, :, j])[:, :, None]
+                a[:, :, ri, j * sub:(j + 1) * sub] = mm(
+                    rho[:, :, i] * D, kap[:, :, j].transpose(-1, -2))
+        qdec = (rho * torch.exp2(Lam)[:, :, :, None]).reshape(B, H, chunk, N)
+        kdec = (kap * torch.exp2(E[:, :, -1:] - E)[:, :, :, None]).reshape(
+            B, H, chunk, N)
+        ys.append(mm(qdec, S) + mm(a, vc))
+        S = torch.exp2(E[:, :, -1])[..., None] * S + mm(
+            kdec.transpose(-1, -2), vc)
+    if not ys:
+        return torch.zeros_like(r)
+    return torch.cat(ys, dim=2).permute(0, 2, 1, 3).contiguous().to(r.dtype)

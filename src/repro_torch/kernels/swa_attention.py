@@ -62,11 +62,6 @@ def _validate(q, k, v, window):
         raise ValueError(f"window must be None or >= 1, got {window}")
 
 
-def _aligned(t):
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def swa_attention_fwd(q, k, v, *, window=None, causal=True):
     """q: (B, S, H, hd); k, v: (B, S, KV, hd), fp32 or bf16 alike.
     Returns (B, S, H, hd) in q's dtype."""
@@ -89,7 +84,7 @@ def swa_attention_fwd(q, k, v, *, window=None, causal=True):
     if H // KV > MAX_GROUP:
         raise ValueError(f"H / KV = {H // KV} > {MAX_GROUP} heads a kv head")
     wgmma = q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = _build._aligned(q), _build._aligned(k), _build._aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -546,19 +546,25 @@ def test_swa_attention_gradient_on_cuda(cuda, dtype):
             assert err <= 2 ** -7 * float(y.grad.abs().max()), err
 
 
-def test_swa_wgmma_kernel_is_built_on_tensor_cores_and_tma(cuda):
-    """The tensor-core kernel's SASS holds wgmma (HGMMA) and TMA loads
-    (UTMALDG), as compiled for sm_90a from ``csrc/swa_attention_tc.cu``."""
+def _sass_functions(stem, kernel):
+    """The SASS (``cuobjdump -sass``) of each instantiation of ``kernel``
+    in the library built from ``csrc/<stem>.cu``."""
     import shutil
     import subprocess
     from torch.utils.cpp_extension import CUDA_HOME
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or f"{CUDA_HOME}/bin/cuobjdump"
-    lib = _build._build_all()["swa_attention_tc"]
+    lib = _build._build_all()[stem]
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    kernels = [f for f in sass.split("Function : ")[1:]
-               if "swa_wgmma_kernel" in f.split("\n", 1)[0]]
+    return [f for f in sass.split("Function : ")[1:]
+            if kernel in f.split("\n", 1)[0]]
+
+
+def test_swa_wgmma_kernel_is_built_on_tensor_cores_and_tma(cuda):
+    """The tensor-core kernel's SASS holds wgmma (HGMMA) and TMA loads
+    (UTMALDG), as compiled for sm_90a from ``csrc/swa_attention_tc.cu``."""
+    kernels = _sass_functions("swa_attention_tc", "swa_wgmma_kernel")
     assert kernels, "no swa_wgmma_kernel in the library"
     for body in kernels:
         assert "HGMMA" in body and "UTMALDG" in body
@@ -632,20 +638,28 @@ def _wkv_operands(B, T, H, N, mu, dtype, dev, seed=0):
             for a in arrs]
 
 
+def _tc_route(N, chunk):
+    return N in twkv.TC_HEAD_DIMS and chunk in twkv.TC_CHUNKS
+
+
 @pytest.mark.parametrize("case", WKV_GPU_CASES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_wkv6_kernel_matches_plain(cuda, case, dtype):
-    """The kernel against its plain chunked twin on the card (and the
-    exact recurrence for T <= 128), same inputs: 1e-4 in fp32 (the
-    reference test's tolerance); in bf16 5e-2 plus one bf16 step
-    (2^-7 relative), since each side rounds its fp32 result once."""
+    """The kernel the wrapper takes for the shape (the tensor cores at N
+    32/64 with chunk 16/32/64, the CUDA cores at N 16 or chunk 1) against
+    its plain chunked twin on the card (and the exact recurrence for
+    T <= 128), same inputs: 1e-4 in fp32 (the reference test's
+    tolerance); in bf16 5e-2 plus one bf16 step (2^-7 relative), since
+    each side rounds its fp32 result once."""
     B, T, H, N, chunk, mu = case
     r, k, v, lw, u = _wkv_operands(B, T, H, N, mu, dtype, cuda, seed=T + N)
-    before = twkv.LAUNCHES["wkv6_chunked"]
+    before = dict(twkv.LAUNCHES)
     got = twkv.wkv6_chunked(r, k, v, lw, u, chunk=chunk)
     torch.cuda.synchronize()
-    assert twkv.LAUNCHES["wkv6_chunked"] == before + 1
+    assert twkv.LAUNCHES["wkv6_chunked"] == before["wkv6_chunked"] + 1
+    assert (twkv.LAUNCHES["wkv6_chunked_tc"]
+            == before["wkv6_chunked_tc"] + _tc_route(N, chunk))
     assert got.dtype == dtype and got.shape == r.shape
     assert bool(torch.isfinite(got).all())
     wants = [tref.wkv6_chunked(r, k, v, lw, u, chunk=chunk)]
@@ -659,10 +673,132 @@ def test_wkv6_kernel_matches_plain(cuda, case, dtype):
                                        rtol=2 ** -7, atol=5e-2)
 
 
+@pytest.mark.parametrize("N", [32, 64])
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mu", [-2.0, 3.0], ids=["mild", "strong"])
+def test_wkv6_tc_route_matches_plain(cuda, N, chunk, dtype, mu):
+    """The tensor-core route at every N and chunk it takes, mild and
+    strong decay (mu 3: per-step decays down to exp(-e^4.5)), against the
+    chunked twin, the exact recurrence and, in fp32, its own two-level
+    twin ``ref.wkv6_subchunked``: finite, 1e-4 in fp32; in bf16 5e-2
+    plus one bf16 step."""
+    r, k, v, lw, u = _wkv_operands(2, 128, 3, N, mu, dtype, cuda,
+                                   seed=N + chunk)
+    before = twkv.LAUNCHES["wkv6_chunked_tc"]
+    got = twkv.wkv6_chunked(r, k, v, lw, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert twkv.LAUNCHES["wkv6_chunked_tc"] == before + 1
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    wants = [tref.wkv6_chunked(r, k, v, lw, u, chunk=chunk),
+             tref.wkv6(r, k, v, lw, u)]
+    if dtype == torch.float32:
+        wants.append(tref.wkv6_subchunked(r, k, v, lw, u, chunk=chunk))
+    for want in wants:
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2 ** -7, atol=5e-2)
+
+
+@pytest.mark.parametrize("N,T,chunk,tc", [
+    (64, 128, 64, True), (64, 128, 32, True), (32, 64, 16, True),
+    (16, 64, 16, False), (16, 128, 64, False), (32, 64, 8, False),
+    (64, 37, 1, False), (64, 64, 4, False)], ids=str)
+def test_wkv6_route_follows_the_shape(cuda, N, T, chunk, tc):
+    """N 32/64 with chunk 16/32/64 raises the tensor-core counter; N 16,
+    and chunks under 16 (what ``ops.wkv6`` gives a ragged T), stay on
+    ``csrc/wkv6.cu``.  Both count under ``wkv6_chunked``; the result is
+    the function on either route."""
+    r, k, v, lw, u = _wkv_operands(1, T, 2, N, -2.0, torch.float32, cuda)
+    before = dict(twkv.LAUNCHES)
+    got = twkv.wkv6_chunked(r, k, v, lw, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert twkv.LAUNCHES["wkv6_chunked"] == before["wkv6_chunked"] + 1
+    assert (twkv.LAUNCHES["wkv6_chunked_tc"]
+            == before["wkv6_chunked_tc"] + tc)
+    torch.testing.assert_close(got, tref.wkv6(r, k, v, lw, u), rtol=0,
+                               atol=1e-4)
+
+
+def _wkv_cuda_core(ins, chunk):
+    """The CUDA-core kernel through its C entry point, at a shape the
+    wrapper sends to the tensor cores."""
+    r = ins[0]
+    B, T, H, N = r.shape
+    y = torch.empty_like(r)
+    lib = twkv._build._library("wkv6", twkv._SIGNATURES)
+    assert lib.rt_wkv6_chunked(*(t.data_ptr() for t in ins), y.data_ptr(),
+                               twkv._DTYPES[r.dtype], B, T, H, N, chunk,
+                               torch.cuda.current_stream().cuda_stream) == 0
+    return y
+
+
+@pytest.mark.parametrize("N,chunk", [(64, 64), (32, 32)], ids=str)
+@pytest.mark.parametrize("case", ["large", "top_r", "top_k", "top_v",
+                                  "steep_decay"])
+def test_wkv6_routes_agree_at_extreme_inputs(cuda, N, chunk, case):
+    """The two routes on one set of extreme fp32 inputs, each against the
+    exact recurrence: r, k and v all scaled by 2^36; one of r, k, v with
+    entries at fp32's largest value in the first and last rows of
+    sub-chunks of 16, where the tensor-core kernel's operands are r and k
+    themselves (the others, and u, scaled by 2^-8, so the exact output
+    stays finite); per-step decays of about exp(-1e30).
+    Both routes are finite and within the fp32 gate of 1e-4 scaled as the
+    output scales (y is linear in each of r, k and v)."""
+    fmax = torch.finfo(torch.float32).max
+    r, k, v, lw, u = _wkv_operands(1, 128, 2, N, -2.0, torch.float32, cuda,
+                                   seed=N + len(case))
+    scale = 1.0
+    if case == "large":
+        r, k, v = (t * 2.0 ** 36 for t in (r, k, v))
+        scale = 2.0 ** 108
+    elif case == "steep_decay":
+        lw = _wkv_operands(1, 128, 2, N, 69.0, torch.float32, cuda,
+                           seed=1)[3]
+        assert float(lw.max()) < -1e28
+    else:
+        big = case[-1]
+        ins = {"r": r, "k": k, "v": v}
+        for name in ins:
+            if name != big:
+                ins[name] = ins[name] * 2.0 ** -8
+        for t0 in (15, 16):     # the last and first rows of sub-chunks
+            ins[big][0, t0::16, :, ::7] = fmax * torch.sign(
+                ins[big][0, t0::16, :, ::7])
+        r, k, v = ins["r"], ins["k"], ins["v"]
+        u = u * 2.0 ** -8
+        scale = 2.0 ** 112
+    ins = [r, k, v, lw, u]
+    before = twkv.LAUNCHES["wkv6_chunked_tc"]
+    tc = twkv.wkv6_chunked(*ins, chunk=chunk)
+    core = _wkv_cuda_core(ins, chunk)
+    torch.cuda.synchronize()
+    assert twkv.LAUNCHES["wkv6_chunked_tc"] == before + 1
+    exact = tref.wkv6(*ins)
+    assert bool(torch.isfinite(exact).all())
+    for got in (tc, core):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, exact, rtol=0, atol=1e-4 * scale)
+    torch.testing.assert_close(tc, core, rtol=0, atol=1e-4 * scale)
+
+
+def test_wkv6_tc_kernel_is_built_on_tensor_cores(cuda):
+    """Every instantiation of the tensor-core kernel's SASS holds TF32
+    mma (HMMA), as compiled for sm_90a from ``csrc/wkv6_tc.cu``."""
+    kernels = _sass_functions("wkv6_tc", "wkv6_tc_kernel")
+    assert len(kernels) == 12       # fp32 / bf16 x N 32, 64 x c 16, 32, 64
+    for body in kernels:
+        assert "HMMA" in body
+
+
 def test_wkv6_gradient_on_cuda(cuda):
-    """The gradient through ``ops.wkv6`` (the kernel forward in the
-    model's autograd Function, the chunk-128 recompute backward) on the
-    card against the same on the CPU, fp32 with TF32 off: 1e-4."""
+    """The gradient through ``ops.wkv6`` (the kernel forward, on the
+    tensor cores at N 64 and chunk 64, in the model's autograd Function,
+    the chunk-128 recompute backward) on the card against the same on the
+    CPU, fp32 with TF32 off: 1e-4."""
     from repro_torch.models import rwkv6
     torch.backends.cuda.matmul.allow_tf32 = False
     ins = _wkv_operands(2, 256, 4, 64, -1.0, torch.float32, "cpu", seed=9)
@@ -670,11 +806,12 @@ def test_wkv6_gradient_on_cuda(cuda):
                           .astype(np.float32))
     a = [t.to(cuda).requires_grad_() for t in ins]
     b = [t.clone().requires_grad_() for t in ins]
-    before = twkv.LAUNCHES["wkv6_chunked"]
+    before = dict(twkv.LAUNCHES)
     ya = rwkv6._WkvKernel.apply(*a)
     ya.backward(gy.to(cuda))
     rwkv6._WkvKernel.apply(*b).backward(gy)
-    assert twkv.LAUNCHES["wkv6_chunked"] == before + 1
+    for key in ("wkv6_chunked", "wkv6_chunked_tc"):
+        assert twkv.LAUNCHES[key] == before[key] + 1
     torch.testing.assert_close(ya.detach().cpu(), tops.wkv6(*ins), rtol=0,
                                atol=1e-4)
     for x, y in zip(a, b):
@@ -685,7 +822,8 @@ def test_wkv6_launches_follow_the_reference_gate(cuda):
     """Reduced rwkv6-7b on the card: a forward at T 64 launches the
     kernel once a layer, a remat train step twice (forward and
     recompute), a T that is not a multiple of 64 never (the plain chunked
-    path, the reference's gate)."""
+    path, the reference's gate).  Per route: its N 32 at chunk 64 takes
+    the tensor cores every time, the CUDA-core kernel never."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     cfg = get_config("rwkv6-7b").reduced()
@@ -693,13 +831,14 @@ def test_wkv6_launches_follow_the_reference_gate(cuda):
     n = cfg.n_layers
     for T, grad, want in ((64, False, n), (64, True, 2 * n), (96, True, 0)):
         tokens = torch.randint(0, cfg.vocab_size, (2, T), device=cuda)
-        before = twkv.LAUNCHES["wkv6_chunked"]
+        before = dict(twkv.LAUNCHES)
         with torch.set_grad_enabled(grad):
             logits, _ = model({"tokens": tokens})
             if grad:
                 logits.float().square().mean().backward()
         torch.cuda.synchronize()
-        assert twkv.LAUNCHES["wkv6_chunked"] - before == want, (T, grad)
+        for key in ("wkv6_chunked", "wkv6_chunked_tc"):
+            assert twkv.LAUNCHES[key] - before[key] == want, (T, grad, key)
         assert bool(torch.isfinite(logits).all())
 
 
