@@ -26,8 +26,12 @@ Phases, each of which must pass (the script exits nonzero otherwise):
 4. robust kernels: the four robust-aggregation kernels against their
    plain versions at W = 4 stacks of the full-width MobileNet and
    ResNet-18 gradients and at W = 3..16 over a ragged D, with tie and
-   constant columns and a 1e30 row; then each is timed against its plain
-   version and a library call at the MobileNet stack.
+   constant columns and a 1e30 row; Krum also at W = 1, 2, 4, 5, 8, 9, 16
+   and 32 over D of every residue mod 4, from an aligned base and from
+   one 4 bytes off; then each is timed against its plain version and a
+   library call at the MobileNet stack, Krum's streaming kernel beside
+   its earlier tile form (through its C entry point) at W = 4 and 8, and
+   the tile form, which W above 8 takes, at W = 16 and 32.
 5. byzantine: ``repro_torch.launch.byzantine_train.run`` on full-width
    MobileNet, 4 ranks on the one card over gloo, global batch 96 (4
    microbatches of 6 a rank), rank 0 under a -8x attack.  The trimmed mean
@@ -52,15 +56,18 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    profiler windows at seq 128 and seq 2048, the second with attention's
    device time split into the kernel, the plain recompute and the
    backward.
-7. gemma: attention at the head_dims beyond the tensor-core kernel's
-   (Gemma-3's 320 at its train shape, local and global, and a ragged S;
-   160; 256) against its plain version in bf16 and fp32, every launch on
-   the CUDA-core route; its times at Gemma-3's shape against bound, plain
-   version and ``F.scaled_dot_product_attention``; then the LM entry point
-   on full-width gemma3-4b cut to 6 layers (one 5:1 local/global group;
+7. gemma: attention at the wide head_dims (Gemma-3's 320 at its train
+   shape, local and global, and a ragged S; 160; 256) against its plain
+   version in bf16 (every launch on the tensor-core route) and fp32 (the
+   CUDA-core route); its times at Gemma-3's shape against bound, plain
+   version, the CUDA-core kernel in bf16 (its earlier route) and
+   ``F.scaled_dot_product_attention`` under each backend (which one the
+   default picks, which refuse hd 320); then the LM entry point on
+   full-width gemma3-4b cut to 6 layers (one 5:1 local/global group;
    bf16, batch 1 x seq 2048, fused AdamW lr 3e-4, 10 steps) with 12
-   attention launches a step, peak memory, two steps against the
-   kernel-free path and a record of lr 3e-3 and 1e-3.
+   tensor-core attention launches a step, peak memory, two steps against
+   the kernel-free path, a profiler window over the step and a record of
+   lr 3e-3 and 1e-3.
 8. rwkv: the WKV recurrence's two routes (the tensor-core kernel at N
    32/64 with chunks 16/32/64, the CUDA-core kernel elsewhere and, through
    its C entry point, at those shapes too) against the plain chunked twin
@@ -566,7 +573,6 @@ def profile_step(strategy, arch="mobilenet-cifar", steps=5):
     on whichever ``repro_torch`` is first on ``sys.path``, so
     ``--compare-mlless`` applies it to another checkout too."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import optim
     from repro_torch.configs.base import get_config
@@ -596,35 +602,10 @@ def profile_step(strategy, arch="mobilenet-cifar", steps=5):
             ts.step_fn(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    out = {"arch": arch, "strategy": strategy, "ms_per_step": plain_ms,
-           "profiled_ms_per_step": wall_ms, "busy_ms": busy_ms,
-           "kernels_per_step": sum(e.count for e in kernels) / steps}
-    if busy_ms == 0:
-        log("[profile] the profiler recorded no device time: not measured")
-        return out
-    out["idle_share"] = 1 - busy_ms / wall_ms
-    log(f"[profile] {arch} {strategy}: {plain_ms:.3f} ms/step unprofiled; "
-        f"under the profiler {wall_ms:.3f} ms/step on the host clock, "
-        f"device busy {busy_ms:.3f} ms/step, idle share "
-        f"{out['idle_share']:.3f}; device kernels launched per step "
-        f"{out['kernels_per_step']:.0f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms"
-            f"/step {e.count / steps:6.0f}/step  {e.key[:90]}")
-    if strategy != "mlless":
-        return out
-    for name in MLLESS_KERNELS:
-        mine = [e for e in kernels if name in e.key]
-        if not mine:
-            continue
-        us = sum(e.self_device_time_total for e in mine) / steps
-        n = sum(e.count for e in mine) / steps
-        out[name] = {"us_per_step": us, "launches_per_step": n}
-        log(f"[profile]   {name}: {us:.1f} us/step of device time in "
-            f"{n:.0f} launches ({us / max(n, 1):.2f} us each)")
+    log(f"[profile] {arch} {strategy}: {plain_ms:.3f} ms/step unprofiled")
+    out = profile_report(prof, steps, wall_ms, f"{arch} {strategy}",
+                         MLLESS_KERNELS if strategy == "mlless" else (), 8)
+    out.update(arch=arch, strategy=strategy, ms_per_step=plain_ms)
     return out
 
 
@@ -648,7 +629,7 @@ def compare_mlless(parent, rounds=("parent", "change", "change", "parent")):
             run["tree"] = who
             runs.append(run)
             log(f"[compare] {who} {arch}: {run['ms_per_step']:.3f} ms/step "
-                f"unprofiled, {run['profiled_ms_per_step']:.3f} profiled, "
+                f"unprofiled, {run['wall_ms']:.3f} profiled, "
                 f"busy {run['busy_ms']:.3f}, idle share "
                 f"{run.get('idle_share', float('nan')):.3f}, "
                 f"{run['kernels_per_step']:.0f} kernels a step")
@@ -774,6 +755,97 @@ def robust_parity(sizes, dev):
     return err
 
 
+# Krum's W: both instantiations of the streaming kernel (4, 8) and either
+# side of them, and the tile form above them; D of every residue mod 4
+KRUM_W = (1, 2, 4, 5, 8, 9, 16, 32)
+KRUM_D = 100_000
+
+
+def krum_parity(dev):
+    """Krum against its plain version at every W of ``KRUM_W`` and D of
+    each residue mod 4, the stack from a 16-byte aligned base and from one
+    4 bytes off (a view of a longer buffer, which the wrapper takes as it
+    is): each distance within 1e-5 of ||xi||^2 + ||xj||^2, the diagonal 0,
+    the matrix symmetric, two launches the same bits.  Returns the largest
+    absolute error."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import robust_agg as ra
+    gen = torch.Generator(device=dev).manual_seed(16)
+    worst, cases = 0.0, 0
+    for W in KRUM_W:
+        for D in range(KRUM_D, KRUM_D + 4):
+            y = robust_stack(W, D, dev, gen, edges=False)
+            shifted = torch.cat([y.new_zeros(1), y.reshape(-1)])[1:]
+            for x in (y, shifted.view(W, D)):
+                before = ra.LAUNCHES["krum_pairwise"]
+                got, again = ra.krum_pairwise(x), ra.krum_pairwise(x)
+                want = ref.krum_pairwise(x)
+                torch.cuda.synchronize()
+                n = torch.sum(x.double() ** 2, dim=1)
+                diff = (got.double() - want.double()).abs()
+                check(ra.LAUNCHES["krum_pairwise"] == before + 2
+                      and bool((diff <= 1e-5 * (n[:, None] + n[None, :]))
+                               .all())
+                      and torch.equal(got, again)
+                      and torch.equal(got, got.T)
+                      and bool((torch.diagonal(got) == 0).all()),
+                      f"krum_pairwise at W={W} D={D} base "
+                      f"{x.data_ptr() % 16}: max diff {float(diff.max())}")
+                worst = max(worst, float(diff.max()))
+                cases += 1
+    log(f"[robust] krum_pairwise at W={KRUM_W} x D={KRUM_D}..{KRUM_D + 3} "
+        f"(every residue mod 4) x base aligned / 4 bytes off ({cases} "
+        f"stacks): max abs err {worst:.3e} (tol 1e-5 of ni+nj), diagonal "
+        "0, symmetric, second launches bit-identical")
+    return worst
+
+
+def krum_tile(x):
+    """Krum's tile form (the kernel before the streaming one, still the
+    route above W = 8) through its C entry point: launched at every W to
+    time the two designs in one run; counts nothing."""
+    import torch
+    from repro_torch.kernels import robust_agg as ra
+    W, D = x.shape
+    out = torch.empty((W, W), dtype=torch.float32, device=x.device)
+    partial, counter = ra._scratch(x)
+    err = ra._lib().rt_krum_pairwise_tile(
+        x.data_ptr(), D, W, partial.data_ptr(), counter.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"Krum tile kernel failed: CUDA error {err}")
+    return out
+
+
+def krum_times(D, dev):
+    """Krum at W = 4, 8, 16 and 32 on a (W, D) stack: the wrapper as a
+    CUDA graph (the streaming kernel at W <= 8, the tile form above) and
+    the tile form through its C entry point, in turns (tile, wrapper,
+    wrapper, tile), against the bytes bound."""
+    import torch
+    from repro_torch.kernels import robust_agg as ra
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for W in (4, 8, 16, 32):
+        x = robust_stack(W, D, dev, gen, edges=False)
+        check(torch.equal(krum_tile(x), krum_tile(x)), "krum tile form")
+        tile = [graphed_ms(lambda: krum_tile(x))]
+        new = [graphed_ms(lambda: ra.krum_pairwise(x)) for _ in range(2)]
+        tile.append(graphed_ms(lambda: krum_tile(x)))
+        nbytes = 4 * W * D + 4 * W * W
+        r = dict(graph_ms=min(new), tile_graph_ms=min(tile),
+                 route="stream" if W <= 8 else "tile",
+                 bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bytes=nbytes)
+        out[f"W{W}"] = r
+        log(f"[robust] krum_pairwise W={W} D={D:,}: wrapper ({r['route']} "
+            f"kernel) as a CUDA graph {new[0]:.4f} / {new[1]:.4f} ms, tile "
+            f"form {tile[0]:.4f} / {tile[1]:.4f} ms (in turns), bound "
+            f"{r['bound_ms']:.4f} ms (bytes, {nbytes / 1e6:.1f} MB): "
+            f"{r['bound_ms'] / r['graph_ms']:.3f} of the bound")
+        del x
+    return out
+
+
 def robust_times(sizes, dev):
     """Each kernel, its plain version and, where one PyTorch call
     computes the same function, that call, at the W = 4 stack of the
@@ -834,6 +906,8 @@ def robust_times(sizes, dev):
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} "
             f"MB; ResNet-18 stack {r['resnet18_bound_ms']:.4f} ms)")
+    del x
+    out["krum_pairwise"]["by_W"] = krum_times(D, dev)
     return out
 
 
@@ -1211,27 +1285,35 @@ def sass_counts(stem, kernel, ops):
     return counts
 
 
+# the tensor-core kernel's instantiations: hd padded to a multiple of 64
+SWA_TC_WIDTHS = {64: "hd 32/64", 128: "hd 96/128", 192: "hd 160",
+                 256: "hd 256", 320: "hd 320"}
+
+
 def swa_sass():
     """The tensor-core attention kernel's SASS: counts of wgmma (HGMMA),
     TMA loads (UTMALDG) and stores (UTMASTG) in each instantiation of
-    ``swa_wgmma_kernel``; fails unless every one has wgmma and TMA loads."""
-    counts = {"hd<=64" if "ILi64E" in name else "hd>64": c
-              for name, c in sass_counts("swa_attention_tc",
-                                         "swa_wgmma_kernel",
-                                         ("HGMMA", "UTMALDG",
-                                          "UTMASTG")).items()}
-    check(len(counts) == 2 and all(c["HGMMA"] and c["UTMALDG"]
-                                   for c in counts.values()),
-          f"swa_wgmma_kernel SASS lacks wgmma or TMA: {counts}")
+    ``swa_wgmma_kernel``; fails unless there is one for every width of
+    ``SWA_TC_WIDTHS`` and every one has wgmma and TMA loads."""
+    counts = {}
+    for name, c in sass_counts("swa_attention_tc", "swa_wgmma_kernel",
+                               ("HGMMA", "UTMALDG", "UTMASTG")).items():
+        width = [w for w in SWA_TC_WIDTHS if f"ILi{w}E" in name]
+        check(len(width) == 1, f"unexpected instantiation {name}")
+        counts[SWA_TC_WIDTHS[width[0]]] = c
+    check(len(counts) == len(SWA_TC_WIDTHS)
+          and all(c["HGMMA"] and c["UTMALDG"] for c in counts.values()),
+          f"swa_wgmma_kernel SASS lacks an instantiation, wgmma or TMA: "
+          f"{counts}")
     log(f"[lm] swa_wgmma_kernel SASS (cuobjdump -sass): {counts}")
     return counts
 
 
 def cuda_core_bf16(q, k, v, window):
     """The CUDA-core attention kernel on bf16 (causal), which no route of
-    the port takes since the tensor-core kernel replaced it there: launched
-    through its C entry point only to time the two designs in one run;
-    counts nothing."""
+    the port takes since the tensor-core kernel replaced it at every head_dim:
+    launched through its C entry point only to time the two designs in one
+    run; counts nothing."""
     import math
     import torch
     from repro_torch.kernels import _build
@@ -1331,27 +1413,25 @@ def lm_kernel_times(dev):
         r = dict(ms=time_ms(fn, reps=10), graph_ms=graphed_ms(fn),
                  cuda_core_ms=time_ms(old, reps=10),
                  cuda_core_graph_ms=graphed_ms(old),
-                 design_bound_ms=1.5 * t_ops * 1e3,
                  plain_ms=time_ms(lambda: ref.swa_attention(
                      q, k, v, window=window), reps=3, warmup=1),
                  library_ms=time_ms(lib_fn, reps=10), library=library,
                  bound_ms=max(t_ops, t_bytes) * 1e3,
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
-                 fp32_core_bound_ms=flops / H100_FP32_FLOP_PER_S * 1e3,
                  bytes_ms=t_bytes * 1e3, flops=flops, bytes=nbytes,
                  shapes=f"q ({B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, "
                         f"{hd}) bf16, causal, window {window}")
         out[f"swa_attention_fwd/{key}"] = r
         log(f"[lm] swa_attention_fwd {r['shapes']}: tensor-core kernel "
             f"{r['ms']:.4f} ms (as a CUDA graph {r['graph_ms']:.4f} ms; its "
-            f"design's three products {r['design_bound_ms']:.4f} ms at "
+            f"design's three products {1.5 * t_ops * 1e3:.4f} ms at "
             f"peak), CUDA-core kernel {r['cuda_core_ms']:.4f} ms (graph "
             f"{r['cuda_core_graph_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
             f"({library}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
             f"{flops / 1e9:.2f} GFLOP at bf16 tensor-core peak; "
             f"{r['bytes_ms']:.4f} ms for {nbytes / 1e6:.1f} MB; fp32 "
-            f"CUDA-core bound {r['fp32_core_bound_ms']:.4f} ms)")
+            f"CUDA-core bound {flops / H100_FP32_FLOP_PER_S * 1e3:.4f} ms)")
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return out
@@ -1574,28 +1654,63 @@ def lm_cuda_vs_cpu():
         f"max abs diff {err:.3e} (tol 1e-4)")
 
 
-def lm_profile(batch=LM_BATCH, seq=LM_SEQ, steps=3, split_attention=False):
-    """``torch.profiler`` over a few full-width SmolLM-135M steps (fused
-    AdamW, after warm-up): device time by kernel against the host clock.
+def profile_report(prof, steps, wall_ms, label, names=(), top=10):
+    """Device time by kernel from a ``torch.profiler`` window over
+    ``steps`` steps against the host clock's ``wall_ms`` a step: busy and
+    idle share, the ``top`` largest kernels, and the time and launches a
+    step of the kernels whose names hold one of ``names``."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+           "kernels_per_step": sum(e.count for e in kernels) / steps}
+    if busy_ms == 0:
+        log("[profile] the profiler recorded no device time: not measured")
+        return out
+    out["idle_share"] = 1 - busy_ms / wall_ms
+    log(f"[profile] {label} under the profiler: {wall_ms:.3f} ms/step on "
+        f"the host clock, device busy {busy_ms:.3f} ms/step, idle share "
+        f"{out['idle_share']:.3f}; device kernels per step "
+        f"{out['kernels_per_step']:.0f}")
+    largest = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    out["top"] = [(e.key[:90], e.self_device_time_total / 1e3 / steps,
+                   e.count / steps) for e in largest]
+    for name, ms, n in out["top"]:
+        log(f"[profile]   {ms:8.3f} ms/step {n:6.0f}/step  {name}")
+    for name in names:
+        mine = [e for e in kernels if name in e.key]
+        us = sum(e.self_device_time_total for e in mine) / steps
+        n = sum(e.count for e in mine) / steps
+        out[name] = {"us_per_step": us, "launches_per_step": n}
+        log(f"[profile]   {name}: {us:.1f} us/step of device time in "
+            f"{n:.0f} launches ({us / max(n, 1):.2f} us each)")
+    return out
+
+
+def lm_profile(batch=LM_BATCH, seq=LM_SEQ, steps=3, split_attention=False,
+               cfg=None, lr=LM_LR):
+    """``torch.profiler`` over a few full-width SmolLM-135M steps (or of
+    the model ``cfg`` at ``lr``; fused AdamW, after warm-up): device time
+    by kernel against the host clock.
     With ``split_attention``, attention's device time a step split into the
     forward kernel (its launches in the forward and in the remat
     recompute), the backward's plain recompute of the forward (the chunked
     ``_Flash`` forward inside ``_SwaAttentionBackward``) and the plain
     backward itself (``_FlashBackward``)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import optim
     from repro_torch.configs.base import get_config
     from repro_torch.core import build_train_step, get_strategy
     from repro_torch.data import lm_batches, token_stream
     from repro_torch.models import build_model
-    cfg = get_config(LM_ARCH)
+    cfg = cfg or get_config(LM_ARCH)
     it = lm_batches(token_stream(batch * seq * 8, cfg.vocab_size), batch,
                     seq)
     data = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
     ts = build_train_step(build_model(cfg, use_kernel=True, device="cuda"),
-                          optim.adamw(LM_LR, use_fused=True),
+                          optim.adamw(lr, use_fused=True),
                           get_strategy("allreduce"))
     state = ts.init_state()
     for _ in range(2):
@@ -1610,29 +1725,13 @@ def lm_profile(batch=LM_BATCH, seq=LM_SEQ, steps=3, split_attention=False):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     del ts, state
     torch.cuda.empty_cache()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    out = {"batch": batch, "seq": seq, "wall_ms": wall_ms,
-           "busy_ms": busy_ms}
-    if busy_ms == 0:
-        log("[profile] the profiler recorded no device time: not measured")
+    out = profile_report(prof, steps, wall_ms, f"{cfg.name} step (batch "
+                         f"{batch} x seq {seq}, fused AdamW)",
+                         ("swa_wgmma_kernel", "fused_adamw_kernel"))
+    out.update(batch=batch, seq=seq)
+    if out["busy_ms"] == 0:
         return out
-    log(f"[profile] {LM_ARCH} step (batch {batch} x seq {seq}, fused "
-        f"AdamW) under the profiler: {wall_ms:.3f} ms/step on the host "
-        f"clock, device busy {busy_ms:.3f} ms/step, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}; device kernels per step "
-        f"{sum(e.count for e in kernels) / steps:.0f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms"
-            f"/step {e.count / steps:6.0f}/step  {e.key[:90]}")
-    for name in ("swa_wgmma_kernel", "fused_adamw_kernel"):
-        mine = [e for e in kernels if name in e.key]
-        us = sum(e.self_device_time_total for e in mine) / steps
-        n = sum(e.count for e in mine) / steps
-        out[name] = {"us_per_step": us, "launches_per_step": n}
-        log(f"[profile]   {name}: {us:.1f} us/step of device time in "
-            f"{n:.0f} launches ({us / max(n, 1):.2f} us each)")
+    busy_ms = out["busy_ms"]
     if split_attention:
         events = prof.events()
 
@@ -1700,7 +1799,7 @@ def lm_phase():
 
 
 # ---------------------------------------------------------------------------
-# Gemma-3: attention at head_dim 320, on the CUDA-core kernel
+# Gemma-3: attention at head_dim 320, on the tensor-core kernel
 # ---------------------------------------------------------------------------
 GEMMA_ARCH = "gemma3-4b"
 # one 5:1 local/global group at full width (d_model 2560, 8 / 4 heads of
@@ -1727,8 +1826,8 @@ GEMMA_PARITY = [
 
 def gemma_kernel_parity(dev):
     """Attention against its plain version at ``GEMMA_PARITY`` in bf16
-    and fp32, every launch on the CUDA-core route, at the gates of
-    ``lm_kernel_parity``."""
+    (every launch on the tensor-core route) and fp32 (the CUDA-core
+    route), at the gates of ``lm_kernel_parity``."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import swa_attention as swa
@@ -1743,12 +1842,13 @@ def gemma_kernel_parity(dev):
                                         causal=causal)
             want = ref.swa_attention(q, k, v, window=window, causal=causal)
             torch.cuda.synchronize()
+            wgmma = dtype == torch.bfloat16
             check(swa.LAUNCHES["swa_attention_fwd"]
                   == before["swa_attention_fwd"] + 1
                   and swa.LAUNCHES["swa_attention_fwd_wgmma"]
-                  == before["swa_attention_fwd_wgmma"],
+                  == before["swa_attention_fwd_wgmma"] + wgmma,
                   f"swa_attention_fwd at {label} {dtype}: not one launch on "
-                  "the CUDA-core route")
+                  f"the {'tensor' if wgmma else 'CUDA'}-core route")
             diff = (got.float() - want.float()).abs()
             if dtype == torch.float32:
                 ok = bool((diff <= SWA_F32_ATOL).all())
@@ -1760,8 +1860,9 @@ def gemma_kernel_parity(dev):
                   f"{float(diff.max()):.3e}")
             err[dtype] = max(err[dtype], float(diff.max()))
             del q, k, v, got, want, diff
-    log(f"[gemma] swa_attention_fwd on the CUDA-core kernel against its "
-        f"plain version at {len(GEMMA_PARITY)} shapes x bf16/fp32 "
+    log(f"[gemma] swa_attention_fwd (bf16 on the tensor-core kernel, fp32 "
+        f"on the CUDA-core kernel) against its plain version at "
+        f"{len(GEMMA_PARITY)} shapes x bf16/fp32 "
         f"({', '.join(c[0] for c in GEMMA_PARITY)}): max abs err fp32 "
         f"{err[torch.float32]:.3e} (tol {SWA_F32_ATOL}), bf16 "
         f"{err[torch.bfloat16]:.3e} (tol one bf16 step)")
@@ -1769,11 +1870,70 @@ def gemma_kernel_parity(dev):
             "max_abs_err_fp32": err[torch.float32]}
 
 
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def sdpa_backend_of(fn):
+    """The backend the default dispatcher picks for ``fn``, read from the
+    names of the device kernels that two calls run (``torch.profiler``,
+    after a call outside it; a window that records no kernel is taken
+    again once), and those names."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    text = " ".join(names).lower()
+    for backend, marks in (("CUDNN_ATTENTION", ("cudnn",)),
+                           ("EFFICIENT_ATTENTION", ("fmha", "cutlass",
+                                                    "efficient")),
+                           ("FLASH_ATTENTION", ("flash",))):
+        if any(m in text for m in marks):
+            return backend, names
+    return ("MATH" if names else "not measured"), names
+
+
+def sdpa_by_backend(lib_fn, expanded_fn):
+    """``F.scaled_dot_product_attention`` under each backend of
+    ``SDPA_BACKENDS`` (``torch.nn.attention.sdpa_kernel``): its time as
+    called, or why it refuses; where it refuses the GQA call, the same
+    call on k and v expanded to every q head."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for name in SDPA_BACKENDS:
+        r = {}
+        for form, fn in (("gqa", lib_fn), ("expanded", expanded_fn)):
+            try:
+                with sdpa_kernel(getattr(SDPBackend, name)), \
+                        warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    r[f"{form}_ms"] = time_ms(fn, reps=10)
+                break
+            except RuntimeError as e:
+                r[f"{form}_refused"] = str(e).strip().splitlines()[0][:160]
+        out[name] = r
+    return out
+
+
 def gemma_kernel_times(dev):
     """Attention at Gemma-3's train shape (B 1, S 2048, H 8, KV 4, hd 320,
     bf16), the local layers' window 1024 and the global layer's none: the
-    wrapper called back to back, as a CUDA graph, the plain version and
-    ``F.scaled_dot_product_attention(enable_gqa=True)``."""
+    wrapper (the tensor-core kernel) called back to back and as a CUDA
+    graph, the CUDA-core kernel in bf16 (the route before it) in turns
+    with it, the plain version, and ``F.scaled_dot_product_attention``:
+    as the default dispatcher runs it (which backend, from its kernels'
+    names) and under each backend."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -1788,39 +1948,111 @@ def gemma_kernel_times(dev):
         nbytes = 2 * (q.numel() * 2 + k.numel() * 2)
         t_ops, t_bytes = flops / H100_BF16_FLOP_PER_S, nbytes / H100_BYTES_PER_S
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ke, ve = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
         if window is None:
             library = ("F.scaled_dot_product_attention(is_causal=True, "
                        "enable_gqa=True), (B, H, S, hd)")
-            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+            mask = dict(is_causal=True)
         else:
             pos = torch.arange(S, device=dev)
             band = (pos[None, :] <= pos[:, None]) & \
                 (pos[None, :] > pos[:, None] - window)
             library = ("F.scaled_dot_product_attention(attn_mask=band, "
                        "enable_gqa=True), (B, H, S, hd)")
-            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=band, enable_gqa=True)
+            mask = dict(attn_mask=band)
+        lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, enable_gqa=True, **mask)
+        expanded = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, ke, ve, **mask)
         fn = lambda: swa.swa_attention_fwd(q, k, v, window=window)  # noqa: E731
-        r = dict(ms=time_ms(fn, reps=10), graph_ms=graphed_ms(fn),
+        old = lambda: cuda_core_bf16(q, k, v, window)  # noqa: E731
+        turns = [graphed_ms(old), graphed_ms(fn), graphed_ms(fn),
+                 graphed_ms(old)]
+        backend, names = sdpa_backend_of(lib_fn)
+        r = dict(ms=time_ms(fn, reps=10), graph_ms=min(turns[1:3]),
+                 cuda_core_graph_ms=min(turns[0], turns[3]), turns=turns,
+                 cuda_core_ms=time_ms(old, reps=10),
                  plain_ms=time_ms(lambda: ref.swa_attention(
                      q, k, v, window=window), reps=3, warmup=1),
                  library_ms=time_ms(lib_fn, reps=10), library=library,
+                 library_backend=backend,
+                 library_kernels=[n[:90] for n in names[:4]],
+                 sdpa_backends=sdpa_by_backend(lib_fn, expanded),
                  bound_ms=max(t_ops, t_bytes) * 1e3,
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
-                 fp32_core_bound_ms=flops / H100_FP32_FLOP_PER_S * 1e3,
                  flops=flops, bytes=nbytes,
                  shapes=f"q ({B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, "
                         f"{hd}) bf16, causal, window {window}")
         out[key] = r
-        log(f"[gemma] swa_attention_fwd {r['shapes']}: CUDA-core kernel "
-            f"{r['ms']:.4f} ms (as a CUDA graph {r['graph_ms']:.4f} ms), "
-            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-            f"ms ({library}), bound {r['bound_ms']:.4f} ms "
+        backends = "; ".join(
+            f"{name} " + (f"{b['gqa_ms']:.4f} ms" if "gqa_ms" in b else
+                          f"refuses GQA ({b['gqa_refused']})"
+                          + (f", expanded k/v {b['expanded_ms']:.4f} ms"
+                             if "expanded_ms" in b else
+                             f", expanded refused too "
+                             f"({b.get('expanded_refused')})"))
+            for name, b in r["sdpa_backends"].items())
+        log(f"[gemma] swa_attention_fwd {r['shapes']}: tensor-core kernel "
+            f"{r['ms']:.4f} ms (as a CUDA graph {r['graph_ms']:.4f} ms, "
+            f"{r['bound_ms'] / r['graph_ms']:.3f} of the bound; its "
+            f"design's three products {1.5 * t_ops * 1e3:.4f} ms at peak), "
+            f"CUDA-core kernel {r['cuda_core_ms']:.4f} ms (graph "
+            f"{r['cuda_core_graph_ms']:.4f} ms; graphs in turns old, new, "
+            f"new, old: {[round(t, 4) for t in turns]}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+            f"({library}; the default dispatcher ran {backend}: "
+            f"{r['library_kernels'][:2]}), bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}: {flops / 1e9:.2f} GFLOP at the bf16 "
             f"tensor-core peak; {nbytes / 1e6:.1f} MB; fp32 CUDA-core bound "
-            f"{r['fp32_core_bound_ms']:.4f} ms)")
-        del q, k, v, qt, kt, vt
+            f"{flops / H100_FP32_FLOP_PER_S * 1e3:.4f} ms)")
+        log(f"[gemma] SDPA by backend, {key}: {backends}")
+        del q, k, v, qt, kt, vt, ke, ve
+    torch.cuda.empty_cache()
+    return out
+
+
+# Gemma-3's causal global layer is one wave of 128 blocks (8 heads x 16 q
+# tiles of 128) on 132 SMs, q tile i carrying 4 (i + 1) kv tiles of 32
+# keys: the longest 64, the mean 34.  Beside it, grids that each hold one
+# block length: the longest blocks (one head: 16 blocks on 16 SMs, the
+# longest 64 kv tiles), a mean block (one head at S 1088: the longest 34
+# kv tiles) and 128 blocks all as long as the longest (not causal).
+# (label, H, KV, S, causal)
+GEMMA_BALANCE = [
+    ("global layer", 8, 4, 2048, True),
+    ("longest blocks alone", 1, 1, 2048, True),
+    ("a mean block alone", 1, 1, 1088, True),
+    ("128 longest blocks", 8, 4, 2048, False),
+]
+
+
+def gemma_balance(dev):
+    """The one-wave balance of Gemma-3's global layer: each grid of
+    ``GEMMA_BALANCE`` on the tensor-core kernel as a CUDA graph, in turns
+    (forward through the list, then back), the least of its two turns."""
+    import torch
+    from repro_torch.kernels import swa_attention as swa
+    gen = torch.Generator(device=dev).manual_seed(16)
+    fns = []
+    for label, H, KV, S, causal in GEMMA_BALANCE:
+        q, k, v = (torch.randn(1, S, n, 320, generator=gen, device=dev)
+                   .bfloat16() for n in (H, KV, KV))
+        fns.append(lambda q=q, k=k, v=v, causal=causal:
+                   swa.swa_attention_fwd(q, k, v, causal=causal))
+    order = list(range(len(fns))) + list(reversed(range(len(fns))))
+    turns = [[] for _ in fns]
+    for i in order:
+        turns[i].append(graphed_ms(fns[i]))
+    out = {label: {"graph_ms": min(t), "turns": t,
+                   "shape": f"q (1, {S}, {H}, 320), k/v (1, {S}, {KV}, 320) "
+                            f"bf16, {'causal' if causal else 'not causal'}"}
+           for (label, H, KV, S, causal), t in zip(GEMMA_BALANCE, turns)}
+    full = out["global layer"]["graph_ms"]
+    for label, r in out.items():
+        log(f"[gemma] balance, {label} ({r['shape']}): {r['graph_ms']:.4f} "
+            f"ms as a graph ({r['graph_ms'] / full:.3f} of the global "
+            f"layer; turns {[round(t, 4) for t in r['turns']]})")
+    del fns
     torch.cuda.empty_cache()
     return out
 
@@ -1834,10 +2066,12 @@ def gemma_config():
 def expected_gemma_launches(steps):
     """Per step: fused AdamW once per leaf (51); attention once per layer
     in the forward and once more in the backward's recompute of the
-    checkpointed block (2 x 6), all on the CUDA-core route (hd 320)."""
+    checkpointed block (2 x 6), all on the tensor-core route (bf16, hd
+    320), none on the CUDA-core route."""
     return {"fused_adamw_flat": GEMMA_LEAVES * steps,
             "swa_attention_fwd": 2 * GEMMA_LAYERS * steps,
-            "swa_attention_fwd_wgmma": 0, "wkv6_chunked": 0,
+            "swa_attention_fwd_wgmma": 2 * GEMMA_LAYERS * steps,
+            "wkv6_chunked": 0,
             "wkv6_chunked_tc": 0, **mlless_launches(0)}
 
 
@@ -1916,6 +2150,8 @@ def gemma_train_phase(init_method):
         log(f"[gemma] 2 steps through the kernels vs the kernel-free path "
             f"(bf16, lr {GEMMA_LR}): losses {lk} vs {lp} (rel diff "
             f"{dloss:.3e}, tol 2^-9 = {LM_STEP_RTOL:.3e})")
+        profile = lm_profile(GEMMA_BATCH, GEMMA_SEQ, split_attention=True,
+                             cfg=gemma_config(), lr=GEMMA_LR)
         # a record, not a gate: the entry point's default lr and SmolLM's
         others = {}
         for lr in (3e-3, 1e-3):
@@ -1923,7 +2159,7 @@ def gemma_train_phase(init_method):
             log(f"[gemma] lr {lr} (kernels), {GEMMA_STEPS} steps: losses "
                 f"{[round(l, 4) for l in others[lr]]}")
         return launches, {"train": res, "kernel_vs_plain_rel": dloss,
-                          "other_lr_losses": others}
+                          "other_lr_losses": others, "profile": profile}
     finally:
         dist.destroy_process_group()
 
@@ -1936,6 +2172,7 @@ def gemma_phase():
     t0 = time.perf_counter()
     err = gemma_kernel_parity(dev)
     times = gemma_kernel_times(dev)
+    balance = gemma_balance(dev)
     init = "file://" + os.path.join(
         tempfile.mkdtemp(prefix="chip_smoke_gemma_"), "pg")
     launches, runs = gemma_train_phase(init)
@@ -1947,11 +2184,13 @@ def gemma_phase():
                             f"train, batch {GEMMA_BATCH} x seq {GEMMA_SEQ}, "
                             f"{GEMMA_STEPS} steps",
             **err, **times["local"], "global": times["global"],
+            "balance": balance,
             "ms_per_step": res["ms_per_step"],
             "peak_mem_bytes": res["peak_mem_bytes"],
             "losses": res["losses"],
             "kernel_vs_plain_rel": runs["kernel_vs_plain_rel"],
-            "other_lr_losses": runs["other_lr_losses"]}
+            "other_lr_losses": runs["other_lr_losses"],
+            "profile": runs["profile"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2607,7 +2846,6 @@ def rwkv_profile(steps=3):
     seq 512, fused AdamW, after warm-up): device time by kernel against
     the host clock."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import optim
     from repro_torch.core import build_train_step, get_strategy
@@ -2630,29 +2868,10 @@ def rwkv_profile(steps=3):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     del ts, state
     torch.cuda.empty_cache()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    out = {"wall_ms": wall_ms, "busy_ms": busy_ms}
-    if busy_ms == 0:
-        log("[profile] the profiler recorded no device time: not measured")
-        return out
-    log(f"[profile] {RWKV_ARCH} {RWKV_LAYERS}-layer step (batch {RWKV_BATCH}"
-        f" x seq {RWKV_SEQ}, fused AdamW) under the profiler: {wall_ms:.3f} "
-        f"ms/step on the host clock, device busy {busy_ms:.3f} ms/step, idle"
-        f" share {1 - busy_ms / wall_ms:.3f}; device kernels per step "
-        f"{sum(e.count for e in kernels) / steps:.0f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms"
-            f"/step {e.count / steps:6.0f}/step  {e.key[:90]}")
-    for name in ("wkv6_tc_kernel", "wkv6_kernel", "fused_adamw_kernel"):
-        mine = [e for e in kernels if name in e.key]
-        us = sum(e.self_device_time_total for e in mine) / steps
-        n = sum(e.count for e in mine) / steps
-        out[name] = {"us_per_step": us, "launches_per_step": n}
-        log(f"[profile]   {name}: {us:.1f} us/step of device time in "
-            f"{n:.0f} launches ({us / max(n, 1):.2f} us each)")
-    return out
+    return profile_report(
+        prof, steps, wall_ms, f"{RWKV_ARCH} {RWKV_LAYERS}-layer step (batch "
+        f"{RWKV_BATCH} x seq {RWKV_SEQ}, fused AdamW)",
+        ("wkv6_tc_kernel", "wkv6_kernel", "fused_adamw_kernel"), 12)
 
 
 def rwkv_phase():
@@ -2734,6 +2953,8 @@ def main(argv):
     launches, profiles = train_phase(init)
     sizes = flat_sizes()
     robust_err = robust_parity(sizes, dev)
+    robust_err["krum_pairwise"] = max(robust_err["krum_pairwise"],
+                                      krum_parity(dev))
     robust_t = robust_times(sizes, dev)
     torch.cuda.empty_cache()
     runs = byzantine_phase()
@@ -2786,6 +3007,16 @@ def main(argv):
     attention = next(k for k in line["kernels"]
                      if k["name"] == "swa_attention_fwd")
     attention["gemma3"] = gemma
+    adamw = next(k for k in line["kernels"]
+                 if k["name"] == "fused_adamw_flat")
+    # bf16 p and g, fp32 m and v: p, g, m, v read, m, v, update written
+    adamw_bytes = 22 * GEMMA_PARAMS
+    adamw["gemma3"] = {
+        "profile": gemma["profile"].get("fused_adamw_kernel"),
+        "bytes": adamw_bytes,
+        "bound_ms": adamw_bytes / H100_BYTES_PER_S * 1e3,
+        "run": f"{GEMMA_ARCH} ({GEMMA_LAYERS} layers) step under the "
+               f"profiler, {GEMMA_LEAVES} leaves"}
     line["kernels"] += rwkv_phase()
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))

@@ -32,16 +32,27 @@
 // It computes the W x W squared distances ||xi||^2 + ||xj||^2 - 2 <xi, xj>
 // clamped at 0.  Bound: bytes (W * D * 4 read; 51.5 MB, 15.4 us at W = 4
 // and MobileNet's D); the W(W+1)/2 products per column are few next to
-// the card's fp32 rate.  Design: each block walks its own run of
-// 128-column tiles, staged through shared memory, and accumulates the
-// upper triangle of the Gram matrix in fp32 registers: each (pair,
-// slice) item belongs to one thread, slices interleaving the tile's
-// columns so that all 256 threads work when W is small.  The slices are
-// then summed in slice order into one partial Gram per block.  The last
-// block to finish (an integer atomic ticket; no float atomics) sums the
-// partials block by block in a fixed order and forms the clamped
-// distances, so the result is bit-identical from run to run.  The
-// diagonal is exactly 0 (the norms are the Gram diagonal).
+// the card's fp32 rate, so the kernel is a stream and what limits it is
+// how many bytes are in flight.  Design at W <= 8 (krum_stream_kernel,
+// instantiated for P = 4 and 8 rows): each thread owns columns, loads a
+// vector of V columns of every row straight into registers (V = 4, 2 or
+// 1 floats, the widest that the base address and D keep aligned in every
+// row: at D = 2 (mod 4), MobileNet's and ResNet-18's, rows 1 and 3 start
+// 8 bytes off a 16-byte boundary, so V = 2) and accumulates the P(P+1)/2
+// products of the Gram's upper triangle in fp32 registers.  U vectors a
+// row are loaded before any product (32 floats a thread in flight at
+// P = 4, 128 at P = 8), with no shared memory and no barrier in the loop,
+// over a grid of the SMs times the blocks that fit on one (two at most:
+// fewer block partials to sum at the end).  The block then sums each
+// product over its warps by shuffles and over the warps in order, into
+// one partial Gram per block.  The last block to finish (an integer
+// atomic ticket; no float atomics) sums the partials block by block in a
+// fixed order and forms the clamped distances, so the result is
+// bit-identical from run to run.  The diagonal is exactly 0 (the norms
+// are the Gram diagonal).  Above W = 8 the earlier tile form runs
+// (krum_pairwise_kernel, also reachable as rt_krum_pairwise_tile): each
+// block stages 128-column tiles of all rows through shared memory and
+// each (pair, slice) item of the upper triangle belongs to one thread.
 //
 // rt_weiszfeld_sqdist and rt_weiszfeld_wsum replace the two Pallas
 // kernels of
@@ -64,6 +75,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -241,6 +254,138 @@ __device__ __forceinline__ int pair_index(int a, int b, int W) {
   return a * W - a * (a - 1) / 2 + (b - a);
 }
 
+// The clamped distances from the summed upper triangle `gram` (n_pairs
+// floats in pair_index order), by every thread of the last block.
+__device__ void krum_distances(const float* gram, int W, float* out) {
+  for (int e = threadIdx.x; e < W * W; e += kThreads) {
+    const int i = e / W, j = e % W;
+    const float g = gram[i <= j ? pair_index(i, j, W) : pair_index(j, i, W)];
+    const float ni = gram[pair_index(i, i, W)];
+    const float nj = gram[pair_index(j, j, W)];
+    const float d = __fsub_rn(__fadd_rn(ni, nj), __fmul_rn(2.f, g));
+    out[e] = fmaxf(d, 0.f);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&r)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    r[0] = t.x; r[1] = t.y; r[2] = t.z; r[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    r[0] = t.x; r[1] = t.y;
+  } else {
+    r[0] = __ldg(p);
+  }
+}
+
+// acc[pair (i, j), i <= j < P, row-major] += a[i] * a[j]
+template <int P>
+__device__ __forceinline__ void gram_update(float (&acc)[P * (P + 1) / 2],
+                                            const float (&a)[P]) {
+#pragma unroll
+  for (int i = 0, k = 0; i < P; ++i)
+#pragma unroll
+    for (int j = i; j < P; ++j, ++k) acc[k] = fmaf(a[i], a[j], acc[k]);
+}
+
+// Floats a thread loads before its products, and blocks an SM at most:
+// the fastest of 16 to 128 floats and 1 to 4 blocks on an H100 (W = 4 and
+// 8, MobileNet's D).  At P = 8 the 128 floats leave room for one block.
+// At most 8 vectors a row (scalar loads at P = 8 would spill).
+__host__ __device__ constexpr int krum_stream_floats(int P) {
+  return P == 4 ? 32 : 128;
+}
+constexpr int kKrumBlocksPerSm = 2;
+
+// Vectors of V columns: thread t of the grid takes vectors t, t + n,
+// t + 2n, ... (n the grid's threads), U of them a row at a time.
+template <int P, int V>
+__global__ void __launch_bounds__(kThreads)
+krum_stream_kernel(const float* __restrict__ x, long long D, int W,
+                   float* __restrict__ partial, unsigned* counter,
+                   float* __restrict__ out) {
+  constexpr int NP = P * (P + 1) / 2;
+  constexpr int kPerRow = krum_stream_floats(P) / (P * V);
+  constexpr int U = kPerRow < 1 ? 1 : kPerRow > 8 ? 8 : kPerRow;
+  __shared__ float warp_sums[kThreads / kWarp][NP];
+  __shared__ float gram[NP];
+  __shared__ float scratch[kThreads];
+  float acc[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) acc[k] = 0.f;
+  const long long nv = D / V;
+  const long long stride = (long long)gridDim.x * kThreads;
+  long long v = (long long)blockIdx.x * kThreads + threadIdx.x;
+  for (; v + (U - 1) * stride < nv; v += U * stride) {
+    float r[U][P][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        if (i < W) {
+          load_vec<V>(x + (long long)i * D + (v + u * stride) * V, r[u][i]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) r[u][i][e] = 0.f;
+        }
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float a[P];
+#pragma unroll
+        for (int i = 0; i < P; ++i) a[i] = r[u][i][e];
+        gram_update<P>(acc, a);
+      }
+  }
+  for (; v < nv; v += stride) {
+    float r[P][V];
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      if (i < W) {
+        load_vec<V>(x + (long long)i * D + v * V, r[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) r[i][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      float a[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) a[i] = r[i][e];
+      gram_update<P>(acc, a);
+    }
+  }
+
+  // this block's Gram partial: warp shuffles, then the warps in order
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    float s = acc[k];
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) warp_sums[warp][k] = s;
+  }
+  __syncthreads();
+  const int n_pairs = W * (W + 1) / 2;
+  if (threadIdx.x < n_pairs) {
+    int p = threadIdx.x, i = 0;   // (i, j) of pair p in pair_index order
+    while (p >= W - i) { p -= W - i; ++i; }
+    const int k = i * P - i * (i - 1) / 2 + p;   // (i, i + p) among P rows
+    float s = 0.f;
+    for (int w = 0; w < kThreads / kWarp; ++w) s += warp_sums[w][k];
+    partial[(long long)blockIdx.x * n_pairs + threadIdx.x] = s;
+  }
+  if (!last_block(counter)) return;
+  reduce_partials(partial, gridDim.x, n_pairs, gram, scratch);
+  krum_distances(gram, W, out);
+}
+
 __global__ void __launch_bounds__(kThreads)
 krum_pairwise_kernel(const float* __restrict__ x, long long D, int W,
                      int tiles_per_block, float* __restrict__ partial,
@@ -309,14 +454,7 @@ krum_pairwise_kernel(const float* __restrict__ x, long long D, int W,
 
   float* gram = smem;  // n_pairs floats
   reduce_partials(partial, gridDim.x, n_pairs, gram, scratch);
-  for (int e = threadIdx.x; e < W * W; e += kThreads) {
-    const int i = e / W, j = e % W;
-    const float g = gram[i <= j ? pair_index(i, j, W) : pair_index(j, i, W)];
-    const float ni = gram[pair_index(i, i, W)];
-    const float nj = gram[pair_index(j, j, W)];
-    const float d = __fsub_rn(__fadd_rn(ni, nj), __fmul_rn(2.f, g));
-    out[e] = fmaxf(d, 0.f);
-  }
+  krum_distances(gram, W, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -385,6 +523,47 @@ int partial_blocks(long long work_items) {
   return (int)(nb < 1 ? 1 : nb);
 }
 
+// The streaming Krum kernel over as many blocks as the card holds at once
+// (kKrumBlocksPerSm an SM at most, and no more than the
+// vectors need), each vector V floats wide.
+template <int P, int V>
+int launch_krum_stream(const float* x, long long D, int W, float* partial,
+                       unsigned* counter, float* out, cudaStream_t s) {
+  constexpr int kMaxDevices = 64;
+  static int resident[kMaxDevices] = {};   // SMs x blocks an SM, per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, krum_stream_kernel<P, V>, kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    per_sm = std::min(per_sm, kKrumBlocksPerSm);
+    resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int nb = partial_blocks(
+      std::min<long long>(resident[dev], (D / V + kThreads - 1) / kThreads));
+  krum_stream_kernel<P, V><<<nb, kThreads, 0, s>>>(x, D, W, partial, counter,
+                                                    out);
+  return (int)cudaGetLastError();
+}
+
+// V from the base address and D: every row's vectors aligned
+template <int P>
+int launch_krum(const float* x, long long D, int W, float* partial,
+                unsigned* counter, float* out, cudaStream_t s) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(x);
+  if (D % 4 == 0 && base % 16 == 0)
+    return launch_krum_stream<P, 4>(x, D, W, partial, counter, out, s);
+  if (D % 2 == 0 && base % 8 == 0)
+    return launch_krum_stream<P, 2>(x, D, W, partial, counter, out, s);
+  return launch_krum_stream<P, 1>(x, D, W, partial, counter, out, s);
+}
+
 }  // namespace
 
 // trim == 1: masked trimmed mean; trim >= 2: sorted trimmed mean;
@@ -407,10 +586,11 @@ extern "C" int rt_partial_floats(int W) {
 }
 
 // x: (W, D) fp32; partial: rt_partial_floats(W) floats; counter: one
-// zeroed uint32; out: (W, W) fp32.
-extern "C" int rt_krum_pairwise(const void* x, long long D, int W,
-                                void* partial, void* counter, void* out,
-                                void* stream) {
+// zeroed uint32; out: (W, W) fp32.  The tile form, which
+// rt_krum_pairwise takes above W = 8.
+extern "C" int rt_krum_pairwise_tile(const void* x, long long D, int W,
+                                     void* partial, void* counter, void* out,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (W < 1 || W > kMaxW || D < 1) return (int)cudaErrorInvalidValue;
   const long long n_tiles = (D + kKrumTile - 1) / kKrumTile;
@@ -423,6 +603,22 @@ extern "C" int rt_krum_pairwise(const void* x, long long D, int W,
       static_cast<float*>(partial), static_cast<unsigned*>(counter),
       static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// x: (W, D) fp32; partial: rt_partial_floats(W) floats; counter: one
+// zeroed uint32; out: (W, W) fp32.
+extern "C" int rt_krum_pairwise(const void* x, long long D, int W,
+                                void* partial, void* counter, void* out,
+                                void* stream) {
+  if (W < 1 || W > kMaxW || D < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* pf = static_cast<float*>(partial);
+  unsigned* cnt = static_cast<unsigned*>(counter);
+  float* o = static_cast<float*>(out);
+  if (W <= 4) return launch_krum<4>(xf, D, W, pf, cnt, o, s);
+  if (W <= 8) return launch_krum<8>(xf, D, W, pf, cnt, o, s);
+  return rt_krum_pairwise_tile(x, D, W, partial, counter, out, stream);
 }
 
 // x: (W, D), z: (D,) fp32; partial: rt_partial_floats(W) floats; counter:

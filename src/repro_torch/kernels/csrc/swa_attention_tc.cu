@@ -19,7 +19,10 @@
 // needs two (below), so its own least time there is 0.0587 ms.  At hd 64
 // the softmax is as costly as the products: one exp2 per score on the
 // multi-function unit (16 a clock per SM) takes about as long as the
-// score's share of the wgmmas.
+// score's share of the wgmmas.  At Gemma-3's shape (B 1, S 2048, 8/4
+// heads, hd 320) the function is 16.11 GFLOP with a window of 1024 and
+// 21.49 causal, 0.0163 and 0.0217 ms at peak; the softmax costs about a
+// quarter of the products there, so the products are the limit.
 //
 // Precision.  The Pallas body computes both products in fp32.  Q.K^T from
 // bf16 operands with fp32 accumulation is exact up to the order of the
@@ -43,10 +46,11 @@
 // the G heads of a kv head run side by side (GQA's reuse of K and V comes
 // from L2: one (b, kv head) strip is 0.5 MB at the long shape).  TMA moves
 // every tile: 4-D tensor maps (hd, heads, S, B) with 128-byte swizzle and
-// 64-element boxes along hd (hd 128 takes two boxes; hd 32 and 96 read
-// zeros past hd), so rows past S arrive as zeros and the TMA store of O
-// clips them.  K and V run through a kStages-deep ring on mbarriers.  The
-// kv loop walks only the tiles that meet [q_first - window + 1, q_last].
+// 64-element boxes along hd (hd 128 takes two boxes, 256 four, 320 five;
+// hd 32, 96 and 160 read zeros past hd), so rows past S arrive as zeros
+// and the TMA store of O clips them.  K and V run through a kStages-deep
+// ring on mbarriers.  The kv loop walks only the tiles that meet
+// [q_first - window + 1, q_last].
 // Per kv tile a consumer warpgroup issues S = Q.K^T (wgmma, both operands
 // in shared memory, K-major) together with the previous tile's P.V, with
 // P from registers (the accumulator fragment of S is the A fragment of the
@@ -56,7 +60,14 @@
 // tile crosses the diagonal, the window's edge or S, and reduces row max
 // and sum across the 4 threads of a row.  The two warpgroups take turns to
 // issue their wgmmas (named barriers), so one's softmax runs while the
-// other's products do.  Keys per kv tile: 128 at hd <= 64, 64 at hd > 64.
+// other's products do.  Keys per kv tile: 128 at hd <= 64, 64 at hd 96 to
+// 160, 32 at hd 256 and 320, where O alone holds 128 and 160 fp32
+// registers a thread (the table at Tile): with S and P at 16 each, the
+// consumers fit in the 240 registers setmaxnreg gives them.  Above hd 128
+// P.V runs as products of 128 and 64 columns (wgmma's N stops at 256).
+// At Gemma-3's causal shape the grid is 128 blocks on 132 SMs, one wave:
+// the longest block (the last q tile, 2048 keys) carries twice the mean,
+// and the layer takes as long as that block.
 //
 // The entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns the first CUDA error of the launch
@@ -71,19 +82,29 @@ namespace {
 constexpr int kBM = 128;                     // queries of a block
 constexpr int kConsumers = 256;              // two warpgroups
 constexpr int kThreads = kConsumers + 128;   // and the producer warpgroup
-constexpr int kStages = 3;                   // K/V ring depth
 constexpr int kBox = 64 * 128;               // bytes of a 64-row box
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxDevices = 64;
+constexpr int kSmemLimit = 232448;           // a block's on sm_90
 
-template <int HDP>   // hd padded to a multiple of 64
+// HDP: hd padded to a multiple of 64.  Keys of a kv tile and depth of the
+// K/V ring, from the registers and shared memory of each width:
+//   HDP   kBK  stages  shared memory  O + S + P_hi/lo registers a thread
+//    64   128    3     ~113 KB         32 + 64 + 64
+//   128    64    3     ~129 KB         64 + 32 + 32
+//   192    64    3     ~193 KB         96 + 32 + 32   (hd 160)
+//   256    32    4     ~193 KB        128 + 16 + 16
+//   320    32    3     ~201 KB        160 + 16 + 16
+template <int HDP>
 struct Tile {
   static constexpr int kBoxes = HDP / 64;               // boxes along hd
-  static constexpr int kBK = HDP == 64 ? 128 : 64;      // keys of a kv tile
+  static constexpr int kBK = HDP == 64 ? 128 : HDP <= 192 ? 64 : 32;
+  static constexpr int kStages = HDP == 256 ? 4 : 3;    // K/V ring depth
   static constexpr int kHalf = kBox * kBoxes;           // one warpgroup's Q
   static constexpr int kKV = kBK * 128 * kBoxes;        // one K or V tile
   static constexpr int kSmem = 2 * kHalf + 2 * kStages * kKV + 1024;
+  static_assert(kSmem <= kSmemLimit, "K/V ring over the shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -188,6 +209,19 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
+// D (64 x 32, fp32) (+)= A (64 x 16, shared memory, K-major) . B (16 x 32,
+// shared memory, K-major); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : F8(0), F8(8)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D (64 x 64, fp32) (+)= A (64 x 16, shared memory, K-major) . B (16 x 64,
 // shared memory, K-major); scale_d = 0 overwrites D.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
@@ -273,8 +307,18 @@ __device__ __forceinline__ void issue_qk(float (&sc)[Tile<HDP>::kBK / 2],
   }
 }
 
+// the N columns of an accumulator from column c0 on (a multiple of 8):
+// 8-column groups are 4 consecutive registers of the fragment
+template <int N, int M>
+__device__ __forceinline__ float (&cols(float (&o)[M], int c0))[N / 2] {
+  return *reinterpret_cast<float(*)[N / 2]>(&o[c0 / 2]);
+}
+
 // O += P_hi V + P_lo V over the tile's keys (no commit); V's tile is
-// (BK keys) x (hd), hd contiguous
+// (BK keys) x (hd), hd contiguous.  wgmma's N is at most 256 and a B
+// operand spans whole 64-column boxes, so above hd 128 O is taken in
+// 128-column products and a last 64-column one (192: 128 + 64; 256:
+// 128 + 128; 320: 128 + 128 + 64).
 template <int HDP>
 __device__ __forceinline__ void issue_pv(
     float (&o)[HDP / 2], const uint32_t (&hi)[Tile<HDP>::kBK / 16][4],
@@ -282,9 +326,25 @@ __device__ __forceinline__ void issue_pv(
   constexpr int BK = Tile<HDP>::kBK;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t dv = smem_desc(Vt + kk * 16 * 128, BK * 128, 1024);
-    wgmma_rs(o, hi[kk], dv);
-    wgmma_rs(o, lo[kk], dv);
+    const uint8_t* vk = Vt + kk * 16 * 128;
+    if constexpr (HDP <= 128) {
+      const uint64_t dv = smem_desc(vk, BK * 128, 1024);
+      wgmma_rs(o, hi[kk], dv);
+      wgmma_rs(o, lo[kk], dv);
+    } else {
+#pragma unroll
+      for (int c = 0; c < HDP / 128; ++c) {
+        const uint64_t dv = smem_desc(vk + 2 * c * BK * 128, BK * 128, 1024);
+        wgmma_rs(cols<128>(o, 128 * c), hi[kk], dv);
+        wgmma_rs(cols<128>(o, 128 * c), lo[kk], dv);
+      }
+      if constexpr (HDP % 128 != 0) {
+        const uint64_t dv = smem_desc(vk + (HDP / 64 - 1) * BK * 128,
+                                      BK * 128, 1024);
+        wgmma_rs(cols<64>(o, HDP - 64), hi[kk], dv);
+        wgmma_rs(cols<64>(o, HDP - 64), lo[kk], dv);
+      }
+    }
   }
 }
 
@@ -400,6 +460,7 @@ swa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   using T = Tile<HDP>;
   constexpr int BK = T::kBK;
   extern __shared__ uint8_t smem_raw[];
+  constexpr int kStages = T::kStages;
   __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
   // 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
   uint8_t* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -648,8 +709,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// bf16 q, k, v and o.  hd in {32, 64, 96, 128}; H % KV == 0; window <= 0
-// means none.
+// bf16 q, k, v and o.  hd in {32, 64, 96, 128, 160, 256, 320};
+// H % KV == 0; window <= 0 means none.
 int rt_swa_attention_fwd_wgmma(const void* q, const void* k, const void* v,
                                void* o, int B, int S, int H, int KV, int hd,
                                int window, int causal, float scale,
@@ -659,6 +720,12 @@ int rt_swa_attention_fwd_wgmma(const void* q, const void* k, const void* v,
     return launch<64>(q, k, v, o, B, S, H, KV, hd, window, causal, scale, s);
   if (hd == 96 || hd == 128)
     return launch<128>(q, k, v, o, B, S, H, KV, hd, window, causal, scale, s);
+  if (hd == 160)
+    return launch<192>(q, k, v, o, B, S, H, KV, hd, window, causal, scale, s);
+  if (hd == 256)
+    return launch<256>(q, k, v, o, B, S, H, KV, hd, window, causal, scale, s);
+  if (hd == 320)
+    return launch<320>(q, k, v, o, B, S, H, KV, hd, window, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,7 +10,10 @@ worker axis and replaces the Pallas kernel of the same name in
                          network), fp32 with the stack's trailing shape
   ``coordinate_median``  per-coordinate median (even W: the mean of the
                          two middle values)
-  ``krum_pairwise``      (W, W) squared distances in Gram form
+  ``krum_pairwise``      (W, W) squared distances in Gram form (W <= 8:
+                         one streaming pass with the rows of a column
+                         in registers; above: the shared-memory tile
+                         form, ``rt_krum_pairwise_tile``)
   ``weiszfeld_step``     one geometric-median iteration
 
 The stack is cast to fp32 and flattened to (W, D) first, as the
@@ -37,6 +40,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "rt_rowstat": [_P, _LL, _I, _I, _P, _P],
     "rt_krum_pairwise": [_P, _LL, _I, _P, _P, _P, _P],
+    "rt_krum_pairwise_tile": [_P, _LL, _I, _P, _P, _P, _P],
     "rt_weiszfeld_sqdist": [_P, _P, _LL, _I, _P, _P, _P, _P],
     "rt_weiszfeld_wsum": [_P, _P, _P, _LL, _I, _P, _P],
     "rt_partial_floats": [_I],

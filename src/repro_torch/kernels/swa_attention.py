@@ -5,14 +5,12 @@
 ``swa_attention_fwd`` replaces the Pallas kernel
 ``repro/kernels/swa_attention.py:swa_attention_fwd``: causal GQA attention
 with an optional sliding window and an fp32 online softmax.  The route
-follows the dtype and the head_dim: bf16 at a head_dim of
-``WGMMA_HEAD_DIMS`` runs on the tensor cores (wgmma and TMA, P.V as two
-bf16 products of P's high and low halves); fp32 at any head_dim of
-``HEAD_DIMS`` runs on the CUDA cores, since a tensor-core fp32 product is
-TF32; so does bf16 at head_dims 160, 256 and 320 (pixtral-12b,
-recurrentgemma-2b, gemma3-4b), which the tensor-core kernel does not take.
-The sources state each kernel's bound and design.  The gradient is
-``kernels.ops.swa_attention``.
+follows the dtype: bf16 at every head_dim of ``HEAD_DIMS`` (up to
+pixtral-12b's 160, recurrentgemma-2b's 256 and gemma3-4b's 320) runs on
+the tensor cores (wgmma and TMA, P.V as two bf16 products of P's high and
+low halves); fp32 runs on the CUDA cores, since a tensor-core fp32
+product is TF32.  The sources state each kernel's bound and design.  The
+gradient is ``kernels.ops.swa_attention``.
 
 On a CUDA tensor the wrapper launches a kernel or raises; on a CPU tensor
 it returns the plain version from ``ref.py``.  ``LAUNCHES`` counts the
@@ -32,8 +30,7 @@ from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"swa_attention_fwd": 0, "swa_attention_fwd_wgmma": 0}
 
-WGMMA_HEAD_DIMS = (32, 64, 96, 128)       # the tensor-core kernel's
-HEAD_DIMS = WGMMA_HEAD_DIMS + (160, 256, 320)   # the CUDA-core kernel's
+HEAD_DIMS = (32, 64, 96, 128, 160, 256, 320)   # both kernels are built for
 MAX_GROUP = 64                  # H / KV: a q tile holds 64 (query, head) rows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -83,7 +80,7 @@ def swa_attention_fwd(q, k, v, *, window=None, causal=True):
                          f"built for head_dim in {HEAD_DIMS}")
     if H // KV > MAX_GROUP:
         raise ValueError(f"H / KV = {H // KV} > {MAX_GROUP} heads a kv head")
-    wgmma = q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+    wgmma = q.dtype == torch.bfloat16
     q, k, v = _build._aligned(q), _build._aligned(k), _build._aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:

@@ -283,6 +283,46 @@ def test_krum_pairwise_kernel_matches_plain(cuda, W):
     assert bool((torch.diagonal(got) == 0).all())
 
 
+@pytest.mark.parametrize("residue", range(4))
+@pytest.mark.parametrize("W", range(1, 33))
+def test_krum_pairwise_every_width_and_residue(cuda, W, residue):
+    """Every W of the kernels (the streaming kernel at W <= 8, the tile
+    form above) and D of each residue mod 4, where rows start 4, 8 or 12
+    bytes off a 16-byte boundary, from an aligned base and from one 4
+    bytes off: within 1e-5 of ||xi||^2 + ||xj||^2 of the plain version, one
+    launch a call, the diagonal 0, symmetric, a second launch the same
+    bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    D = 20_000 + residue
+    rs = np.random.RandomState(W + residue)
+    scale = np.append(np.repeat(rs.choice([1.0, 100.0], size=W), D), 1.0)
+    flat = torch.from_numpy((rs.randn(W * D + 1) * scale).astype(
+        np.float32)).to(cuda)           # rows of mixed scale
+    for x in (flat[:W * D].view(W, D), flat[1:W * D + 1].view(W, D)):
+        before = tra.LAUNCHES["krum_pairwise"]
+        got = tra.krum_pairwise(x)
+        again = tra.krum_pairwise(x)
+        torch.cuda.synchronize()
+        assert tra.LAUNCHES["krum_pairwise"] == before + 2
+        want = tref.krum_pairwise(x)
+        n = torch.sum(x.double() ** 2, dim=1)
+        tol = 1e-5 * (n[:, None] + n[None, :])
+        assert bool(((got.double() - want.double()).abs() <= tol).all())
+        assert torch.equal(got, again) and torch.equal(got, got.T)
+        assert bool((torch.diagonal(got) == 0).all())
+
+
+def test_krum_pairwise_is_deterministic_at_mobilenet_width(cuda):
+    """At W = 4 on a stack of the full-width MobileNet gradient's length
+    (D = 3,217,226, 2 mod 4), ten launches give the same bits: the block
+    partials are summed in a fixed order, with no float atomics."""
+    x = _stack(4, 3_217_226 + 100, cuda, seed=5)[:, 100:]
+    first = tra.krum_pairwise(x)
+    for _ in range(9):
+        assert torch.equal(tra.krum_pairwise(x), first)
+    assert bool(torch.isfinite(first).all())
+
+
 @pytest.mark.parametrize("W", ROBUST_W)
 def test_weiszfeld_step_kernel_matches_plain(cuda, W):
     """Pass 1 sums the squared distances in another order than the plain
@@ -442,10 +482,10 @@ SWA_GPU_CASES = [
 ]
 
 
-# head_dims beyond the tensor-core kernel's, on the CUDA-core route in
-# bf16 too: Gemma-3's 320 (its local and global layers at its train shape,
-# a ragged S), pixtral-12b's 160 (32 heads on 8), recurrentgemma-2b's 256
-# (10 heads on 1) and a full (non-causal) call at 256
+# the wide head_dims, on the tensor-core route in bf16 and the CUDA-core
+# route in fp32: Gemma-3's 320 (its local and global layers at its train
+# shape, a ragged S), pixtral-12b's 160 (32 heads on 8), recurrentgemma-2b's
+# 256 (10 heads on 1) and a full (non-causal) call at 256
 SWA_WIDE_CASES = [
     (1, 2048, 8, 4, 320, 1024, True),
     (1, 2048, 8, 4, 320, None, True),
@@ -460,8 +500,8 @@ SWA_WIDE_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_swa_attention_wide_head_dims_match_plain(cuda, case, dtype):
-    """One launch on the CUDA-core kernel in both dtypes (the tensor-core
-    counter stays), at the gates of the narrower head_dims: 2e-5 in fp32,
+    """One launch, on the tensor-core kernel in bf16 and on the CUDA-core
+    kernel in fp32, at the gates of the narrower head_dims: 2e-5 in fp32,
     one bf16 step in bf16."""
     B, S, H, KV, hd, window, causal = case
     gen = torch.Generator(device=cuda).manual_seed(S + H + hd)
@@ -472,7 +512,8 @@ def test_swa_attention_wide_head_dims_match_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert tswa.LAUNCHES == {
         "swa_attention_fwd": before["swa_attention_fwd"] + 1,
-        "swa_attention_fwd_wgmma": before["swa_attention_fwd_wgmma"]}
+        "swa_attention_fwd_wgmma": before["swa_attention_fwd_wgmma"]
+        + (dtype == torch.bfloat16)}
     want = tref.swa_attention(q, k, v, window=window, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
@@ -546,6 +587,36 @@ def test_swa_attention_gradient_on_cuda(cuda, dtype):
             assert err <= 2 ** -7 * float(y.grad.abs().max()), err
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_swa_attention_gradient_at_head_dim_320(cuda, dtype):
+    """Gemma-3's head_dim (8 heads on 4, its local window) through
+    ``ops.swa_attention``, at the gates of ``test_swa_attention_gradient_on
+    _cuda``: fp32 1e-4; bf16 (the forward on the tensor-core route) within
+    one bf16 step of the largest fp32 gradient."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(320)
+    qkv = [torch.randn(1, 256, n, 320, generator=gen, device=cuda).to(dtype)
+           for n in (8, 4, 4)]
+    a = [t.clone().requires_grad_() for t in qkv]
+    b = [t.float().requires_grad_() for t in qkv]
+    before = dict(tswa.LAUNCHES)
+    torch.sum(torch.tanh(tops.swa_attention(*a, window=64).float())) \
+        .backward()
+    torch.sum(torch.tanh(tref.swa_attention(*b, window=64))).backward()
+    assert tswa.LAUNCHES["swa_attention_fwd"] == \
+        before["swa_attention_fwd"] + 1
+    assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
+        before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
+    for x, y in zip(a, b):
+        assert x.grad.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(x.grad, y.grad, rtol=0, atol=1e-4)
+        else:
+            err = float((x.grad.float() - y.grad).abs().max())
+            assert err <= 2 ** -7 * float(y.grad.abs().max()), err
+
+
 def _sass_functions(stem, kernel):
     """The SASS (``cuobjdump -sass``) of each instantiation of ``kernel``
     in the library built from ``csrc/<stem>.cu``."""
@@ -563,9 +634,13 @@ def _sass_functions(stem, kernel):
 
 def test_swa_wgmma_kernel_is_built_on_tensor_cores_and_tma(cuda):
     """The tensor-core kernel's SASS holds wgmma (HGMMA) and TMA loads
-    (UTMALDG), as compiled for sm_90a from ``csrc/swa_attention_tc.cu``."""
+    (UTMALDG), as compiled for sm_90a from ``csrc/swa_attention_tc.cu``, in
+    each of its five instantiations (hd padded to 64, 128, 192, 256 and
+    320)."""
     kernels = _sass_functions("swa_attention_tc", "swa_wgmma_kernel")
-    assert kernels, "no swa_wgmma_kernel in the library"
+    widths = sorted(w for w in (64, 128, 192, 256, 320) for body in kernels
+                    if f"ILi{w}E" in body.split("\n", 1)[0])
+    assert widths == [64, 128, 192, 256, 320], widths
     for body in kernels:
         assert "HGMMA" in body and "UTMALDG" in body
 

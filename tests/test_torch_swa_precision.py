@@ -4,10 +4,14 @@ on the CPU and held to the gate the kernel meets on the card: one bf16
 step (2^-7 relative + 1e-5) against the fp32 plain version.
 
 The kernel takes Q.K^T from bf16 operands with fp32 accumulation, runs an
-fp32 online softmax over 128-key tiles (64 at hd > 64; log2 domain,
-masked scores at -1e30 after the scale), splits P into hi = bf16(P) and
-lo = bf16(P - hi), both rounded to nearest by an integer add on the fp32
-bit pattern, and takes P.V as P_hi.V + P_lo.V in fp32.  Rounding P once
+fp32 online softmax over kv tiles of 128 keys at hd <= 64, 64 at hd 96 to
+160 and 32 at hd 256 and 320 (``kv_tile``; log2 domain, masked scores at
+-1e30 after the scale), splits P into hi = bf16(P) and lo = bf16(P - hi),
+both rounded to nearest by an integer add on the fp32 bit pattern, and
+takes P.V as P_hi.V + P_lo.V in fp32.  Above hd 128 it takes P.V in
+products of 128 and 64 columns of O (``pv_columns``); each column still
+sums the same keys in the same order, and the emulation takes the
+products column block by column block as the kernel does.  Rounding P once
 to bf16 instead, as FlashAttention does, breaks the gate: at SmolLM's
 heads (B 2, S 512, 9/3 heads, hd 64, causal, the inputs of
 ``test_split_p_meets_the_gate``) 61,193 of 589,824 outputs fall outside
@@ -36,12 +40,27 @@ def _bf16_nearest(x):
     return ((x.view(torch.int32) + 0x8000) & -65536).view(torch.float32)
 
 
+def kv_tile(hd):
+    """Keys of the kernel's kv tile at head_dim ``hd`` (``Tile::kBK``)."""
+    return 128 if hd <= 64 else 64 if hd <= 160 else 32
+
+
+def pv_columns(hd):
+    """The column blocks of O that the kernel's P.V products take: all of
+    hd padded to 64 at hd <= 128, else 128-column blocks and a last one
+    of 64 (``issue_pv``)."""
+    padded = -(-hd // 64) * 64
+    if padded <= 128:
+        return [(0, padded)]
+    return [(c, min(c + 128, padded)) for c in range(0, padded, 128)]
+
+
 def emulate(q, k, v, *, window=None, causal=True, split=True):
     """The kernel's forward on the CPU: q (B, S, H, hd), k and v (B, S, KV,
     hd) bf16 -> (B, S, H, hd) bf16.  ``split=False`` rounds P once to bf16
     instead (the arithmetic the kernel does not use)."""
     B, S, H, hd = q.shape
-    tile = 128 if hd <= 64 else 64     # keys of a kv tile, as the kernel
+    tile = kv_tile(hd)                 # keys of a kv tile, as the kernel
     G = H // k.shape[2]
     qf = q.float().transpose(1, 2)
     kf = k.float().transpose(1, 2).repeat_interleave(G, 1)
@@ -69,11 +88,12 @@ def emulate(q, k, v, *, window=None, causal=True, split=True):
         corr = torch.exp2(m - m_new)
         p = torch.exp2(x - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
-        vt = vf[:, :, k0:k0 + tile]
         hi = _bf16_nearest(p)
-        pv = hi @ vt
-        if split:
-            pv = pv + _bf16_nearest(p - hi) @ vt
+        lo = _bf16_nearest(p - hi)
+        pv = torch.cat([                  # O's column blocks, as issued
+            hi @ vf[:, :, k0:k0 + tile, c0:c1]
+            + (lo @ vf[:, :, k0:k0 + tile, c0:c1] if split else 0.0)
+            for c0, c1 in pv_columns(hd)], dim=-1)[..., :hd]
         o = o * corr + pv
         m = m_new
     out = o * (1.0 / torch.clamp(l, min=1e-30))
@@ -96,7 +116,10 @@ def _assert_within_one_bf16_step(got, want):
 
 
 # (B, S, H, KV, hd, window, causal): SmolLM's heads, a window smaller than
-# a tile, a ragged S, hd 128, a full (non-causal) call, one kv head for 16
+# a tile, a ragged S, hd 128, a full (non-causal) call, one kv head for 16;
+# then the wide head_dims on reduced heads: Gemma-3's 320 (8 on 4, causal,
+# and its local window over a ragged S), pixtral-12b's 160 (8 on 2),
+# recurrentgemma-2b's 256 (4 on 1, a window; and a full call)
 PRECISION_CASES = [
     (2, 512, 9, 3, 64, None, True),
     (2, 512, 9, 3, 64, 128, True),
@@ -104,6 +127,11 @@ PRECISION_CASES = [
     (1, 512, 8, 4, 128, None, True),
     (2, 300, 4, 2, 64, None, False),
     (1, 256, 16, 1, 64, 100, True),
+    (1, 256, 8, 4, 320, None, True),
+    (1, 300, 8, 4, 320, 100, True),
+    (1, 256, 8, 2, 160, None, True),
+    (1, 256, 4, 1, 256, 64, True),
+    (2, 100, 4, 2, 256, None, False),
 ]
 
 
@@ -130,6 +158,38 @@ def test_split_p_meets_the_gate_against_pallas(S, window):
     got = emulate(q, k, v, window=window)
     _assert_within_one_bf16_step(
         got, torch.from_numpy(np.asarray(want, np.float32)))
+
+
+@pytest.mark.parametrize("hd,H,KV,window", [(320, 8, 4, None),
+                                             (320, 8, 4, 64),
+                                             (256, 4, 1, None),
+                                             (160, 8, 2, None)])
+def test_wide_head_dims_meet_the_gate_against_pallas(hd, H, KV, window):
+    """At the wide head_dims (reduced heads, S 192: six of the kernel's
+    32-key tiles at hd 256 and 320) the emulated kernel lies within one
+    bf16 step of the Pallas kernel in interpret mode on the same bf16
+    inputs."""
+    q, k, v = _qkv(1, 192, H, KV, hd, seed=hd + H)
+    want = jswa.swa_attention_fwd(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v)), window=window, q_block=64, kv_block=64,
+        interpret=True)
+    got = emulate(q, k, v, window=window)
+    _assert_within_one_bf16_step(
+        got, torch.from_numpy(np.asarray(want, np.float32)))
+
+
+def test_tiles_and_column_blocks_follow_the_kernel():
+    """The kv tiles and O's column blocks of the kernel's table (Tile in
+    ``swa_attention_tc.cu``): every padded column of hd in one block, no
+    block over 128 columns, and 32-key tiles where O takes 128 or 160
+    registers a thread."""
+    assert [kv_tile(hd) for hd in (32, 64, 96, 128, 160, 256, 320)] == \
+        [128, 128, 64, 64, 64, 32, 32]
+    assert pv_columns(64) == [(0, 64)] and pv_columns(96) == [(0, 128)]
+    assert pv_columns(160) == [(0, 128), (128, 192)]
+    assert pv_columns(256) == [(0, 128), (128, 256)]
+    assert pv_columns(320) == [(0, 128), (128, 256), (256, 320)]
 
 
 def test_integer_rounding_is_bf16_rounding_to_nearest():
