@@ -1,5 +1,8 @@
 """Gradient-synchronization strategies over ``torch.distributed``
-(``repro.core.strategies``): the paper's five architectures.
+(``repro.core.strategies``): the paper's five architectures.  Beyond
+them ``get_strategy`` reaches ``quantized_scatterreduce``
+(``core.compression``), the robust aggregators, the byzantine wrapper and
+every name of the ArchSpec registry (``serverless.archs``).
 
   allreduce        ring all-reduce (fp32 sum, then / W)   [GPU baseline]
   parameter_server all-gather to all + local fp32 mean     [λML AllReduce]
@@ -236,6 +239,9 @@ ROBUST = ("trimmed_mean", "coordinate_median", "krum", "geometric_median")
 
 
 def get_strategy(name: str, **kw) -> Strategy:
+    if name == "quantized_scatterreduce":    # beyond-paper (lazy import)
+        from repro_torch.core.compression import QuantizedScatterReduce
+        return QuantizedScatterReduce(**kw)
     if name in ROBUST:
         # byzantine-robust aggregation (lazy: serverless imports core)
         from repro_torch.serverless import recovery
@@ -248,7 +254,17 @@ def get_strategy(name: str, **kw) -> Strategy:
         #   inner=get_strategy("trimmed_mean"), workers=(0,))
         from repro_torch.serverless.faults import ByzantineGradients
         return ByzantineGradients(**kw)
-    if name not in STRATEGIES:
-        raise KeyError(f"unknown strategy {name!r}; the port has "
-                       f"{sorted(STRATEGIES) + list(ROBUST) + ['byzantine']}")
-    return STRATEGIES[name](**kw)
+    if name in STRATEGIES:
+        return STRATEGIES[name](**kw)
+    # simulated architecture names resolve through the ArchSpec registry
+    # (sim-arch and real-training arch are one object): e.g. "gpu" is a
+    # ring allreduce, "hier_spirt"/"spirt_s3" ride SPIRT accumulation.
+    # Lazy: the registry's module imports this one.
+    from repro_torch.serverless.archs import _REGISTRY
+    spec = _REGISTRY.get(name)
+    if spec is not None and spec.jax_strategy is not None:
+        return spec.make_strategy(**kw)
+    raise KeyError(f"unknown strategy {name!r}; the port has "
+                   f"{sorted(STRATEGIES) + list(ROBUST)}, "
+                   "'quantized_scatterreduce', 'byzantine' and the "
+                   f"registered archs {list(_REGISTRY)}")

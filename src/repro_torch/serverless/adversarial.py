@@ -20,7 +20,13 @@ Registered attacks (SPIRT §5 / Baruch et al. "A Little Is Enough"):
                      mean - scale * std of the fleet's gradients
   zero               g -> 0
 
-The batched numpy aggregators of the simulated sweep are not ported yet.
+The simulated aggregators are copied from the reference too: batched
+numpy statistics over ``[..., W, D]`` stacks with a (possibly
+per-batch-row) byzantine budget ``f`` — ``mean``, ``trimmed_mean``,
+``coordinate_median``, ``krum`` (multi-Krum), ``geometric_median``
+(Weiszfeld) — registered in :data:`SIM_AGGREGATORS`, which
+``archs.ArchSpec.default_aggregator`` names and ``sweep.adversarial_sweep``
+reduces with.
 """
 from __future__ import annotations
 
@@ -212,3 +218,123 @@ register_attack(AttackSpec(
 register_attack(AttackSpec(
     name="zero", apply_rows=_rows_zero, torch_apply=_torch_zero,
     description="g -> 0 (silently dropped contribution)"))
+
+
+# ---------------------------------------------------------------------------
+# Batched numpy robust aggregators (simulated-path twins of recovery.py)
+# ---------------------------------------------------------------------------
+def np_mean(stacked, f=0):
+    """Plain averaging — breakdown point 0; the degradation baseline."""
+    return np.asarray(stacked, float).mean(axis=-2)
+
+
+def np_trimmed_mean(stacked, f=1):
+    """Per-coordinate mean after dropping the ``f`` smallest and ``f``
+    largest values.  ``f`` may be an int or an int array broadcasting
+    over the batch dims (one budget per sweep row); needs ``W > 2f``."""
+    stacked = np.asarray(stacked, float)
+    W = stacked.shape[-2]
+    f = np.asarray(f, int)
+    if np.any(2 * f >= W):
+        raise ValueError(f"trimmed_mean needs W > 2*f, got W={W}, "
+                         f"f={f.max()}")
+    s = np.sort(stacked, axis=-2)
+    pos = np.arange(W)
+    keep = (pos >= f[..., None]) & (pos < W - f[..., None])
+    return np.sum(s * keep[..., None], axis=-2) \
+        / (W - 2 * f)[..., None]
+
+
+def np_coordinate_median(stacked, f=0):
+    """Per-coordinate median — breakdown point (W-1)/2W."""
+    return np.median(np.asarray(stacked, float), axis=-2)
+
+
+def np_krum(stacked, f=1, m=1):
+    """(Multi-)Krum (Blanchard et al.): score every row by the summed
+    squared distance to its ``W - f - 2`` nearest neighbours, average
+    the ``m`` lowest-scoring rows.  Needs ``W >= 2f + 3``; ``f`` may be
+    batched like :func:`np_trimmed_mean`'s."""
+    stacked = np.asarray(stacked, float)
+    W = stacked.shape[-2]
+    f = np.asarray(f, int)
+    if np.any(f < 0):
+        raise ValueError(f"krum needs f >= 0, got {f.min()}")
+    if np.any(W < 2 * f + 3):
+        raise ValueError(
+            f"krum needs W >= 2f + 3 to out-vote f byzantine rows, got "
+            f"W={W}, f={f.max()} (max feasible f is {(W - 3) // 2})")
+    if not 1 <= int(m) <= W:
+        raise ValueError(f"krum needs 1 <= m <= W, got m={m}")
+    d = ((stacked[..., :, None, :] - stacked[..., None, :, :]) ** 2) \
+        .sum(axis=-1)                          # [..., W, W]
+    ds = np.sort(d, axis=-1)                   # col 0 is self (0.0)
+    pos = np.arange(W)
+    # neighbours 1 .. W-f-2 inclusive == W-f-2 nearest non-self rows;
+    # [..., 1, W] so one row-axis mask broadcasts over every scored row
+    nb = (pos >= 1) & (pos <= (W - 2 - f)[..., None, None])
+    scores = (ds * nb).sum(axis=-1)            # [..., W]
+    sel = np.argsort(scores, axis=-1, kind="stable")[..., :int(m)]
+    return np.take_along_axis(stacked, sel[..., None],
+                              axis=-2).mean(axis=-2)
+
+
+def np_geometric_median(stacked, f=0, *, tol=1e-8, max_iter=200):
+    """Geometric median over the worker axis by Weiszfeld iteration,
+    batched; breakdown point (W-1)/2W.  Initialized at the coordinate
+    median; stops when the relative step falls below ``tol``."""
+    stacked = np.asarray(stacked, float)
+    if tol <= 0 or max_iter < 1:
+        raise ValueError(f"geometric_median needs tol > 0 and "
+                         f"max_iter >= 1, got tol={tol}, "
+                         f"max_iter={max_iter}")
+    z = np.median(stacked, axis=-2)            # [..., D]
+    scale = np.maximum(np.linalg.norm(stacked, axis=-1).max(axis=-1),
+                       1e-12)                  # [...]
+    # rows freeze individually once their own step converges, so a
+    # batched call returns bit-identical results per row regardless of
+    # what else shares the batch (sweep cells stay independent)
+    frozen = np.zeros(z.shape[:-1], bool)
+    for _ in range(max_iter):
+        dist = np.linalg.norm(stacked - z[..., None, :], axis=-1)
+        w = 1.0 / np.maximum(dist, 1e-12 * scale[..., None])
+        z_new = np.sum(w[..., None] * stacked, axis=-2) \
+            / np.sum(w, axis=-1)[..., None]
+        step = np.linalg.norm(z_new - z, axis=-1)
+        z = np.where(frozen[..., None], z, z_new)
+        frozen |= step <= tol * scale
+        if frozen.all():
+            break
+    return z
+
+
+SIM_AGGREGATORS: Dict[str, Callable] = {
+    "mean": np_mean,
+    "trimmed_mean": np_trimmed_mean,
+    "coordinate_median": np_coordinate_median,
+    "krum": np_krum,
+    "geometric_median": np_geometric_median,
+}
+
+
+def sim_aggregator_max_f(name: str, n_workers: int) -> int:
+    """The largest byzantine budget ``f`` the aggregator can be
+    configured with at fleet size ``n_workers`` — its theoretical
+    breakdown point on the fraction axis.  Plain averaging breaks at
+    the first adversary."""
+    if name not in SIM_AGGREGATORS:
+        raise ValueError(f"unknown simulated aggregator {name!r}; "
+                         f"registered: {', '.join(SIM_AGGREGATORS)}")
+    if name == "mean":
+        return 0
+    if name == "krum":
+        return max((n_workers - 3) // 2, 0)
+    return (n_workers - 1) // 2                # median family / trimmed
+
+
+def byzantine_fractions(n_workers: int) -> Tuple[float, ...]:
+    """The fraction ladder 0 -> (W-1)/2W in integer-worker steps: every
+    k/W with 0 <= k <= (W-1)//2 — the whole sub-majority range."""
+    if n_workers < 3:
+        raise ValueError(f"need n_workers >= 3, got {n_workers}")
+    return tuple(k / n_workers for k in range((n_workers - 1) // 2 + 1))

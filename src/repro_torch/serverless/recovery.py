@@ -1,5 +1,28 @@
-"""Byzantine-robust aggregation for real training
-(``repro.serverless.recovery``, the robust half).
+"""Recovery semantics for the serverless event runtime and
+byzantine-robust aggregation for real training
+(``repro.serverless.recovery``).
+
+Two recovery policies for a crashed worker, copied from the reference,
+matching the designs the paper compares:
+
+  CheckpointRestore  the λML / MLLess model: the supervisor detects the
+                     dead invocation after ``detection_s``, re-invokes
+                     it (cold start + state load) and the worker
+                     *replays* every round since its last checkpoint
+                     (checkpoints every ``checkpoint_every`` rounds).
+                     All surviving workers stall at the barrier until
+                     the replay catches up — the stall is the measured
+                     time-to-recover.
+
+  PeerTakeover       SPIRT (arXiv 2309.14148): per-worker state lives in
+                     the database, so nothing replays.  After
+                     ``detection_s`` the survivors fetch the dead
+                     worker's in-DB partition (one model-sized
+                     transfer) and absorb its remaining minibatches;
+                     the fleet continues with W-1 workers.
+
+The reference's ``real_apply`` hooks, which drive its resilience
+harness, wait for that harness's port.
 
 Robust aggregators, SPIRT's defense against poisoned gradients, are
 ordinary strategies: every worker all-gathers the fleet's gradients and
@@ -12,8 +35,7 @@ through ``repro_torch.core.get_strategy("trimmed_mean" |
 Each statistic takes ``use_kernel``: True (the default) goes through
 ``kernels.ops``, where dispatch follows the tensor (the Hopper kernels on
 CUDA, their plain versions on the CPU); False takes the plain versions in
-``kernels.ref``, which perform the kernels' arithmetic.  The recovery
-policies of the event runtime are not ported yet.
+``kernels.ref``, which perform the kernels' arithmetic.
 """
 from __future__ import annotations
 
@@ -34,6 +56,41 @@ ITERATIONS = {"geometric_median": 0}
 
 def _kernels(use_kernel: bool):
     return kops if use_kernel else kref
+
+
+# ---------------------------------------------------------------------------
+# Recovery policies (consumed by runtime.EventRuntime)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class RecoveryPolicy:
+    detection_s: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointRestore(RecoveryPolicy):
+    """Re-invoke the crashed worker; replay since the last checkpoint."""
+    checkpoint_every: int = 4          # rounds between checkpoints
+
+    def replay_rounds(self, crashed_round: int) -> int:
+        return crashed_round % self.checkpoint_every
+
+
+@dataclasses.dataclass(frozen=True)
+class PeerTakeover(RecoveryPolicy):
+    """SPIRT-style: survivors absorb the dead worker's partition."""
+    detection_s: float = 0.5
+
+
+@dataclasses.dataclass
+class RecoveryEvent:
+    worker: int
+    crash_time_s: float
+    rejoined_time_s: float
+    mode: str                          # "restore" | "takeover"
+
+    @property
+    def time_to_recover_s(self) -> float:
+        return self.rejoined_time_s - self.crash_time_s
 
 
 # ---------------------------------------------------------------------------

@@ -375,6 +375,20 @@ assert torch.equal(g.cpu(), torch.cat([torch.arange(8.),
 c = torch.empty(4, device="cuda")
 dist.reduce_scatter_tensor(c, x)
 assert torch.equal(c.cpu(), (torch.arange(8.) * 2 + 10)[4 * rank:4 * rank + 4])
+# QuantizedScatterReduce: int8 rows and fp32 scales through all_to_all_single,
+# then a list all_gather of each
+for dtype in (torch.int8, torch.float32):
+    q = (torch.arange(8, device="cuda") - 5 * rank).to(dtype)
+    y = torch.empty_like(q)
+    dist.all_to_all_single(y, q)
+    want = torch.cat([(torch.arange(8) - 5 * p)[4 * rank:4 * rank + 4]
+                      for p in range(2)]).to(dtype)
+    assert y.is_cuda and y.dtype == dtype and torch.equal(y.cpu(), want)
+    parts = [torch.empty_like(q) for _ in range(2)]
+    dist.all_gather(parts, q)
+    want = torch.stack([torch.arange(8) - 5 * p for p in range(2)]).to(dtype)
+    assert all(t.is_cuda for t in parts)
+    assert torch.equal(torch.stack(parts).cpu(), want)
 dist.destroy_process_group()
 """
 
@@ -382,8 +396,9 @@ dist.destroy_process_group()
 def test_gloo_collectives_take_cuda_tensors(cuda, tmp_path):
     """Two gloo ranks on one card: NCCL refuses two ranks on the same GPU,
     so the byzantine trainer's ranks share a card over gloo.  Gloo runs
-    every collective the port uses on CUDA tensors, so the port stages
-    none through host memory itself."""
+    every collective the port uses on CUDA tensors (QuantizedScatterReduce's
+    ``all_to_all_single`` and list ``all_gather`` on int8 too), so the port
+    stages none through host memory itself."""
     import os
     import subprocess
     import sys
@@ -395,6 +410,32 @@ def test_gloo_collectives_take_cuda_tensors(cuda, tmp_path):
     for p in procs:
         _, err = p.communicate(timeout=300)
         assert p.returncode == 0, err[-2000:]
+
+
+def test_quantized_sync_on_cuda_equals_cpu(cuda, tmp_path):
+    """``QuantizedScatterReduce.sync`` on CUDA gradients (one gloo rank)
+    equals the same sync on the CPU bit for bit, output and residual:
+    the quantizer's division, the reciprocal products and the float64
+    fused multiply-adds round alike on both devices."""
+    import torch.distributed as dist
+    from repro_torch.core import get_strategy
+    rs = np.random.RandomState(3)
+    shapes = [(3, 3, 1, 40), (1500,), (7,), (512,), (2, 515)]
+    grads = [torch.from_numpy((rs.randn(*s) * rs.lognormal(0, 3, s))
+                              .astype(np.float32)) for s in shapes]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        q = get_strategy("quantized_scatterreduce")
+        runs = []
+        for g in (grads, [x.to(cuda) for x in grads]):
+            out, resid, _ = q.sync(g, q.init_state(g))
+            out2, resid2, _ = q.sync(g, resid)
+            runs.append(list(out) + list(resid) + list(out2) + list(resid2))
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(runs[1], runs[0]):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
 
 
 # ---------------------------------------------------------------------------

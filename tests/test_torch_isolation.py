@@ -34,7 +34,12 @@ def test_port_has_modules_to_check():
                 "kernels/swa_attention.py", "models/transformer.py",
                 "models/attention.py", "models/layers.py", "models/params.py",
                 "configs/smollm_135m.py", "configs/gemma3_4b.py",
-                "configs/rwkv6_7b.py", "kernels/wkv6.py", "models/rwkv6.py"):
+                "configs/rwkv6_7b.py", "kernels/wkv6.py", "models/rwkv6.py",
+                "core/compression.py", "guards.py", "costmodel/pricing.py",
+                "serverless/archs.py", "serverless/simulator.py",
+                "serverless/traces.py", "serverless/autoscale.py",
+                "serverless/runtime_ref.py", "serverless/runtime.py",
+                "serverless/sweep.py"):
         assert port / rel in FILES, rel
 
 
