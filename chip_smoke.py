@@ -104,9 +104,34 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    rounding alone does, in bf16 and in fp32; reduced logits on the card
    against the CPU.
 
+10. serve: the serving path.  Full-width SmolLM-135M (bf16) through
+   ``build_serve_step``: batch 16, prompt 512, decode_32k's context of
+   32,768 (its batch of 128 cut to 16: the KV cache is 755 MB a
+   sequence), 32 greedy decode tokens, kernel 8 launched 30 times a
+   prefill, all on the tensor-core route; the decode logits against the
+   teacher-forced forward over the prompt and the generated tokens,
+   within twice what the kernel-free path's own comparison gives; the
+   decode step's bytes (``costmodel.flops.step_bytes_hbm``) and bound;
+   a profiler window over 8 decode steps.  A prompt of prefill_32k's
+   32,768 tokens (batch 1), its layer-0 launch held against the plain
+   chunked attention.  Gemma-3 cut to 6 layers (batch 4, prompt 1,536
+   past its window of 1,024, cache 2,048, 64 tokens; 6 hd-320 tensor-core
+   launches a prefill) and rwkv6-7b cut to 4 layers (batch 4, prompt 512,
+   32 tokens; its prefill takes the plain chunked WKV, as the
+   reference's does), gated as SmolLM (rwkv also in fp32, to 1e-3).
+   ``ServingEngine`` on SmolLM-135M: fp32, 16 requests over 8 slots,
+   every request equal to its sequential generation; bf16, 64 requests
+   over 16 slots, engine steps, tokens a second, occupancy, time to first
+   token and the agreement count, a divergence allowed only at a near
+   tie.  Flash-decode on 4 gloo ranks sharing the card, 524,288 slots,
+   against single-process decode attention.  Its record is the line
+   ``{"serve": {...}}``; the kernels line's attention entry gains the
+   launches and routes of each prefill.
+
 The line before the last is a JSON object with one entry per kernel; the
-last is ``{"ok": true, "device": {...}}``.  The table3 record comes
-earlier, on a line of its own: ``{"table3": {...}}``.
+last is ``{"ok": true, "device": {...}}``.  The table3 and serve records
+come earlier, on lines of their own: ``{"table3": {...}}``, ``{"serve":
+{...}}``.
 
     python3 chip_smoke.py --compare-mlless ROOT
 
@@ -3186,6 +3211,539 @@ def rwkv_phase():
     ]
 
 
+# ---------------------------------------------------------------------------
+# serve: prefill through kernel 8, ring-cache decode, continuous batching
+# ---------------------------------------------------------------------------
+SERVE_ARCH = "smollm-135m"
+# decode_32k's context of 32,768 at batch 16: its batch of 128 is cut
+# because the bf16 KV cache takes 23,040 B a token (30 layers x k and v x
+# 3 heads x 64 x 2 B), 755 MB a sequence, so 128 sequences would need
+# 96.6 GB of the card's 80
+SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_TOKENS = 16, 512, 32768, 32
+SERVE_PROFILE_STEPS = 8
+# prefill_32k's length; its global batch of 32 is cut to 1 for time
+PREFILL_LEN = 32768
+# Gemma-3 cut to one 5:1 group (the gemma phase's cut): its prompt is
+# longer than the window of 1,024, so the local rings wrap in prefill
+GEMMA_SERVE = dict(batch=4, prompt=1536, cache=2048, tokens=64)
+# rwkv6-7b cut to the rwkv phase's 4 layers
+RWKV_SERVE = dict(batch=4, prompt=512, tokens=32)
+# the witness's factor (a bf16 gate, as the rwkv phase's full-depth one)
+SERVE_WITNESS_FACTOR = 2.0
+RWKV_SERVE_FP32_TOL = 1e-3       # fp32 decode vs forward, of the largest
+ENGINE_FP32 = dict(slots=8, requests=16, prompt=(16, 512), new=(4, 32),
+                   cache=1024, seed=11)
+ENGINE_BF16 = dict(slots=16, requests=64, prompt=(128, 1024),
+                   new=(32, 128), cache=2048, seed=12)
+# flash-decode: one SmolLM attention layer's heads at long_500k's context
+FLASH_RANKS, FLASH_LEN, FLASH_WINDOW = 4, 524288, 4096
+FLASH_TOL = 2e-5
+
+
+def serve_launches():
+    from repro_torch.kernels import swa_attention as swa
+    return dict(swa.LAUNCHES)
+
+
+def serve_tokens(vocab, batch, n, seed):
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(seed)
+    return torch.from_numpy(rs.randint(0, vocab, (batch, n))
+                            .astype(np.int32)).cuda()
+
+
+def serve_run(model, prompt, cache_len, n_tokens, label, profile_steps=0):
+    """Prefill ``prompt`` through ``build_serve_step``, then ``n_tokens``
+    greedy decode steps; the kernel-8 launches of the prefill alone (the
+    counts set to 0 just before it), the times, the decode logits (B, n,
+    vocab) and the tokens fed."""
+    import torch
+    from repro_torch.core import build_serve_step
+    from repro_torch.kernels import swa_attention as swa
+    B, P = prompt.shape
+    V = model.cfg.vocab_size
+    ss = build_serve_step(model, batch_size=B, cache_len=cache_len)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in swa.LAUNCHES:
+        swa.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = ss.prefill_fn({"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = serve_launches()
+    fed, outs = [], [logits[:, 0]]
+    tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None].int()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_tokens):
+        fed.append(tok)
+        logits, cache = ss.decode_fn(tok, cache, P + i)
+        outs.append(logits[:, 0])
+        tok = torch.argmax(logits[:, 0, :V], dim=-1)[:, None].int()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_tokens
+    peak = torch.cuda.max_memory_allocated()
+    out = {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+           "tokens_per_s": B / decode_ms * 1e3, "peak_mem_bytes": peak,
+           "launches": launches}
+    if profile_steps:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(profile_steps):
+                logits, cache = ss.decode_fn(tok, cache, P + n_tokens + i)
+                tok = torch.argmax(logits[:, 0, :V], dim=-1)[:, None].int()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / profile_steps
+        out["profile"] = profile_report(prof, profile_steps, wall,
+                                        f"{label} decode step")
+    del cache
+    return out, torch.stack(outs, 1), torch.cat(fed, 1)
+
+
+def teacher_forced_err(model, prompt, fed, logits):
+    """Max |decode logits - forward logits| over the prefill's last
+    position and every decoded position, the forward run over the prompt
+    and the fed tokens; and the forward's largest |logit|."""
+    import torch
+    with torch.no_grad():
+        full, _ = model({"tokens": torch.cat([prompt, fed], 1)})
+    P, n = prompt.shape[1], fed.shape[1]
+    ref = full[:, P - 1:P + n].float()
+    err = float((logits.float() - ref).abs().max())
+    return err, float(ref.abs().max())
+
+
+def serve_model(cfg, prompt, cache_len, n_tokens, label, expect_launches,
+                seed=0, profile_steps=0, witness=None):
+    """One model served through the kernel and through the kernel-free
+    path (or ``witness``, a context manager around the witness's run) on
+    the same weights and prompt, each held against its own teacher-forced
+    forward; gates the kernel's error against ``SERVE_WITNESS_FACTOR``
+    times the witness's (at least one bf16 step of the largest logit)."""
+    import contextlib
+    import torch
+    from repro_torch.models import build_model
+    model = build_model(cfg, use_kernel=True, device="cuda", seed=seed)
+    res, logits, fed = serve_run(model, prompt, cache_len, n_tokens, label,
+                                 profile_steps)
+    check(bool(torch.isfinite(logits).all()), f"[serve] {label}: decode "
+          "logits not finite")
+    got = res["launches"]
+    check(got == expect_launches, f"[serve] {label}: prefill launched "
+          f"{got}, expected {expect_launches}")
+    err, scale = teacher_forced_err(model, prompt, fed, logits)
+    del logits
+    model.use_kernel = False
+    with witness() if witness else contextlib.nullcontext():
+        wres, wlogits, wfed = serve_run(model, prompt, cache_len, n_tokens,
+                                        label)
+        werr, _ = teacher_forced_err(model, prompt, wfed, wlogits)
+    del wlogits, model
+    torch.cuda.empty_cache()
+    tol = max(SERVE_WITNESS_FACTOR * werr, 2 ** -7 * scale)
+    check(err <= tol, f"[serve] {label}: decode vs teacher-forced forward "
+          f"max abs {err:.4e} > {tol:.4e} (witness {werr:.4e})")
+    agree = float((fed == wfed).float().mean())
+    res.update(max_abs_err=err, witness_max_abs_err=werr, tol=tol,
+               max_abs_logit=scale, witness_prefill_ms=wres["prefill_ms"],
+               witness_decode_ms_per_token=wres["decode_ms_per_token"],
+               tokens_agree_with_witness=agree)
+    log(f"[serve] {label}: prefill {res['prefill_ms']:.2f} ms (kernel-8 "
+        f"launches {got}), decode {res['decode_ms_per_token']:.3f} ms a "
+        f"token ({res['tokens_per_s']:.1f} tok/s), peak "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; decode vs teacher-forced "
+        f"forward max abs {err:.4e} (tol {tol:.4e}; witness {werr:.4e}, "
+        f"largest |logit| {scale:.3f}); greedy tokens equal to the "
+        f"witness's: {agree:.4f}")
+    return res
+
+
+def serve_prefill_32k():
+    """SmolLM-135M prefills one prompt of prefill_32k's length: 30
+    tensor-core launches of kernel 8, its time and peak memory, and layer
+    0's launch held against the plain chunked attention at that length."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import swa_attention as swa
+    from repro_torch.models import attention, build_model, layers
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg, use_kernel=True, device="cuda", seed=1)
+    prompt = serve_tokens(cfg.vocab_size, 1, PREFILL_LEN, 1)
+    times = []
+    for _ in range(2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in swa.LAUNCHES:
+            swa.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill({"tokens": prompt},
+                                      cache_len=PREFILL_LEN)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = serve_launches()
+        check(launches == {"swa_attention_fwd": 30,
+                           "swa_attention_fwd_wgmma": 30},
+              f"[serve] prefill_32k launched {launches}")
+        peak = torch.cuda.max_memory_allocated()
+        check(bool(torch.isfinite(logits).all()), "prefill_32k logits")
+    # layer 0's q, k, v, recomputed as the prefill computed them
+    with torch.no_grad():
+        _, p, _ = next(model._serve_layers(cache, False))
+        h = layers.rmsnorm(layers.embed(model.embed.table, prompt),
+                           p["norm1"])
+        q, k, v = attention.project_qkv(p["attn"], h, cfg)
+        pos = torch.arange(PREFILL_LEN, device=q.device)[None, :]
+        q = layers.apply_rope(q, pos, cfg.rope_theta)
+        k = layers.apply_rope(k, pos, cfg.rope_theta)
+        got = swa.swa_attention_fwd(q, k, v)
+        want = attention.chunked_attention(q.float(), k.float(), v.float())
+        err = float((got.float() - want).abs().max())
+        rel = float(((got.float() - want).abs()
+                     / (want.abs() + 1e-5 / 2 ** -7)).max())
+        stored = float((cache["blocks"][0]["k"][0] - k).abs().max())
+    check(rel <= 2 ** -7, f"[serve] prefill_32k layer 0: kernel vs plain "
+          f"chunked attention max abs {err:.3e}, relative {rel:.3e} > 2^-7")
+    check(stored == 0.0, "prefill_32k: layer 0's cache is not its k")
+    del model, cache, q, k, v, got, want
+    torch.cuda.empty_cache()
+    log(f"[serve] prefill_32k ({SERVE_ARCH}, batch 1 x {PREFILL_LEN}): "
+        f"{times[0]:.1f} ms first, {times[1]:.1f} ms second, peak "
+        f"{peak / 2**30:.2f} GiB, kernel-8 launches {launches}; layer 0's "
+        f"launch against the plain chunked attention (fp32 on the same "
+        f"bf16 values): max abs {err:.3e}, within one bf16 step")
+    return {"prefill_ms": times, "peak_mem_bytes": peak,
+            "launches": launches, "layer0_max_abs_err": err}
+
+
+def rwkv_fp32_serve(prompt, n_tokens):
+    """rwkv6-7b (4 layers) in fp32 with TF32 off: decode against the
+    teacher-forced forward to ``RWKV_SERVE_FP32_TOL`` of the largest
+    logit."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(rwkv_config(), dtype="float32")
+    model = build_model(cfg, use_kernel=True, device="cuda", seed=2)
+    res, logits, fed = serve_run(model, prompt, prompt.shape[1] + n_tokens,
+                                 n_tokens, "rwkv fp32")
+    err, scale = teacher_forced_err(model, prompt, fed, logits)
+    del model, logits
+    torch.cuda.empty_cache()
+    check(err <= RWKV_SERVE_FP32_TOL * scale, f"[serve] rwkv fp32: decode "
+          f"vs forward max abs {err:.3e} > {RWKV_SERVE_FP32_TOL} x {scale}")
+    log(f"[serve] {RWKV_ARCH} ({RWKV_LAYERS} layers) fp32: prefill "
+        f"{res['prefill_ms']:.2f} ms, decode {res['decode_ms_per_token']:.3f}"
+        f" ms a token; decode vs teacher-forced forward max abs {err:.3e} "
+        f"(tol {RWKV_SERVE_FP32_TOL} x {scale:.3f})")
+    res.update(max_abs_err=err, max_abs_logit=scale)
+    return res
+
+
+def sequential_generate(model, prompt, n_new, cache_len):
+    """One request alone: batch-1 prefill, then batch-1 decode steps; the
+    tokens and, at each step, the gap between the two largest logits.
+    The first decode step runs eagerly (on a side stream, the warm-up
+    CUDA graphs ask for); the rest replay a CUDA graph of ``decode_step``
+    captured on this request's cache, with the token and the position in
+    static device buffers: the same kernels on the same operands without
+    the host's issue time, which would otherwise take minutes here."""
+    import torch
+    V = model.cfg.vocab_size
+    P = len(prompt)
+    logits, cache = model.prefill(
+        {"tokens": torch.as_tensor(prompt[None, :], device="cuda")},
+        cache_len=cache_len)
+    rows = [logits[0, -1, :V]]
+    tok = torch.argmax(rows[-1])[None, None].int()
+    toks = [tok]
+    if n_new > 1:
+        pos = torch.tensor(P, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            logits, _ = model.decode_step(tok, cache, pos)
+        torch.cuda.current_stream().wait_stream(side)
+        rows.append(logits[0, 0, :V])
+        tok = torch.argmax(rows[-1])[None, None].int()
+        toks.append(tok)
+    if n_new > 2:
+        tok_buf, pos_buf = tok.clone(), pos.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static, _ = model.decode_step(tok_buf, cache, pos_buf)
+        for i in range(1, n_new - 1):
+            tok_buf.copy_(tok)
+            pos_buf.fill_(P + i)
+            graph.replay()
+            rows.append(static[0, 0, :V].clone())
+            tok = torch.argmax(rows[-1])[None, None].int()
+            toks.append(tok)
+        del graph, static
+    top2 = torch.topk(torch.stack(rows).float(), 2, dim=-1).values
+    return ([int(t) for t in torch.cat(toks).reshape(-1).cpu()],
+            (top2[:, 0] - top2[:, 1]).cpu().tolist())
+
+
+def decode_graph_times(model, cache_len, batches=(1, 16)):
+    """ms a ``decode_step`` at each batch, issued eagerly and replayed as
+    a CUDA graph of the same kernels: how much of a step is the host's."""
+    import torch
+    out = {}
+    for B in batches:
+        cache = model.init_cache(B, cache_len)
+        tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+        pos = torch.full((B,), cache_len // 2, device="cuda")
+        eager = time_ms(lambda: model.decode_step(tok, cache, pos), reps=20,
+                        warmup=3)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            model.decode_step(tok, cache, pos)
+        out[B] = {"eager_ms": eager,
+                  "graph_ms": time_ms(graph.replay, reps=20, warmup=3)}
+        del graph, cache
+    log(f"[serve] {model.cfg.name} ({model.cfg.dtype}) decode step at cache "
+        f"{cache_len}: " + "; ".join(
+            f"batch {B} {t['eager_ms']:.3f} ms issued eagerly, "
+            f"{t['graph_ms']:.3f} ms as a CUDA graph" for B, t in out.items()))
+    return out
+
+
+def engine_requests(vocab, spec):
+    import numpy as np
+    rs = np.random.RandomState(spec["seed"])
+    lo, hi = spec["prompt"]
+    nlo, nhi = spec["new"]
+    return [(rs.randint(0, vocab, int(rs.randint(lo, hi + 1)))
+             .astype(np.int32), int(rs.randint(nlo, nhi + 1)))
+            for _ in range(spec["requests"])]
+
+
+def engine_run(model, spec):
+    """Every request of ``spec`` through one ``ServingEngine``: the
+    tokens, engine steps, mean occupancy, generated tokens a second and
+    each request's time to first token (its batch-1 prefill's end, on the
+    host clock after a synchronise, less the time the queue was filled)."""
+    import torch
+    from repro_torch.serving.engine import ServingEngine
+    reqs = engine_requests(model.cfg.vocab_size, spec)
+    eng = ServingEngine(model, batch_size=spec["slots"],
+                        cache_len=spec["cache"])
+    firsts = []
+    prefill = model.prefill
+
+    def timed_prefill(*a, **kw):
+        out = prefill(*a, **kw)
+        torch.cuda.synchronize()
+        firsts.append(time.perf_counter())
+        return out
+    model.prefill = timed_prefill
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, n in reqs:
+            eng.submit(p, n)
+        steps, occupied = 0, 0
+        while True:
+            active = eng.step()
+            steps += 1
+            occupied += active
+            if active == 0 and not eng.queue:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.prefill
+    out = {rid: r.generated for rid, r in eng.finished.items()}
+    ttft = sorted(t - t0 for t in firsts)
+    n_gen = sum(len(v) for v in out.values())
+    return reqs, out, {
+        "engine_steps": steps, "wall_s": wall,
+        "generated_tokens": n_gen, "tokens_per_s": n_gen / wall,
+        "mean_occupancy": occupied / steps / spec["slots"],
+        "ttft_median_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1]}
+
+
+def serve_engine(gap):
+    """The engine on full-width SmolLM-135M: (a) fp32, every request's
+    tokens equal to its sequential generation; (b) bf16, the agreement
+    count, a divergence allowed only where the sequential run's two
+    largest logits lie within ``gap`` (the bf16 decode's teacher-forced
+    error on this model, the size of what reordering the same products
+    in another batch shape moves a logit by)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    out = {}
+    for dtype, spec in (("float32", ENGINE_FP32), ("bfloat16", ENGINE_BF16)):
+        cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype=dtype)
+        model = build_model(cfg, use_kernel=True, device="cuda", seed=3)
+        reqs, got, rec = engine_run(model, spec)
+        t0 = time.perf_counter()
+        agree, ties, bad = 0, 0, []
+        for rid, (p, n) in enumerate(reqs):
+            want, gaps = sequential_generate(model, p, n, spec["cache"])
+            if got[rid] == want:
+                agree += 1
+                continue
+            j = next(i for i, (a, b) in enumerate(zip(got[rid], want))
+                     if a != b)
+            if dtype == "bfloat16" and gaps[j] <= gap:
+                ties += 1
+            else:
+                bad.append((rid, j, gaps[j]))
+        rec.update(requests=len(reqs), agree_in_full=agree,
+                   near_tie_divergences=ties, sequential_s=
+                   time.perf_counter() - t0, gap=gap if dtype ==
+                   "bfloat16" else 0.0)
+        check(not bad, f"[serve] engine {dtype}: requests {bad} (rid, step, "
+              f"top-2 gap) differ from sequential generation")
+        log(f"[serve] engine {dtype}: {len(reqs)} requests over "
+            f"{spec['slots']} slots (prompts {spec['prompt']}, new tokens "
+            f"{spec['new']}, cache {spec['cache']}): {rec['engine_steps']} "
+            f"steps, {rec['generated_tokens']} tokens in {rec['wall_s']:.2f}"
+            f" s ({rec['tokens_per_s']:.1f} tok/s), mean occupancy "
+            f"{rec['mean_occupancy']:.3f}, time to first token median "
+            f"{rec['ttft_median_s']:.3f} s, largest {rec['ttft_max_s']:.3f} "
+            f"s; {agree} of {len(reqs)} equal sequential generation in "
+            f"full, {ties} diverge at a near tie (top-2 gap <= "
+            f"{rec['gap']:.4f}); sequential runs took "
+            f"{rec['sequential_s']:.1f} s")
+        if dtype == "bfloat16":
+            rec["decode_step"] = decode_graph_times(model, spec["cache"])
+        out[dtype] = rec
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_rank(rank, init, out_dir):
+    """One of the flash-decode ranks: this rank's contiguous shard of a
+    524,288-slot ring (SmolLM's 9 / 3 heads, hd 64, batch 1, fp32, the
+    same seeded cache on every rank), held against ``decode_attention``
+    over the whole cache in this process."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.flash_decode import flash_decode_attention
+    from repro_torch.models.attention import decode_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=FLASH_RANKS)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(1, 1, 9, 64, generator=gen, device=dev)
+    k, v = (torch.randn(1, FLASH_LEN, 3, 64, generator=gen, device=dev)
+            for _ in range(2))
+    n = FLASH_LEN // FLASH_RANKS
+    ks, vs = (t[:, rank * n:(rank + 1) * n].contiguous() for t in (k, v))
+    res = {"cases": {}}
+    for window, pos in ((None, FLASH_LEN - 1), (FLASH_WINDOW, FLASH_LEN - 1),
+                        (None, FLASH_LEN + 1000),
+                        (FLASH_WINDOW, FLASH_LEN + 1000)):
+        got = flash_decode_attention(q, ks, vs, pos, total_len=FLASH_LEN,
+                                     window=window)
+        want = decode_attention(q, k, v, pos, window=window)
+        res["cases"][f"window={window},pos={pos}"] = float(
+            (got - want).abs().max())
+    res["flash_ms"] = time_ms(lambda: flash_decode_attention(
+        q, ks, vs, FLASH_LEN - 1, total_len=FLASH_LEN), reps=20, warmup=3)
+    res["single_ms"] = time_ms(lambda: decode_attention(
+        q, k, v, FLASH_LEN - 1), reps=20, warmup=3)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def serve_flash():
+    import torch
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_flash_")
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(
+        flash_rank, args=("file://" + os.path.join(out_dir, "pg"), out_dir),
+        nprocs=FLASH_RANKS)
+    ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+             for r in range(FLASH_RANKS)]
+    worst = max(e for r in ranks for e in r["cases"].values())
+    check(worst <= FLASH_TOL, f"[serve] flash-decode: max abs {worst:.3e} "
+          f"> {FLASH_TOL} against single-process decode attention")
+    r0 = ranks[0]
+    log(f"[serve] flash-decode on {FLASH_RANKS} gloo ranks sharing the card "
+        f"({time.perf_counter() - t0:.1f} s): {FLASH_LEN:,} slots (9 / 3 "
+        f"heads, hd 64, fp32), {FLASH_LEN // FLASH_RANKS:,} a rank, windows "
+        f"None and {FLASH_WINDOW}, before and past the wrap: max abs "
+        f"{worst:.3e} (tol {FLASH_TOL}); {r0['flash_ms']:.3f} ms a step on "
+        f"rank 0 against {r0['single_ms']:.3f} ms for one process over the "
+        "whole cache")
+    return {"max_abs_err": worst, "cases": r0["cases"],
+            "flash_ms": r0["flash_ms"], "single_ms": r0["single_ms"]}
+
+
+def serve_phase():
+    """The serving path; returns its record."""
+    import contextlib
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.costmodel import flops
+    from repro_torch.models import rwkv6
+    t0 = time.perf_counter()
+    rec = {}
+    cfg = get_config(SERVE_ARCH)
+    attn = {"swa_attention_fwd": 30, "swa_attention_fwd_wgmma": 30}
+    prompt = serve_tokens(cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, 0)
+    smol = serve_model(cfg, prompt, SERVE_CACHE, SERVE_TOKENS,
+                       f"{SERVE_ARCH} batch {SERVE_BATCH}, prompt "
+                       f"{SERVE_PROMPT}, cache {SERVE_CACHE}", attn,
+                       profile_steps=SERVE_PROFILE_STEPS)
+    nbytes = flops.step_bytes_hbm(cfg, SERVE_BATCH, SERVE_CACHE, "decode")
+    smol.update(step_bytes_hbm=nbytes,
+                bound_ms=nbytes / H100_BYTES_PER_S * 1e3)
+    log(f"[serve] decode step bytes (costmodel.flops.step_bytes_hbm, batch "
+        f"{SERVE_BATCH}, context {SERVE_CACHE}): {nbytes:,} B, bound "
+        f"{smol['bound_ms']:.3f} ms at 3.35 TB/s; measured "
+        f"{smol['decode_ms_per_token']:.3f} ms "
+        f"({smol['bound_ms'] / smol['decode_ms_per_token']:.3f} of the "
+        "bound)")
+    rec["smollm"] = smol
+    rec["prefill_32k"] = serve_prefill_32k()
+    g = GEMMA_SERVE
+    gcfg = gemma_config()
+    rec["gemma3"] = serve_model(
+        gcfg, serve_tokens(gcfg.vocab_size, g["batch"], g["prompt"], 2),
+        g["cache"], g["tokens"], f"{GEMMA_ARCH} ({GEMMA_LAYERS} layers) "
+        f"batch {g['batch']}, prompt {g['prompt']}, cache {g['cache']}",
+        {"swa_attention_fwd": 6, "swa_attention_fwd_wgmma": 6}, seed=4)
+    r = RWKV_SERVE
+    rcfg = rwkv_config()
+    rprompt = serve_tokens(rcfg.vocab_size, r["batch"], r["prompt"], 3)
+
+    @contextlib.contextmanager
+    def chunk_64():     # the witness of rounding alone: prefill at chunk 64
+        apply = rwkv6.rwkv_apply
+        rwkv6.rwkv_apply = functools.partial(apply, chunk=64)
+        try:
+            yield
+        finally:
+            rwkv6.rwkv_apply = apply
+    rec["rwkv6"] = serve_model(
+        rcfg, rprompt, r["prompt"] + r["tokens"], r["tokens"],
+        f"{RWKV_ARCH} ({RWKV_LAYERS} layers) batch {r['batch']}, prompt "
+        f"{r['prompt']}", {"swa_attention_fwd": 0,
+                           "swa_attention_fwd_wgmma": 0}, seed=2,
+        witness=chunk_64)
+    rec["rwkv6_fp32"] = rwkv_fp32_serve(rprompt, r["tokens"])
+    rec["engine"] = serve_engine(smol["max_abs_err"])
+    rec["flash_decode"] = serve_flash()
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[serve] phase took {rec['seconds']:.1f} s")
+    return rec
+
+
 def main(argv):
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the repository: src/repro_torch is "
@@ -3298,6 +3856,15 @@ def main(argv):
         "run": f"{GEMMA_ARCH} ({GEMMA_LAYERS} layers) step under the "
                f"profiler, {GEMMA_LEAVES} leaves"}
     line["kernels"] += rwkv_phase()
+    serve = serve_phase()
+    print(json.dumps({"serve": serve}))
+    attention["serve"] = {
+        run: {"launches_per_prefill": serve[run]["launches"][
+            "swa_attention_fwd"], "routes": {
+                "wgmma": serve[run]["launches"]["swa_attention_fwd_wgmma"],
+                "cuda_core": serve[run]["launches"]["swa_attention_fwd"]
+                - serve[run]["launches"]["swa_attention_fwd_wgmma"]}}
+        for run in ("smollm", "prefill_32k", "gemma3")}
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

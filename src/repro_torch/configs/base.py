@@ -4,8 +4,9 @@ A copy of the reference's registry, cut to what the port runs: the
 ``CNNConfig`` of the paper's two CIFAR models and the reference's
 ``ModelConfig`` with the transformer LMs whose layer kinds the port's
 ``models.transformer`` supports (global and sliding-window attention,
-RWKV6 time-mix).  Configs are pure data; ``repro_torch.models`` interprets
-them.
+RWKV6 time-mix), and the input shapes assigned to the paper
+(``INPUT_SHAPES``).  Configs are pure data; ``repro_torch.models``
+interprets them.
 """
 from __future__ import annotations
 
@@ -128,6 +129,25 @@ class ModelConfig:
         if self.is_moe:
             changes.update(n_experts=4, experts_per_token=2)
         return dataclasses.replace(self, **changes)
+
+
+# ---------------------------------------------------------------------------
+# The input shapes assigned to the paper (the reference's ``INPUT_SHAPES``).
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 _REGISTRY: dict = {}

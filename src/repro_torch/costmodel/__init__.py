@@ -1,4 +1,4 @@
-"""Cloud pricing (``repro.costmodel``): the constants and cost formulas the
-serverless simulator bills with.  The FLOP and roofline models are not
-ported yet."""
-from repro_torch.costmodel import pricing  # noqa: F401
+"""Cost models (``repro.costmodel``): the cloud pricing the serverless
+simulator bills with, and the analytic FLOP / byte / parameter counts.
+The roofline model waits for the sharding and dry-run slice."""
+from repro_torch.costmodel import flops, pricing  # noqa: F401

@@ -1,0 +1,101 @@
+"""Serving entry point (``repro.launch.serve``): prefill a batch of
+prompts, then decode N tokens greedily through ``core.build_serve_step``.
+
+  # full-width SmolLM-135M on one GPU, prefill through the attention kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --batch 4 --prompt-len 64 --decode-tokens 16
+
+  # reduced, on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --reduced --device cpu --batch 4 --prompt-len 64 --decode-tokens 16
+
+The model's attention runs through the Hopper kernel (``use_kernel``,
+the plain version on the CPU); weights are drawn from ``--seed`` on the
+device, prompts from a numpy ``RandomState(seed)``.  ``--layers`` cuts
+the depth and nothing else.  Serving over a mesh waits for the sharding
+slice.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.core import build_serve_step
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(*, arch: str, batch: int = 4, prompt_len: int = 64,
+          decode_tokens: int = 16, reduced: bool = False, n_layers=None,
+          device="cuda", seed: int = 0, log=print) -> dict:
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
+    ``decode_tokens`` more; returns the tokens ((batch, 1 + decode_tokens)
+    numpy int32, the first from the prefill) and the host times."""
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg, use_kernel=True, device=dev, seed=seed)
+    cache_len = prompt_len + decode_tokens
+    ss = build_serve_step(model, batch_size=batch, cache_len=cache_len)
+    rs = np.random.RandomState(seed)
+    tokens = torch.as_tensor(
+        rs.randint(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32),
+        device=dev)
+
+    t0 = time.perf_counter()
+    logits, cache = ss.prefill_fn({"tokens": tokens})
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    log(f"prefill {batch}x{prompt_len}: {prefill_s:.2f}s")
+
+    V = cfg.vocab_size
+    tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None].int()
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(decode_tokens):
+        logits, cache = ss.decode_fn(tok, cache, prompt_len + i)
+        tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None].int()
+        out.append(tok)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    log(f"decoded {decode_tokens} tokens in {dt:.2f}s "
+        f"({decode_tokens * batch / dt:.1f} tok/s)")
+    toks = torch.cat(out, dim=1).cpu().numpy()
+    log(f"sample: {toks[0][:16]}")
+    return {"tokens": toks, "prefill_s": prefill_s, "decode_s": dt,
+            "device": str(dev)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--decode-tokens", type=int, default=16)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    return serve(arch=args.arch, batch=args.batch,
+                 prompt_len=args.prompt_len,
+                 decode_tokens=args.decode_tokens, reduced=args.reduced,
+                 n_layers=args.layers, device=args.device, seed=args.seed)
+
+
+if __name__ == "__main__":
+    main()

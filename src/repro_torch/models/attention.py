@@ -14,7 +14,17 @@ Layouts are the reference's: q (B, Sq, H, hd), k and v (B, Skv, KV, hd),
 with head h reading kv head h // G (G = H // KV).  Score and gradient
 products are fp32 (the reference's ``preferred_element_type``); the
 forward casts p to v's dtype before the p.v product, as the reference
-does.  Decode attention and the KV cache belong to the serving path.
+does.
+
+Decode attention (one new token against a ring-buffer KV cache) is the
+reference's plain einsum form, not a TPU kernel: scores in fp32 from the
+cache's dtype, masked with ``NEG_INF`` and a softmax over every slot, p
+cast to the cache's dtype for an fp32-accumulated p.v product.  The
+products run one kv head at a time (``torch.bmm`` on strided views of the
+(B, L, KV, hd) cache, so no copy of the cache is made); a bf16 cache on
+the card accumulates in fp32 through ``out_dtype``.  ``cache_update``
+writes the new entries into the cache in place (the reference donates the
+cache to its decode step, so XLA writes one slot in place too).
 """
 from __future__ import annotations
 
@@ -235,3 +245,96 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_chunk=512,
     if pallas_fn is not None and causal and q.shape[1] == k.shape[1]:
         return pallas_fn(q, k, v, window=window)
     return _Flash.apply(q, k, v, causal, window, q_chunk, kv_chunk)
+
+
+# ---------------------------------------------------------------------------
+# decode attention (single new token vs KV cache)
+# ---------------------------------------------------------------------------
+def bmm_f32(a, b):
+    """a @ b batched, accumulated and returned in fp32 (the reference's
+    ``preferred_element_type=jnp.float32``)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())      # exact products, fp32 sums
+
+
+def ring_valid(pos, B, slots, L, window=None):
+    """(B, len(slots)) bool: which of ``slots`` (global slot ids) of a ring
+    buffer of length L hold a position that a token at ``pos`` attends to.
+    Slot s holds position ``pos - ((pos - s) mod L)``; negative positions
+    are empty.  ``torch.remainder`` takes the divisor's sign, as
+    ``jnp.mod`` does."""
+    pos_b = torch.broadcast_to(
+        torch.as_tensor(pos, device=slots.device).long(), (B,))[:, None]
+    slot_pos = pos_b - torch.remainder(pos_b - slots[None, :], L)
+    valid = slot_pos >= 0
+    if window is not None:
+        valid = valid & (slot_pos > pos_b - window)
+    return valid
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window=None):
+    """q: (B, 1, H, hd); caches: (B, L, KV, hd) ring buffers.
+
+    ``pos`` is the position (an int, a 0-dim or a (B,) tensor) of the new
+    token.  Slot ``s`` of a ring buffer of length L holds sequence position
+    ``pos - ((pos - s) mod L)``; slots with negative positions are invalid.
+    """
+    B, L, KV, hd = k_cache.shape
+    H = q.shape[2]
+    G = H // KV
+    valid = ring_valid(pos, B, torch.arange(L, device=q.device), L, window)
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.stack([bmm_f32(qg[:, j], k_cache[:, :, j].transpose(1, 2))
+                     for j in range(KV)], dim=2) / (hd ** 0.5)  # (B,G,KV,L)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.stack([bmm_f32(p[:, :, j], v_cache[:, :, j])
+                       for j in range(KV)], dim=1)              # (B,KV,G,hd)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_quant(q, k_cache, v_cache, pos, *, window=None):
+    """``decode_attention`` against int8-quantized caches
+    (``{"q": int8, "scale": fp16}`` per k and v, ``models.kvquant``).  The
+    scales are folded into the fp32 scores and the softmax weights, as in
+    the reference, so no full-precision cache is formed."""
+    kq, ks = k_cache["q"], k_cache["scale"]
+    vq, vs = v_cache["q"], v_cache["scale"]
+    B, L, KV, hd = kq.shape
+    H = q.shape[2]
+    G = H // KV
+    valid = ring_valid(pos, B, torch.arange(L, device=q.device), L, window)
+    qg = q.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgh,blkh->bgkl", qg, kq.float()) / (hd ** 0.5)
+    s = s * ks[..., 0].float().transpose(1, 2)[:, None]        # (B,1,KV,L)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    pv = p * vs[..., 0].float().transpose(1, 2)[:, None]       # v's scales
+    out = torch.einsum("bgkl,blkh->bkgh", pv, vq.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def write_slots(cache, new, pos):
+    """Writes (B, 1, ...) ``new`` into ``cache`` (B, L, ...) at ring slot
+    ``pos % L``, in place: one slot for the whole batch under a scalar
+    ``pos``, slot ``pos[b] % L`` of row b under a (B,) ``pos``."""
+    pos = torch.as_tensor(pos, device=cache.device)
+    slots = torch.remainder(pos.long().reshape(-1), cache.shape[1])
+    if pos.dim() == 0:
+        cache.index_copy_(1, slots, new.to(cache.dtype))
+    else:
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, slots] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def cache_update(k_cache, v_cache, k_new, v_new, pos):
+    """Writes (B, 1, KV, hd) new entries at ring slot ``pos % L``, in
+    place, and returns the two caches.
+
+    ``pos`` may be a scalar (all requests aligned) or (B,) per-slot
+    positions (continuous batching, ``serving.engine``)."""
+    return write_slots(k_cache, k_new, pos), write_slots(v_cache, v_new, pos)

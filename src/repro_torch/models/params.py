@@ -4,7 +4,9 @@ A module whose parameter names are the reference tree's paths
 (``blocks.0.attn.wq`` for ``tree["blocks"][0]["attn"]["wq"]``) holds the
 same leaves as the tree.  These helpers list them in the reference's
 leaf order and move a tree of numpy arrays in and out of the module; the
-CNNs and the transformer share them.
+CNNs and the transformer share them.  ``cache_from_reference`` and
+``cache_to_reference`` move a decode cache, a tree of dicts and lists of
+the same layout in both packages, the same way.
 """
 from __future__ import annotations
 
@@ -60,3 +62,24 @@ def params_to_reference(model: nn.Module):
             return [listify(node[i]) for i in range(len(node))]
         return {k: listify(v) for k, v in node.items()}
     return listify(root)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def cache_from_reference(tree, device=None):
+    """The port's decode cache from the reference's cache tree of numpy
+    arrays (``{"blocks": [...], "tail": [...]}``), on ``device``."""
+    return _map_tree(lambda a: torch.from_numpy(np.array(a, order="C"))
+                     .to(device), tree)
+
+
+def cache_to_reference(cache):
+    """The reference's cache tree of numpy arrays for a port's cache."""
+    return _map_tree(lambda t: np.ascontiguousarray(t.detach().cpu()
+                                                    .numpy()), cache)

@@ -35,6 +35,21 @@ recurrence through ``kernels.ops.wkv6``, the Hopper kernels.
 
 The weights are drawn with the ``torch.Generator`` given, on its device:
 ``build_model`` draws a model for the card on the card.
+
+Serving (``repro.models.transformer``'s ``init_cache``, ``prefill`` and
+``decode_step``): the decode cache is the reference's tree,
+``{"blocks": [...], "tail": [...]}``, one leaf per pattern position
+stacked over blocks (batch at dim 1 under ``blocks``, dim 0 under
+``tail``).  An attention layer's leaf is a ring buffer ``{"k", "v"}`` of
+(B, L, KV, hd) in the model's dtype (``{"q", "scale"}`` each under
+``kv_quant``), L the context for a global layer and at most the window
+for a local one; an RWKV layer's leaf is its recurrent state.  Prefill
+runs each attention layer through kernel 8 when ``use_kernel`` (the
+reference's Pallas path) and the RWKV layers through the plain chunked
+WKV from the cache's zero state, as the reference does.  Both write the
+cache in place (the reference donates it to decode): one slot a layer a
+token, no copy of the cache.  ``prefill`` and ``decode_step`` run without
+autograd.
 """
 from __future__ import annotations
 
@@ -45,10 +60,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import GLOBAL, LOCAL, RWKV
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.models import attention, layers, rwkv6
+from repro_torch.models import attention, kvquant, layers, rwkv6
 from repro_torch.models import params as _params
 from repro_torch.models.params import (  # noqa: F401
-    params_from_reference, reference_leaves,
+    cache_from_reference, cache_to_reference, params_from_reference,
+    reference_leaves,
 )
 
 _UNSUPPORTED = ("ROADMAP.md, Open items §1, slice 4: the transformer LM "
@@ -121,12 +137,14 @@ class _Table(nn.Module):
 
 class Model(nn.Module):
     def __init__(self, cfg, *, use_kernel: bool = False, remat: bool = True,
-                 gen=None):
+                 kv_quant: bool = False, gen=None):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         self.use_kernel = use_kernel
         self.remat = remat
+        # int8 KV caches (``models.kvquant``), for memory-bound decode
+        self.kv_quant = kv_quant
         self.n_blocks, self.tail_kinds = _split_depth(cfg)
         dtype = getattr(torch, cfg.dtype)
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
@@ -211,6 +229,150 @@ class Model(nn.Module):
         x = layers.rmsnorm(x, self.final_norm)
         logits = layers.unembed(self.unembed.table, x)
         return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # ------------------------------------------------------------------
+    # serving: the decode cache, prefill and single-token decode
+    # ------------------------------------------------------------------
+    def _cache_len(self, kind: str, seq_len: int) -> int:
+        if kind == GLOBAL:
+            return seq_len
+        return min(self.cfg.window, seq_len)
+
+    def _pattern(self, swa_variant: bool):
+        if swa_variant:
+            return tuple(LOCAL if k == GLOBAL else k
+                         for k in self.cfg.layer_pattern)
+        return self.cfg.layer_pattern
+
+    def _tail(self, swa_variant: bool):
+        if swa_variant:
+            return tuple(LOCAL if k == GLOBAL else k for k in self.tail_kinds)
+        return self.tail_kinds
+
+    def init_cache(self, batch_size: int, seq_len: int,
+                   swa_variant: bool = False, device=None) -> dict:
+        """Empty decode cache for a context of ``seq_len``, on ``device``
+        (the model's by default; ``"meta"`` gives shapes only)."""
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
+        device = self.final_norm.device if device is None else device
+
+        def one(kind, lead=()):
+            if kind == RWKV:
+                state = rwkv6.rwkv_init_state(cfg, batch_size, dtype, device)
+                return {k: torch.zeros(lead + tuple(v.shape), dtype=v.dtype,
+                                       device=device)
+                        for k, v in state.items()}
+            L = self._cache_len(kind, seq_len)
+            if self.kv_quant:
+                return {name: kvquant.init_quant_cache(
+                    batch_size, L, cfg.n_kv_heads, cfg.head_dim, lead,
+                    device) for name in ("k", "v")}
+            shape = lead + (batch_size, L, cfg.n_kv_heads, cfg.head_dim)
+            return {name: torch.zeros(shape, dtype=dtype, device=device)
+                    for name in ("k", "v")}
+
+        return {"blocks": [one(kind, (self.n_blocks,))
+                           for kind in self._pattern(swa_variant)]
+                if self.n_blocks else [],
+                "tail": [one(kind) for kind in self._tail(swa_variant)]}
+
+    def _serve_layers(self, cache, swa_variant):
+        """(kind, parameter tree, cache leaf) of every layer in order; the
+        trees and leaves of stacked blocks are views of row i."""
+        stacked = [_module_tree(m) for m in self.blocks]
+        pattern = self._pattern(swa_variant)
+        for i in range(self.n_blocks):
+            for j, kind in enumerate(pattern):
+                yield (kind, _map(lambda t: t[i], stacked[j]),
+                       _map(lambda t: t[i], cache["blocks"][j]))
+        for kind, m, leaf in zip(self._tail(swa_variant), self.tail,
+                                 cache["tail"]):
+            yield kind, _module_tree(m), leaf
+
+    @torch.no_grad()
+    def prefill(self, batch, cache_len=None, swa_variant: bool = False):
+        """Forward over a prompt: (last-token logits (B, 1, padded vocab),
+        the filled cache).  Each attention layer keeps the trailing
+        ``min(L, S)`` positions at ring slots ``(S - take .. S - 1) mod
+        L``."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = layers.embed(self.embed.table, tokens)
+        B, S, _ = x.shape
+        cache_len = cache_len or S
+        positions = torch.arange(S, device=x.device)[None, :]
+        cache = self.init_cache(B, cache_len, swa_variant, x.device)
+        for kind, p, leaf in self._serve_layers(cache, swa_variant):
+            h = layers.rmsnorm(x, p["norm1"])
+            if kind == RWKV:
+                y, state = rwkv6.rwkv_apply(p["rwkv"], h, cfg, state=leaf)
+                for name, val in state.items():
+                    leaf[name].copy_(val)
+                x = x + y
+            else:
+                q, k, v = attention.project_qkv(p["attn"], h, cfg)
+                q = layers.apply_rope(q, positions, cfg.rope_theta)
+                k = layers.apply_rope(k, positions, cfg.rope_theta)
+                o = attention.chunked_attention(
+                    q, k, v, causal=True,
+                    window=cfg.window if kind == LOCAL else None,
+                    pallas_fn=kops.swa_attention if self.use_kernel else None)
+                x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+                L = (leaf["k"]["q"] if self.kv_quant else leaf["k"]).shape[1]
+                take = min(L, S)
+                slots = torch.remainder(
+                    torch.arange(S - take, S, device=x.device), L)
+                for name, val in (("k", k), ("v", v)):
+                    if self.kv_quant:
+                        qv, sv = kvquant.quantize_kv(val[:, S - take:])
+                        leaf[name]["q"].index_copy_(1, slots, qv)
+                        leaf[name]["scale"].index_copy_(1, slots, sv)
+                    else:
+                        leaf[name].index_copy_(1, slots, val[:, S - take:])
+            h = layers.rmsnorm(x, p["norm2"])
+            x = x + layers.mlp_apply(p["mlp"], h, cfg.mlp)
+        x = layers.rmsnorm(x[:, -1:], self.final_norm)
+        return layers.unembed(self.unembed.table, x), cache
+
+    @torch.no_grad()
+    def decode_step(self, token, cache, pos, swa_variant: bool = False):
+        """token: (B, 1) int; ``pos`` the position of this token, an int or
+        a 0-dim tensor for all rows, or a (B,) tensor of per-row positions
+        (continuous batching).  Writes the token's entries into ``cache``
+        in place and returns (logits (B, 1, padded vocab), cache)."""
+        cfg = self.cfg
+        x = layers.embed(self.embed.table, token)
+        B = x.shape[0]
+        pos = torch.as_tensor(pos, device=x.device)
+        positions = pos.reshape(B, 1) if pos.dim() == 1 \
+            else pos.expand(B, 1)
+        for kind, p, leaf in self._serve_layers(cache, swa_variant):
+            h = layers.rmsnorm(x, p["norm1"])
+            if kind == RWKV:
+                y, state = rwkv6.rwkv_decode_step(p["rwkv"], h, cfg, leaf)
+                for name, val in state.items():
+                    leaf[name].copy_(val)
+                x = x + y
+            else:
+                q, k, v = attention.project_qkv(p["attn"], h, cfg)
+                q = layers.apply_rope(q, positions, cfg.rope_theta)
+                k = layers.apply_rope(k, positions, cfg.rope_theta)
+                window = cfg.window if kind == LOCAL else None
+                if self.kv_quant:
+                    kvquant.quant_cache_update(leaf["k"], k, pos)
+                    kvquant.quant_cache_update(leaf["v"], v, pos)
+                    o = attention.decode_attention_quant(
+                        q, leaf["k"], leaf["v"], pos, window=window)
+                else:
+                    attention.cache_update(leaf["k"], leaf["v"], k, v, pos)
+                    o = attention.decode_attention(
+                        q, leaf["k"], leaf["v"], pos, window=window)
+                x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
+            h = layers.rmsnorm(x, p["norm2"])
+            x = x + layers.mlp_apply(p["mlp"], h, cfg.mlp)
+        x = layers.rmsnorm(x, self.final_norm)
+        return layers.unembed(self.unembed.table, x), cache
 
 
 def build_model(cfg, *, use_kernel: bool = False, remat: bool = True,

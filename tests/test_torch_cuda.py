@@ -977,3 +977,163 @@ def test_wkv6_wrapper_validates_inputs(cuda):
         twkv.wkv6_chunked(*(t.half() for t in (r, r, r, -r.abs(), u)))
     with pytest.raises(ValueError, match="one device"):
         twkv.wkv6_chunked(r, r, r, -r.abs(), u.cpu())
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill through kernel 8, decode over the ring cache
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("S", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_swa_attention_at_prompt_lengths_one_and_five(cuda, S, dtype):
+    """A prefill calls kernel 8 at the prompt's own length, down to one
+    token: the gates of ``test_swa_attention_kernel_matches_plain``
+    (SmolLM's heads, 9 on 3, hd 64, and Gemma-3's hd 320, window 1024)."""
+    for H, KV, hd, window in ((9, 3, 64, None), (8, 4, 320, 1024)):
+        gen = torch.Generator(device=cuda).manual_seed(S + hd)
+        q, k, v = (torch.randn(2, S, n, hd, generator=gen, device=cuda)
+                   .to(dtype) for n in (H, KV, KV))
+        before = dict(tswa.LAUNCHES)
+        got = tswa.swa_attention_fwd(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert tswa.LAUNCHES["swa_attention_fwd"] == \
+            before["swa_attention_fwd"] + 1
+        assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
+            before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
+        want = tref.swa_attention(q, k, v, window=window)
+        assert bool(torch.isfinite(got).all())
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_swa_attention_at_prefill_32k(cuda, dtype):
+    """prefill_32k's length at SmolLM's heads, batch 1, against the plain
+    chunked attention of ``models.attention`` on the same values in fp32
+    (the naive version's S x S scores would not fit): 2e-5 in fp32, one
+    bf16 step in bf16."""
+    from repro_torch.models import attention as tattention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S = 32768
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn(1, S, n, 64, generator=gen, device=cuda)
+               .to(dtype) for n in (9, 3, 3))
+    before = dict(tswa.LAUNCHES)
+    got = tswa.swa_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
+        before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
+    with torch.no_grad():
+        want = tattention.chunked_attention(q.float(), k.float(), v.float())
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=2 ** -7,
+                                   atol=1e-5)
+
+
+def _serve_pair(arch, cuda, **kw):
+    """A reduced fp32 model drawn on the CPU, and its copy on the card
+    through the kernels."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = get_config(arch).reduced(**kw)
+    cpu = transformer.Model(cfg, use_kernel=True)
+    card = copy.deepcopy(cpu).to(cuda)
+    return cpu, card
+
+
+def _flat_cache(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _flat_cache(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _flat_cache(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("arch,kw", [("smollm-135m", {}),
+                                     ("gemma3-4b", {"n_layers": 6}),
+                                     ("rwkv6-7b", {})],
+                         ids=["smollm", "gemma6", "rwkv"])
+def test_reduced_prefill_and_decode_on_cuda_match_cpu(cuda, arch, kw):
+    """fp32, TF32 off: prefill of 80 tokens (past gemma's window of 64)
+    through kernel 8 on the card, then four decode steps with (B,)
+    positions, against the same model on the CPU: logits and the cache
+    to 1e-4 of the largest entry."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, card = _serve_pair(arch, cuda, **kw)
+    rs = np.random.RandomState(0)
+    toks = torch.from_numpy(rs.randint(0, cpu.cfg.vocab_size, (2, 84))
+                            .astype(np.int32))
+    attn_layers = sum(k != "rwkv" for k in cpu.cfg.layer_pattern) * \
+        cpu.n_blocks
+    before = dict(tswa.LAUNCHES)
+    outs = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        logits, cache = model.prefill({"tokens": toks[:, :80].to(dev)},
+                                      cache_len=96)
+        seq = [logits]
+        for i in range(4):
+            pos = torch.tensor([80 + i, 90 + i], device=dev)
+            logits, cache = model.decode_step(toks[:, 80 + i:81 + i].to(dev),
+                                              cache, pos)
+            seq.append(logits)
+        outs.append((seq, _flat_cache(cache)))
+    torch.cuda.synchronize()
+    assert tswa.LAUNCHES["swa_attention_fwd"] == \
+        before["swa_attention_fwd"] + attn_layers
+    for a, b in zip(outs[0][0] + outs[0][1], outs[1][0] + outs[1][1]):
+        b = b.cpu()
+        assert bool(torch.isfinite(b).all())
+        tol = 1e-4 * max(float(a.abs().max()), 1e-30)
+        torch.testing.assert_close(b, a, rtol=0, atol=tol)
+
+
+def test_decode_writes_the_cache_in_place_on_cuda(cuda):
+    """decode_step writes into the cache tensors it was given (same
+    pointers) and allocates nothing near a second cache: the step's peak
+    stays under a tenth of the cache's bytes above what was allocated."""
+    _, card = _serve_pair("smollm-135m", cuda)
+    cache = card.init_cache(8, 8192)
+    leaves = _flat_cache(cache)
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    ptrs = [t.data_ptr() for t in leaves]
+    tok = torch.zeros((8, 1), dtype=torch.int32, device=cuda)
+    card.decode_step(tok, cache, 0)                  # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for pos in (1, 2):
+        _, out = card.decode_step(tok, cache, torch.full((8,), pos,
+                                                         device=cuda))
+    torch.cuda.synchronize()
+    assert out is cache
+    assert [t.data_ptr() for t in _flat_cache(out)] == ptrs
+    assert torch.cuda.max_memory_allocated() - base < cache_bytes / 10
+    assert bool(leaves[0][:, :, 2].any()) and not leaves[0][:, :, 3].any()
+
+
+def test_decode_attention_bf16_on_cuda_matches_fp32_products(cuda):
+    """bf16 caches on the card accumulate scores and p.v in fp32
+    (``bmm`` with ``out_dtype``); the CPU path upcasts the same bf16
+    values; the two agree within one bf16 step of the output."""
+    from repro_torch.models import attention as tattention
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, L, KV, G, hd = 4, 4096, 3, 3, 64
+    q = torch.randn(B, 1, KV * G, hd, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(B, L, KV, hd, generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    pos = torch.tensor([10, 4095, 5000, 9000], device=cuda)
+    for window in (None, 1024):
+        got = tattention.decode_attention(q, k, v, pos, window=window)
+        want = tattention.decode_attention(q.cpu(), k.cpu(), v.cpu(),
+                                           pos.cpu(), window=window)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   rtol=2 ** -7, atol=1e-5)

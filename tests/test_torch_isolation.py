@@ -39,7 +39,12 @@ def test_port_has_modules_to_check():
                 "serverless/archs.py", "serverless/simulator.py",
                 "serverless/traces.py", "serverless/autoscale.py",
                 "serverless/runtime_ref.py", "serverless/runtime.py",
-                "serverless/sweep.py"):
+                "serverless/sweep.py", "models/kvquant.py",
+                "core/serve_step.py", "core/flash_decode.py",
+                "serving/__init__.py", "serving/engine.py",
+                "serving/workload.py", "serving/fleet.py",
+                "serving/steady_state.py", "launch/serve.py",
+                "costmodel/flops.py"):
         assert port / rel in FILES, rel
 
 
