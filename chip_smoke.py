@@ -127,11 +127,28 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    against single-process decode attention.  Its record is the line
    ``{"serve": {...}}``; the kernels line's attention entry gains the
    launches and routes of each prefill.
+11. resilience: the chaos harness (``repro_torch.resilience``) on
+   full-width SmolLM-135M (bf16, SPIRT), 4 ranks sharing the card over
+   gloo, global batch 12 x seq 128, lr 1e-3, 5 steps, worker 1 killed at
+   step 3, a checkpoint every 2 steps and the in-DB store pushed every
+   step: the baseline, checkpoint restore twice (each bit for bit the
+   baseline; where not, the ops without a deterministic implementation
+   are named), SPIRT's peer takeover (no replay, 3 ranks on, the dead
+   partition's bytes, final loss within 0.5 of the baseline's), the
+   restore onto the 3 survivors, and 2 baseline steps at the harness's
+   default lr 1e-2 as a record; each rank's fused-AdamW and attention
+   launches against the counts of the steps it ran (all wgmma); a bf16
+   checkpoint of the card's state through ``dumps``/``loads`` bit for
+   bit; ``benchmarks/recovery_replay.py``'s sign check through the port's
+   event runtime; wall times split into read, decode, to-device and
+   replay; a profiler window over rank 0's step.  Its record is the line
+   ``{"resilience": {...}}``; the kernels line's fused-AdamW and
+   attention entries gain its launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  The table3 and serve records
 come earlier, on lines of their own: ``{"table3": {...}}``, ``{"serve":
-{...}}``.
+{...}}``, ``{"resilience": {...}}``.
 
     python3 chip_smoke.py --compare-mlless ROOT
 
@@ -3744,6 +3761,379 @@ def serve_phase():
     return rec
 
 
+
+# ---------------------------------------------------------------------------
+# resilience: the chaos harness on full-width SmolLM-135M, 4 ranks, one card
+# ---------------------------------------------------------------------------
+RES_RANKS = 4
+# the fewest steps that hold a replay (kill 3, checkpoint 2) and two
+# steps of the shrunk fleet: a step takes about 2.3 s, gloo's all-reduce
+# of the 651 MB fp32 gradient most of it
+RES_STEPS = 5
+RES_REF_STEPS = 2                # the lr 1e-2 record
+RES_BATCH, RES_SEQ = 12, 128
+RES_KILL = (3, 1)                # (step, worker)
+RES_CKPT_EVERY = 2
+# SmolLM's 3e-3 does not train at full width (LM_LR); the harness's
+# default 1e-2 belongs to the reduced config and is recorded beside it
+RES_LR = LM_LR
+RES_REF_LR = 1e-2
+# takeover's losses from the kill on, against the baseline's: within
+# RES_GAP_SHARE of the baseline's own movement over the run (the right
+# state on a W-1 batch split lands within a few hundredths; a stale or
+# zeroed one lands the whole movement away or more), and never beyond
+# RES_LOSS_GAP
+RES_GAP_SHARE = 0.5
+RES_LOSS_GAP = 0.5
+
+
+def res_config(lr=RES_LR, steps=RES_STEPS, **kw):
+    from repro_torch.resilience import ResilienceConfig
+    return ResilienceConfig(
+        arch=LM_ARCH, sim_arch="spirt", n_workers=RES_RANKS, steps=steps,
+        global_batch=RES_BATCH, seq=RES_SEQ, lr=lr,
+        checkpoint_every=RES_CKPT_EVERY, push_every=1, reduced=False, **kw)
+
+
+def res_widths(label, rank):
+    """The fleet width of each step ``rank`` runs in ``label``'s run:
+    restore replays the steps since the last checkpoint, a shrinking
+    recovery leaves the killed rank out from the kill on."""
+    W, (k, dead) = RES_RANKS, RES_KILL
+    replay = k % RES_CKPT_EVERY
+    if label == "baseline":
+        return [W] * RES_STEPS
+    if label.startswith("baseline/"):
+        return [W] * RES_REF_STEPS
+    if label.startswith("restore/"):
+        return [W] * (RES_STEPS + replay)
+    if rank == dead:
+        return [W] * k
+    return [W] * k + [W - 1] * (RES_STEPS - k
+                                + (replay if label == "shrunk" else 0))
+
+
+def res_expected(label, rank):
+    """Kernel launches of one rank's run: fused AdamW once per leaf a
+    step (12), attention once per layer a microbatch (30 x Ke, Ke =
+    gcd(4, local batch): 1 at W 4, 4 at W 3), forward only (the harness
+    builds the model without remat), all on the tensor-core route."""
+    widths = res_widths(label, rank)
+    attn = sum(30 * math.gcd(4, RES_BATCH // w) for w in widths)
+    n = {k: 0 for k in lm_launches()}
+    n.update(fused_adamw_flat=12 * len(widths), swa_attention_fwd=attn,
+             swa_attention_fwd_wgmma=attn)
+    return n
+
+
+def res_roundtrip(model):
+    """A checkpoint of the card's bf16 parameters and fp32 moments (drawn
+    from a seed) through ``dumps`` and ``loads``, onto the card (the two
+    int32 steps onto the host, where the state tree keeps them) and onto
+    the host: every leaf bit for bit, and the bytes again the same."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.models.params import reference_leaves
+    from repro_torch.resilience import state as bridge
+    params = reference_leaves(model)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    moments = [[torch.randn(p.shape, generator=gen, device="cuda")
+                for p in params] for _ in range(2)]
+    st = {"params": params, "opt": {"step": 6, "m": moments[0],
+                                    "v": moments[1]},
+          "strat": (), "step": 6}
+    tree = bridge.to_reference(st, model)
+    t0 = time.perf_counter()
+    blob = checkpoint.dumps(tree)
+    dumps_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = checkpoint.loads(blob, like=tree)
+    torch.cuda.synchronize()
+    loads_s = time.perf_counter() - t0
+    host = checkpoint.loads(blob, like=bridge.describe(tree))
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    leaves = checkpoint.flatten(tree)
+    same = all(b.device == a.device and b.dtype == a.dtype
+               and torch.equal(bits(a), bits(b)) for a, b in
+               zip(leaves, checkpoint.flatten(back)))
+    same_host = all(h.device.type == "cpu" and torch.equal(
+        bits(a).cpu(), bits(h)) for a, h in
+        zip(leaves, checkpoint.flatten(host)))
+    return {"bytes": len(blob), "leaves": len(leaves),
+            "bf16_leaves": sum(t.dtype == torch.bfloat16 for t in leaves),
+            "leaves_on_card": sum(t.device.type == "cuda" for t in
+                                  checkpoint.flatten(back)),
+            "equal_on_card": same, "equal_on_host": same_host,
+            "dumps_again_equal": checkpoint.dumps(back) == blob,
+            "dumps_s": dumps_s, "loads_to_card_s": loads_s}
+
+
+def res_profile(trainer, rank, steps=1):
+    """``torch.profiler`` over fault-free full-width steps of rank 0 (the
+    other ranks step alongside): device busy against the host clock and
+    the host time inside gloo's all-reduce."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    trainer.fault_free_steps(1)
+    if rank != 0:
+        trainer.fault_free_steps(steps, start=1)
+        return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fault_free_steps(steps, start=1)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    out = profile_report(prof, steps, wall_ms, f"{LM_ARCH} harness step "
+                         f"(rank 0 of {RES_RANKS} sharing the card)",
+                         ("swa_wgmma_kernel", "fused_adamw_kernel"), top=6)
+    reduce_ms = [e.cpu_time_total / 1e3 / steps
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CPU
+                 and "all_reduce" in e.key.lower()]
+    out["all_reduce_host_ms"] = max(reduce_ms, default=None)
+    log(f"[resilience] host time in the gradient all-reduce (gloo): "
+        f"{out['all_reduce_host_ms']} ms/step of {wall_ms:.3f}")
+    return out
+
+
+def res_nondeterminism(trainer):
+    """One step with ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: the ops that warn have no deterministic
+    implementation on the card."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer.fault_free_steps(1)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split("\n")[0][:200] for w in caught})
+
+
+def res_rank(rank, init, out_dir, ckpt_dir):
+    """One rank of the resilience phase: baseline, restore twice, takeover
+    and the shrunk restore through ``ResilientTrainer``, launch counts set
+    to 0 just before each run and read just after."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.train import _rank_device, backend_for
+    from repro_torch.resilience import FaultSchedule, ResilientTrainer
+    from repro_torch.serverless.recovery import (CheckpointRestore,
+                                                 PeerTakeover)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _rank_device("cuda", rank)
+    dist.init_process_group(backend_for(dev, RES_RANKS), init_method=init,
+                            rank=rank, world_size=RES_RANKS)
+    schedule = FaultSchedule.single(*RES_KILL)
+    restore = CheckpointRestore(checkpoint_every=RES_CKPT_EVERY)
+    rec = {"backend": dist.get_backend(), "runs": {}}
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def run(trainer, label, policy=None):
+        reset_lm_launches()
+        t0 = time.perf_counter()
+        res = trainer.run(schedule if policy else None, policy)
+        torch.cuda.synchronize(dev)
+        r = dataclasses.asdict(res)
+        r.update(run_s=time.perf_counter() - t0, launches=lm_launches(),
+                 replay_exact=res.replay_exact)
+        rec["runs"][label] = r
+        return r
+
+    t0 = time.perf_counter()
+    trainer = ResilientTrainer(res_config(), ckpt_dir, device="cuda",
+                               keep_checkpoints=False)
+    trainer.warm(schedule, PeerTakeover())
+    rec["setup_s"] = time.perf_counter() - t0
+    run(trainer, "baseline")
+    run(trainer, "restore/0", restore)
+    run(trainer, "restore/1", restore)
+    run(trainer, "takeover", PeerTakeover())
+    runs = rec["runs"]
+    if not (runs["restore/0"]["losses"] == runs["restore/1"]["losses"]
+            == runs["baseline"]["losses"]):
+        rec["nondeterministic_ops"] = res_nondeterminism(trainer)
+    rec["profile"] = res_profile(trainer, rank)
+    if rank == 0:
+        rec["roundtrip"] = res_roundtrip(trainer.model)
+    del trainer
+    torch.cuda.empty_cache()
+    shrunk = ResilientTrainer(res_config(restore_reinvoke=False), ckpt_dir,
+                              device="cuda", keep_checkpoints=False)
+    shrunk.warm(schedule, restore)
+    run(shrunk, "shrunk", restore)
+    del shrunk
+    torch.cuda.empty_cache()
+    ref_lr = ResilientTrainer(res_config(lr=RES_REF_LR,
+                                         steps=RES_REF_STEPS), ckpt_dir,
+                              device="cuda", keep_checkpoints=False)
+    ref_lr.warm()
+    run(ref_lr, f"baseline/lr{RES_REF_LR}")
+    del ref_lr
+    torch.cuda.empty_cache()
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def res_sign_check(base, restore, takeover):
+    """``benchmarks/recovery_replay.py``'s sign check through the port's
+    event runtime: the measured step time and state bytes go in, the
+    crash lands at the kill step's fraction of the epoch; the sign of
+    (restore wall - takeover wall) must equal that of (TTR_restore -
+    TTR_takeover)."""
+    from repro_torch.serverless import (FaultPlan, ServerlessSetup,
+                                        WorkerCrash, run_event_epoch)
+    k, worker = RES_KILL
+    setup = ServerlessSetup(n_workers=RES_RANKS,
+                            batches_per_worker=RES_STEPS,
+                            model_bytes=float(base["state_bytes"]))
+    kw = dict(n_params=base["n_params"], compute_s_per_batch=base["step_s"],
+              setup=setup)
+    ttr = {}
+    for mode in ("restore", "takeover"):
+        clean = run_event_epoch("spirt", faults=FaultPlan(), recovery=mode,
+                                **kw)
+        crash = clean.makespan_s * k / RES_STEPS
+        ttr[mode] = run_event_epoch(
+            "spirt", faults=FaultPlan(crashes=(WorkerCrash(worker, crash),)),
+            recovery=mode, **kw).time_to_recover_s
+    real = (restore["recoveries"][0]["wall_s"]
+            - takeover["recoveries"][0]["wall_s"])
+    sim = ttr["restore"] - ttr["takeover"]
+    return {"real_delta_s": real, "sim_delta_s": sim, "sim_ttr_s": ttr,
+            "consistent": (real > 0) == (sim > 0)}
+
+
+def resilience_phase():
+    """The chaos harness on the card; returns its record.  Every run is
+    logged before the gates are held."""
+    import shutil
+    import torch
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_res_")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.multiprocessing.spawn(
+            res_rank, args=("file://" + os.path.join(out_dir, "pg"),
+                            out_dir, ckpt_dir), nprocs=RES_RANKS)
+        ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+                 for r in range(RES_RANKS)]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    runs = ranks[0]["runs"]
+    base, takeover, shrunk = (runs["baseline"], runs["takeover"],
+                              runs["shrunk"])
+    k, dead = RES_KILL
+    n = base["n_params"]
+    log(f"[resilience] {LM_ARCH} full width ({n:,} parameters), bf16, "
+        f"{RES_RANKS} ranks sharing the card over {ranks[0]['backend']}, "
+        f"global batch {RES_BATCH} x seq {RES_SEQ}, spirt (K 4), lr "
+        f"{RES_LR}, {RES_STEPS} steps, kill step {k} worker {dead}, "
+        f"checkpoint every {RES_CKPT_EVERY}, push every step; set-up "
+        f"(build, groups, warm steps at W {RES_RANKS} and "
+        f"{RES_RANKS - 1}) {ranks[0]['setup_s']:.1f} s")
+    log(f"[resilience] state_bytes {base['state_bytes']:,} B "
+        f"({base['state_bytes'] / n:.4f} B a parameter)")
+    for label, r in runs.items():
+        per_rank = [ranks[q]["runs"][label]["launches"]
+                    for q in range(RES_RANKS)]
+        log(f"[resilience] {label}: losses {r['losses']}; run "
+            f"{r['run_s']:.3f} s, snapshots {r['snapshot_s']:.3f} s; "
+            f"step_s by width {r['step_s_by_width']}; attention launches "
+            f"a rank {[q['swa_attention_fwd'] for q in per_rank]}, fused "
+            f"AdamW {[q['fused_adamw_flat'] for q in per_rank]}")
+        for rr in r["recoveries"]:
+            log(f"[resilience]   {rr['mode']}: wall {rr['wall_s']:.6f} s "
+                f"{ {p: round(v, 6) for p, v in rr['split_s'].items()} }, "
+                f"bytes moved {rr['bytes_moved']:,}, replayed "
+                f"{rr['replayed_steps']}, workers after "
+                f"{rr['n_workers_after']}")
+    rt = ranks[0]["roundtrip"]
+    log(f"[resilience] bf16 round trip: {rt}")
+    log(f"[resilience] peak memory a rank: "
+        f"{[r['peak_mem_bytes'] for r in ranks]} B")
+    sign = res_sign_check(base, runs["restore/0"], takeover)
+    log(f"[resilience] sign check: real restore - takeover "
+        f"{sign['real_delta_s']:+.6f} s, event runtime TTR "
+        f"{sign['sim_delta_s']:+.6f} s ({sign['sim_ttr_s']})")
+
+    for rank, res in enumerate(ranks):
+        for label, r in res["runs"].items():
+            want = res_expected(label, rank)
+            check(r["launches"] == want, f"[resilience] rank {rank} "
+                  f"{label}: launches {r['launches']}, expected {want}")
+            check(r["losses"] == runs[label]["losses"], f"rank {rank} "
+                  f"{label}: its result differs from rank 0's")
+    if "nondeterministic_ops" in ranks[0]:
+        fail(f"[resilience] restore is not bit-exact: baseline "
+             f"{base['losses']}, restores {runs['restore/0']['losses']} "
+             f"and {runs['restore/1']['losses']}; ops without a "
+             f"deterministic implementation in one step: "
+             f"{ranks[0]['nondeterministic_ops']}")
+    for label in ("restore/0", "restore/1"):
+        r = runs[label]
+        rec = r["recoveries"][0]
+        check(r["replay_exact"] and rec["replayed_steps"] == k
+              % RES_CKPT_EVERY and rec["n_workers_after"] == RES_RANKS
+              and r["n_workers_end"] == RES_RANKS, f"[resilience] {label}: "
+              f"{rec}, replay checks {r['replay_checks']}")
+    rec_t = takeover["recoveries"][0]
+    check(rec_t["replayed_steps"] == 0 and rec_t["n_workers_after"]
+          == RES_RANKS - 1 and rec_t["bytes_moved"]
+          == base["state_bytes"] // RES_RANKS, f"[resilience] takeover: "
+          f"{rec_t}, state {base['state_bytes']} B")
+    gap_limit = min(RES_LOSS_GAP, RES_GAP_SHARE * abs(
+        base["losses"][0] - base["losses"][-1]))
+    gaps = [abs(a - b) for a, b in zip(takeover["losses"][k:],
+                                       base["losses"][k:])]
+    check(takeover["losses"][:k] == base["losses"][:k]
+          and all(map(math.isfinite, takeover["losses"]))
+          and len(gaps) == RES_STEPS - k and max(gaps) < gap_limit,
+          f"[resilience] takeover losses {takeover['losses']} against the "
+          f"baseline's {base['losses']}: the steps before the kill must be "
+          f"equal, those after within {gap_limit}")
+    rec_s = shrunk["recoveries"][0]
+    ckpt = k - k % RES_CKPT_EVERY
+    check(rec_s["n_workers_after"] == RES_RANKS - 1
+          and rec_s["replayed_steps"] == k % RES_CKPT_EVERY
+          and shrunk["losses"][:ckpt] == base["losses"][:ckpt]
+          and all(map(math.isfinite, shrunk["losses"])),
+          f"[resilience] shrunk restore: {rec_s}, losses "
+          f"{shrunk['losses']}")
+    check(rt["equal_on_card"] and rt["equal_on_host"]
+          and rt["dumps_again_equal"] and rt["bf16_leaves"] > 0
+          and rt["leaves_on_card"] == rt["leaves"] - 2,
+          f"[resilience] bf16 checkpoint round trip: {rt}")
+    check(sign["consistent"], f"[resilience] restore - takeover wall "
+          f"{sign['real_delta_s']:+.3f} s disagrees in sign with the event "
+          f"runtime's TTR delta {sign['sim_delta_s']:+.3f} s")
+    log(f"[resilience] restore bit-exact against the baseline in both runs; "
+        f"takeover on {RES_RANKS - 1} ranks, final loss "
+        f"{takeover['losses'][-1]} vs baseline {base['losses'][-1]}, the "
+        f"steps before the kill equal, after it gaps {gaps} < {gap_limit}; "
+        f"launches as counted on every rank; the bf16 "
+        f"round trip bit for bit; the sign check holds")
+    record = {
+        "runs": runs, "sign_check": sign, "roundtrip": rt,
+        "profile": ranks[0]["profile"],
+        "launches": {label: [r["runs"][label]["launches"] for r in ranks]
+                     for label in runs},
+        "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
+        "setup_s": ranks[0]["setup_s"]}
+    record["seconds"] = time.perf_counter() - t0
+    log(f"[resilience] phase took {record['seconds']:.1f} s")
+    return record
+
 def main(argv):
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the repository: src/repro_torch is "
@@ -3865,6 +4255,20 @@ def main(argv):
                 "cuda_core": serve[run]["launches"]["swa_attention_fwd"]
                 - serve[run]["launches"]["swa_attention_fwd_wgmma"]}}
         for run in ("smollm", "prefill_32k", "gemma3")}
+    torch.cuda.empty_cache()
+    res = resilience_phase()
+    print(json.dumps({"resilience": res}))
+    for entry, key in ((adamw, "fused_adamw_flat"),
+                       (attention, "swa_attention_fwd")):
+        entry["resilience"] = {
+            "launches": {label: [r[key] for r in ranks]
+                         for label, ranks in res["launches"].items()},
+            "run": f"resilience phase: {LM_ARCH} full width, "
+                   f"{RES_RANKS} ranks sharing the card, one list entry a "
+                   "rank, each run's launches"}
+    attention["resilience"]["wgmma_launches"] = {
+        label: [r["swa_attention_fwd_wgmma"] for r in ranks]
+        for label, ranks in res["launches"].items()}
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -33,8 +33,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
-import sys
 import tempfile
 import time
 from typing import Any, Dict, Optional, Tuple
@@ -49,6 +47,7 @@ from repro_torch.core import build_train_step, get_strategy
 from repro_torch.core.losses import accuracy
 from repro_torch.core.strategies import ROBUST
 from repro_torch.data import cifar_like
+from repro_torch.launch import _subprocess
 from repro_torch.launch.train import _rank_device, process_group
 from repro_torch.models import build_cnn
 
@@ -160,27 +159,14 @@ def run_in_subprocess(inner: str, *, steps: int, attack: str = "scale",
                       timeout: float = 1800.0) -> Dict[str, Any]:
     """Run this module's ``main`` in a child process with ``world_size``
     ranks; parse its RESULT line (numbers as floats)."""
-    src = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
     argv = ["--inner", inner, "--attack", attack, "--steps", str(steps),
             "--data-size", str(data_size), "--seed", str(seed),
-            "--world-size", str(world_size), "--device", device]
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.byzantine_train",
-         *argv, *(["--reduced"] if reduced else [])],
-        capture_output=True, text=True, timeout=timeout, env=env)
-    if out.returncode != 0:
-        raise RuntimeError(f"byzantine_train exited {out.returncode}: "
-                           f"{out.stderr[-3000:]}")
-    lines = [l for l in out.stdout.splitlines() if l.startswith("RESULT,")]
-    if not lines:
-        raise RuntimeError(f"no RESULT line in the driver's output: "
-                           f"{out.stdout[-2000:]!r}")
-    fields = dict(kv.split("=", 1) for kv in lines[-1].split(",")[1:])
-    return {k: (v if k in ("inner", "attack") else float(v))
-            for k, v in fields.items()}
+            "--world-size", str(world_size), "--device", device,
+            *(["--reduced"] if reduced else [])]
+    out = _subprocess.run_module("repro_torch.launch.byzantine_train", argv,
+                                 timeout=timeout)
+    return _subprocess.parse_result_line(out,
+                                         numeric_except=("inner", "attack"))
 
 
 def main(argv=None):

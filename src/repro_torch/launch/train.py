@@ -21,9 +21,10 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
       --fused-optimizer --steps 30 --batch 16 --seq 128
 
-  # reduced SmolLM on the CPU
+  # reduced SmolLM on the CPU, its trained parameters saved
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
-      --reduced --device cpu --steps 3 --batch 4 --seq 64 --fused-optimizer
+      --reduced --device cpu --steps 3 --batch 4 --seq 64 --fused-optimizer \
+      --checkpoint /tmp/smollm_params.msgpack
 
   # full-width RWKV6-7B cut to 4 layers, through the WKV kernel, one GPU
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \
@@ -33,7 +34,10 @@ One process per rank: NCCL on the GPU (rank r on card r % cards), gloo on
 the CPU and wherever ranks outnumber cards (NCCL refuses two ranks on
 one GPU), rendezvous through a ``file://`` init method in a fresh
 temporary directory.  Every rank draws the same global batch from the
-seed and trains on its own contiguous shard of it.
+seed and trains on its own contiguous shard of it.  ``--checkpoint PATH``
+saves the trained parameter tree in the reference's checkpoint format
+(``repro_torch.checkpoint``), which ``repro.checkpoint.restore(path,
+like=params)`` reads.
 """
 from __future__ import annotations
 
@@ -48,13 +52,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import optim
 from repro_torch.configs.base import get_config
 from repro_torch.core import build_train_step, get_strategy
 from repro_torch.core.strategies import STRATEGIES
 from repro_torch.data import cifar_like, lm_batches, token_stream
 from repro_torch.device import resolve_device
-from repro_torch.models import build_cnn, build_model
+from repro_torch.models import build_cnn, build_model, param_tree
 
 CNN_ARCHS = ("mobilenet-cifar", "resnet18-cifar")
 LM_ARCHS = ("smollm-135m", "phi3-mini-3.8b", "qwen1.5-4b", "gemma3-4b",
@@ -103,7 +108,8 @@ def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
           fused_optimizer: bool = False, device="cuda",
           reduced: bool = False, n_layers=None, seed: int = 0,
           rank: int = 0, world_size: int = 1, init_method=None,
-          init_params=None, log_every: int = 10, log=print) -> dict:
+          init_params=None, checkpoint=None, log_every: int = 10,
+          log=print) -> dict:
     """Train ``steps`` steps as ``rank`` of ``world_size`` and return a
     summary: per-step losses, the last metrics, timings and, on a GPU,
     peak device memory.  ``batch`` is the global batch; each rank trains
@@ -111,9 +117,11 @@ def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
     to an LM.  ``n_layers`` replaces the config's depth (after
     ``reduced``), widths unchanged.  ``init_params`` is a state dict to
     start from (for instance ``params_from_reference`` of a reference
-    tree) instead of the seeded draw.  Joins the default process group when it is already
-    initialised; otherwise creates it from ``init_method`` (with one rank,
-    a fresh ``file://`` path when None) and destroys it after.
+    tree) instead of the seeded draw.  ``checkpoint`` is a path where rank 0
+    saves the trained parameter tree in the reference's format.  Joins the
+    default process group when it is already initialised; otherwise
+    creates it from ``init_method`` (with one rank, a fresh ``file://``
+    path when None) and destroys it after.
     """
     if batch % world_size:
         raise ValueError(f"global batch {batch} is not divisible by "
@@ -121,8 +129,8 @@ def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
     dev = _rank_device(device, rank)
     with process_group(dev, rank, world_size, init_method):
         return _train(arch, strategy, steps, batch, seq, lr, fused_optimizer,
-                      dev, reduced, n_layers, seed, init_params, log_every,
-                      log if rank == 0 else None)
+                      dev, reduced, n_layers, seed, init_params, checkpoint,
+                      log_every, log if rank == 0 else None)
 
 
 def _cnn_setup(cfg, batch, lr, dev, seed, rank, B_local):
@@ -153,7 +161,8 @@ def _lm_setup(cfg, batch, seq, lr, fused_optimizer, dev, seed, rank,
 
 
 def _train(arch, strategy, steps, batch, seq, lr, fused_optimizer, dev,
-           reduced, n_layers, seed, init_params, log_every, log):
+           reduced, n_layers, seed, init_params, checkpoint, log_every,
+           log):
     rank, W = dist.get_rank(), dist.get_world_size()
     cfg = get_config(arch)
     if reduced:
@@ -213,6 +222,10 @@ def _train(arch, strategy, steps, batch, seq, lr, fused_optimizer, dev,
     if dev.type == "cuda":
         out["device_name"] = torch.cuda.get_device_name(dev)
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if checkpoint and rank == 0:
+        ckpt.save(checkpoint, param_tree(model))
+        if log:
+            log(f"saved params to {checkpoint}")
     return out
 
 
@@ -238,12 +251,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--world-size", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="save the trained parameters here, in the "
+                         "reference's checkpoint format")
     args = ap.parse_args(argv)
     kwargs = dict(arch=args.arch, strategy=args.strategy, steps=args.steps,
                   batch=args.batch, seq=args.seq, lr=args.lr,
                   fused_optimizer=args.fused_optimizer, device=args.device,
                   reduced=args.reduced, n_layers=args.layers,
-                  seed=args.seed,
+                  seed=args.seed, checkpoint=args.checkpoint,
                   world_size=args.world_size)
     if args.world_size == 1:
         res = train(**kwargs)

@@ -44,16 +44,19 @@ def params_from_reference(tree) -> dict:
             for path, arr in _walk(tree)}
 
 
-def params_to_reference(model: nn.Module):
-    """The reference's parameter tree of numpy arrays for ``model``; the
-    inverse of ``params_from_reference``."""
+def param_tree(model: nn.Module):
+    """The module's parameters as the reference's tree (dicts, and lists
+    where the keys are indices); the leaves are the parameters
+    themselves.  The top-level lists a module names in
+    ``reference_lists`` are kept when empty, as the reference keeps them
+    (a transformer's ``'tail': []`` where the depth is whole pattern
+    blocks)."""
     root: dict = {}
     for name, p in model.named_parameters():
-        arr = p.detach().cpu().numpy()
         node, path = root, _path(name)
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        node[path[-1]] = p
 
     def listify(node):
         if not isinstance(node, dict):
@@ -61,7 +64,17 @@ def params_to_reference(model: nn.Module):
         if all(isinstance(k, int) for k in node):
             return [listify(node[i]) for i in range(len(node))]
         return {k: listify(v) for k, v in node.items()}
-    return listify(root)
+    tree = listify(root)
+    for key in getattr(model, "reference_lists", ()):
+        tree.setdefault(key, [])
+    return tree
+
+
+def params_to_reference(model: nn.Module):
+    """The reference's parameter tree of numpy arrays for ``model``; the
+    inverse of ``params_from_reference``."""
+    return _map_tree(lambda p: np.ascontiguousarray(
+        p.detach().cpu().numpy()), param_tree(model))
 
 
 def _map_tree(fn, tree):

@@ -61,10 +61,9 @@ from repro_torch.configs.base import GLOBAL, LOCAL, RWKV
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention, kvquant, layers, rwkv6
-from repro_torch.models import params as _params
 from repro_torch.models.params import (  # noqa: F401
-    cache_from_reference, cache_to_reference, params_from_reference,
-    reference_leaves,
+    cache_from_reference, cache_to_reference, param_tree,
+    params_from_reference, params_to_reference, reference_leaves,
 )
 
 _UNSUPPORTED = ("ROADMAP.md, Open items §1, slice 4: the transformer LM "
@@ -136,6 +135,10 @@ class _Table(nn.Module):
 
 
 class Model(nn.Module):
+    # the reference tree's top-level lists, kept by ``param_tree`` when
+    # empty (``'tail': []`` where the depth is whole pattern blocks)
+    reference_lists = ("blocks", "tail")
+
     def __init__(self, cfg, *, use_kernel: bool = False, remat: bool = True,
                  kv_quant: bool = False, gen=None):
         super().__init__()
@@ -384,15 +387,3 @@ def build_model(cfg, *, use_kernel: bool = False, remat: bool = True,
     dev = resolve_device(device)
     return Model(cfg, use_kernel=use_kernel, remat=remat,
                  gen=torch.Generator(device=dev).manual_seed(seed))
-
-
-# ---------------------------------------------------------------------------
-# the reference's parameter tree <-> the module's parameters
-# (``reference_leaves`` and ``params_from_reference`` are the shared ones)
-# ---------------------------------------------------------------------------
-def params_to_reference(model: Model) -> dict:
-    """The reference's tree of numpy arrays, with its empty lists."""
-    tree = _params.params_to_reference(model)
-    tree.setdefault("blocks", [])
-    tree.setdefault("tail", [])
-    return tree

@@ -21,8 +21,9 @@ matching the designs the paper compares:
                      transfer) and absorb its remaining minibatches;
                      the fleet continues with W-1 workers.
 
-The reference's ``real_apply`` hooks, which drive its resilience
-harness, wait for that harness's port.
+Each policy's ``real_apply`` hook drives the real resilience harness
+(``repro_torch.resilience.ResilientTrainer``) through the same recovery,
+so the simulated and the measured claims share one definition.
 
 Robust aggregators, SPIRT's defense against poisoned gradients, are
 ordinary strategies: every worker all-gathers the fleet's gradients and
@@ -65,6 +66,20 @@ def _kernels(use_kernel: bool):
 class RecoveryPolicy:
     detection_s: float = 1.0
 
+    def real_apply(self, trainer, worker: int):
+        """Recover a *real* training run.
+
+        ``trainer`` is a :class:`repro_torch.resilience.ResilientTrainer`
+        whose worker ``worker`` (its index in the current fleet) was just
+        lost mid-step.  The same policy object the event runtime scores
+        drives the real harness, so the simulated and measured recovery
+        claims share one definition.  Returns the trainer's
+        :class:`~repro_torch.resilience.harness.RecoveryOutcome`
+        (replayed steps, wall time, bytes moved).
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} has no real-training recovery hook")
+
 
 @dataclasses.dataclass(frozen=True)
 class CheckpointRestore(RecoveryPolicy):
@@ -74,11 +89,17 @@ class CheckpointRestore(RecoveryPolicy):
     def replay_rounds(self, crashed_round: int) -> int:
         return crashed_round % self.checkpoint_every
 
+    def real_apply(self, trainer, worker: int):
+        return trainer.recover_restore(worker)
+
 
 @dataclasses.dataclass(frozen=True)
 class PeerTakeover(RecoveryPolicy):
     """SPIRT-style: survivors absorb the dead worker's partition."""
     detection_s: float = 0.5
+
+    def real_apply(self, trainer, worker: int):
+        return trainer.recover_takeover(worker)
 
 
 @dataclasses.dataclass

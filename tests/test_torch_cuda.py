@@ -1137,3 +1137,74 @@ def test_decode_attention_bf16_on_cuda_matches_fp32_products(cuda):
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got.float().cpu(), want.float(),
                                    rtol=2 ** -7, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the resilience harness on the card
+# ---------------------------------------------------------------------------
+def _bf16_state():
+    """A harness-shaped state on the host: bf16 parameters beside fp32
+    ones, fp32 moments, int32 0-d steps."""
+    gen = torch.Generator().manual_seed(0)
+    step = torch.tensor(3, dtype=torch.int32)
+    return {"opt": {"m": [torch.randn(64, 48, generator=gen)],
+                    "step": step.clone()},
+            "params": {"w": torch.randn(64, 48, generator=gen).bfloat16(),
+                       "norm": torch.randn(48, generator=gen), "tail": []},
+            "step": step.clone(), "strat": ()}
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def test_checkpoint_of_a_bf16_state_on_cuda_round_trips(cuda):
+    """The blob of the state on the card is the blob of the same state on
+    the host, byte for byte, and loads back onto the card bit for bit."""
+    from repro_torch import checkpoint
+    host = _bf16_state()
+    leaves = checkpoint.flatten(host)
+    card = checkpoint.unflatten(host, [t.to(cuda) for t in leaves])
+    blob = checkpoint.dumps(card)
+    assert blob == checkpoint.dumps(host)
+    back = checkpoint.loads(blob, like=card)
+    for a, b in zip(checkpoint.flatten(back), leaves):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(_bits(a).cpu(), _bits(b))
+
+
+def test_checkpoint_loads_places_each_leaf_like_its_template(cuda):
+    """A leaf goes to its template's device and dtype: the card, the host
+    for a meta template, fp32 for an fp32 template of a bf16 leaf."""
+    from repro_torch import checkpoint
+    host = _bf16_state()
+    blob = checkpoint.dumps(host)
+    leaves = checkpoint.flatten(host)
+    like = checkpoint.unflatten(host, [
+        torch.empty(t.shape, dtype=torch.float32 if t.dtype ==
+                    torch.bfloat16 else t.dtype, device=dev)
+        for t, dev in zip(leaves, [cuda, "meta", cuda, cuda, "meta"])])
+    got = checkpoint.flatten(checkpoint.loads(blob, like=like))
+    assert [t.device.type for t in got] == ["cuda", "cpu", "cuda", "cuda",
+                                            "cpu"]
+    assert got[3].dtype == torch.float32 and leaves[3].dtype == torch.bfloat16
+    assert torch.equal(got[3].cpu(), leaves[3].float())
+
+
+def test_two_rank_kill_and_takeover_of_reduced_smollm_on_cuda(cuda):
+    """Reduced SmolLM on 2 ranks sharing the card: restore replays the
+    baseline bit for bit, takeover leaves one rank, moves the dead
+    rank's half of the blob and replays nothing."""
+    from repro_torch.launch.resilient_train import run_in_subprocess
+    out = run_in_subprocess(n_workers=2, global_batch=4, steps=5,
+                            kill_step=3, kill_worker=0, checkpoint_every=2,
+                            seq=16, device="cuda", timeout=900)
+    runs = out["runs"]
+    base, restore, take = runs["baseline"], runs["restore"], runs["takeover"]
+    assert restore["bitexact_vs_baseline"] and restore["replay_exact"]
+    assert restore["recoveries"][0]["replayed_steps"] == 1
+    rec = take["recoveries"][0]
+    assert (rec["replayed_steps"], rec["n_workers_after"]) == (0, 1)
+    assert rec["bytes_moved"] == base["state_bytes"] // 2
+    assert all(np.isfinite(take["losses"])) and len(take["losses"]) == 5
+    assert take["losses"][:3] == base["losses"][:3]

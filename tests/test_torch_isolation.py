@@ -1,6 +1,8 @@
 """The port stands alone: no module under ``src/repro_torch/``, and not
 ``chip_smoke.py``, imports ``jax`` or the reference package ``repro``
-(the GPU machine has no JAX; the port keeps its own copies)."""
+(the GPU machine has no JAX; the port keeps its own copies), nor
+``msgpack`` or ``ml_dtypes``, which the GPU machine does not list (the
+checkpoint format has its own codec)."""
 import ast
 from pathlib import Path
 
@@ -9,7 +11,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
 def _imported_roots(path):
@@ -44,7 +46,11 @@ def test_port_has_modules_to_check():
                 "serving/__init__.py", "serving/engine.py",
                 "serving/workload.py", "serving/fleet.py",
                 "serving/steady_state.py", "launch/serve.py",
-                "costmodel/flops.py"):
+                "costmodel/flops.py", "checkpoint/checkpoint.py",
+                "checkpoint/codec.py", "resilience/harness.py",
+                "resilience/schedule.py", "resilience/store.py",
+                "resilience/state.py", "launch/resilient_train.py",
+                "launch/_subprocess.py"):
         assert port / rel in FILES, rel
 
 
