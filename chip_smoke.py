@@ -145,10 +145,36 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    ``{"resilience": {...}}``; the kernels line's fused-AdamW and
    attention entries gain its launches.
 
+12. families: the model families beyond the dense and RWKV LMs, at full
+   width.  Kernel 8 at each family's prefill shape (Mixtral 8x7B's and
+   8x22B's, RecurrentGemma's, Whisper's decoder's, Pixtral's) against its
+   plain version, timed against bound and SDPA.  Training through the
+   entry point (bf16, fused AdamW lr 3e-4, 5 steps, one-rank NCCL group):
+   mixtral-8x7b cut to 1 layer and pixtral-12b to 2 (batch 1 x seq 2048),
+   recurrentgemma-2b cut to one (RG-LRU, RG-LRU, local) group (batch 1 x
+   seq 2048), whisper-small at full depth (batch 4 x 448 over stub frames
+   of 1500); losses finite and falling, fused AdamW once a leaf a step,
+   kernel 8 twice an attention layer a step (all wgmma), the first step's
+   loss against the kernel-free path's to 2^-9, a record at the
+   reference's lr 3e-3, peak memory; a profiler window over each family's
+   step.  Serving through ``serve_model`` with the stub
+   inputs: Mixtral 8x7B (1 layer) and 8x22B (2 layers), RecurrentGemma and
+   Whisper at full depth, Pixtral at full depth (1,024 patches and 512
+   text tokens); kernel 8 once an attention layer a prefill, decode
+   against the teacher-forced forward within the witness gate, ms a token
+   against ``costmodel.flops.step_bytes_hbm``'s bound.  An MoE model
+   prefills once at the reference's capacity factor (the share of slots
+   kept is recorded) and is then held at capacity factor E / k, where no
+   slot drops; positions where rounding flipped an expert choice between
+   the served path and the forward are left out and counted.  Its record
+   is the line ``{"families": {...}}``; the kernels line's attention and
+   fused-AdamW entries gain its shapes and launches.
+
 The line before the last is a JSON object with one entry per kernel; the
-last is ``{"ok": true, "device": {...}}``.  The table3 and serve records
-come earlier, on lines of their own: ``{"table3": {...}}``, ``{"serve":
-{...}}``, ``{"resilience": {...}}``.
+last is ``{"ok": true, "device": {...}}``.  The table3, serve, resilience
+and families records come earlier, on lines of their own: ``{"table3":
+{...}}``, ``{"serve": {...}}``, ``{"resilience": {...}}``, ``{"families":
+{...}}``.
 
     python3 chip_smoke.py --compare-mlless ROOT
 
@@ -2006,24 +2032,29 @@ def profile_report(prof, steps, wall_ms, label, names=(), top=10):
 def lm_profile(batch=LM_BATCH, seq=LM_SEQ, steps=3, split_attention=False,
                cfg=None, lr=LM_LR):
     """``torch.profiler`` over a few full-width SmolLM-135M steps (or of
-    the model ``cfg`` at ``lr``; fused AdamW, after warm-up): device time
-    by kernel against the host clock.
+    the model ``cfg`` at ``lr``, with the stub inputs a VLM or an
+    encoder-decoder takes; fused AdamW, after warm-up): device time by
+    kernel against the host clock.
     With ``split_attention``, attention's device time a step split into the
     forward kernel (its launches in the forward and in the remat
     recompute), the backward's plain recompute of the forward (the chunked
     ``_Flash`` forward inside ``_SwaAttentionBackward``) and the plain
     backward itself (``_FlashBackward``)."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import optim
     from repro_torch.configs.base import get_config
     from repro_torch.core import build_train_step, get_strategy
     from repro_torch.data import lm_batches, token_stream
+    from repro_torch.launch.train import stub_inputs
     from repro_torch.models import build_model
     cfg = cfg or get_config(LM_ARCH)
     it = lm_batches(token_stream(batch * seq * 8, cfg.vocab_size), batch,
                     seq)
-    data = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+    data = {k: torch.from_numpy(v).cuda() for k, v in {
+        **next(it), **stub_inputs(cfg, batch, np.random.RandomState(0))}
+        .items()}
     ts = build_train_step(build_model(cfg, use_kernel=True, device="cuda"),
                           optim.adamw(lr, use_fused=True),
                           get_strategy("allreduce"))
@@ -3270,11 +3301,13 @@ def serve_tokens(vocab, batch, n, seed):
                             .astype(np.int32)).cuda()
 
 
-def serve_run(model, prompt, cache_len, n_tokens, label, profile_steps=0):
-    """Prefill ``prompt`` through ``build_serve_step``, then ``n_tokens``
-    greedy decode steps; the kernel-8 launches of the prefill alone (the
-    counts set to 0 just before it), the times, the decode logits (B, n,
-    vocab) and the tokens fed."""
+def serve_run(model, prompt, cache_len, n_tokens, label, profile_steps=0,
+              extras=None):
+    """Prefill ``prompt`` (with ``extras``, a VLM's patch embeddings or an
+    encoder-decoder's frames) through ``build_serve_step``, then
+    ``n_tokens`` greedy decode steps; the kernel-8 launches of the prefill
+    alone (the counts set to 0 just before it), the times, the decode
+    logits (B, n, vocab) and the tokens fed."""
     import torch
     from repro_torch.core import build_serve_step
     from repro_torch.kernels import swa_attention as swa
@@ -3287,7 +3320,7 @@ def serve_run(model, prompt, cache_len, n_tokens, label, profile_steps=0):
         swa.LAUNCHES[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = ss.prefill_fn({"tokens": prompt})
+    logits, cache = ss.prefill_fn({"tokens": prompt, **(extras or {})})
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     launches = serve_launches()
@@ -3322,50 +3355,127 @@ def serve_run(model, prompt, cache_len, n_tokens, label, profile_steps=0):
     return out, torch.stack(outs, 1), torch.cat(fed, 1)
 
 
-def teacher_forced_err(model, prompt, fed, logits):
-    """Max |decode logits - forward logits| over the prefill's last
-    position and every decoded position, the forward run over the prompt
-    and the fed tokens; and the forward's largest |logit|."""
+def teacher_forced(model, prompt, fed, extras=None):
+    """The forward's logits (fp32) at the prefill's last position and at
+    every decoded position, the forward run over the prompt and the fed
+    tokens (with the prefill's ``extras``): (B, n + 1, vocab)."""
     import torch
     with torch.no_grad():
-        full, _ = model({"tokens": torch.cat([prompt, fed], 1)})
+        full, _ = model({"tokens": torch.cat([prompt, fed], 1),
+                         **(extras or {})})
     P, n = prompt.shape[1], fed.shape[1]
-    ref = full[:, P - 1:P + n].float()
-    err = float((logits.float() - ref).abs().max())
-    return err, float(ref.abs().max())
+    return full[:, P - 1:P + n].float()
+
+
+def logits_err(logits, ref, skip=None):
+    """Max |logits - ref| over the positions that ``skip``, a (B, n + 1)
+    mask, does not mark."""
+    diff = (logits.float() - ref).abs().amax(-1)
+    if skip is not None:
+        diff = diff[~skip]
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def teacher_forced_err(model, prompt, fed, logits, extras=None):
+    """Max |decode logits - forward logits| (``teacher_forced``) and the
+    forward's largest |logit|."""
+    ref = teacher_forced(model, prompt, fed, extras)
+    return logits_err(logits, ref), float(ref.abs().max())
+
+
+class RouteWatch:
+    """Records the set of experts each token chose in every MoE layer call
+    made inside the block: ``calls``, one (T, k) tensor (sorted) a call."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.route, self.calls = moe, moe._route, []
+
+        def watch(p, xf, cfg):
+            out = self.route(p, xf, cfg)
+            dest, C = out[1], out[4]
+            self.calls.append((dest // C).reshape(
+                -1, cfg.experts_per_token).sort(dim=-1).values)
+            return out
+        moe._route = watch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+
+def route_flips(calls, B, P, n):
+    """(B, n + 1) bool: the positions P - 1 .. P + n - 1 where some MoE
+    layer chose other experts in the prefill or a decode step than in the
+    teacher-forced forward.  ``calls`` are a ``RouteWatch``'s over the
+    prefill, n decode steps and the forward, in that order (L calls each,
+    no slot dropped)."""
+    import torch
+    L = len(calls) // (n + 2)
+    check(len(calls) == L * (n + 2), f"route calls {len(calls)}")
+    flips = []
+    for l in range(L):
+        served = torch.stack([calls[l].reshape(B, P, -1)[:, -1]] + [
+            calls[L * (1 + i) + l] for i in range(n)], 1)
+        forward = calls[L * (n + 1) + l].reshape(B, P + n, -1)[:, P - 1:]
+        flips.append((served != forward).any(-1))
+    return torch.stack(flips).any(0)
 
 
 def serve_model(cfg, prompt, cache_len, n_tokens, label, expect_launches,
-                seed=0, profile_steps=0, witness=None):
-    """One model served through the kernel and through the kernel-free
-    path (or ``witness``, a context manager around the witness's run) on
-    the same weights and prompt, each held against its own teacher-forced
-    forward; gates the kernel's error against ``SERVE_WITNESS_FACTOR``
-    times the witness's (at least one bf16 step of the largest logit)."""
+                seed=0, profile_steps=0, witness=None, extras=None,
+                model=None):
+    """One model (``model``, or one drawn from ``seed``) served through
+    the kernel and through the kernel-free path (or ``witness``, a context
+    manager around the witness's run) on the same weights and prompt (and
+    ``extras``), each held against its own teacher-forced forward; gates
+    the kernel's error against ``SERVE_WITNESS_FACTOR`` times the
+    witness's (at least one bf16 step of the largest logit)."""
     import contextlib
     import torch
     from repro_torch.models import build_model
-    model = build_model(cfg, use_kernel=True, device="cuda", seed=seed)
-    res, logits, fed = serve_run(model, prompt, cache_len, n_tokens, label,
-                                 profile_steps)
+    if model is None:
+        model = build_model(cfg, use_kernel=True, device="cuda", seed=seed)
+    model.use_kernel = True
+    B, P = prompt.shape
+
+    def served(**kw):
+        """serve_run and the teacher-forced error; an MoE model's positions
+        where rounding flipped an expert choice between the served path
+        and the forward are left out, and counted."""
+        with RouteWatch() if cfg.is_moe else contextlib.nullcontext() as w:
+            res, logits, fed = serve_run(model, prompt, cache_len, n_tokens,
+                                         label, extras=extras, **kw)
+            ref = teacher_forced(model, prompt, fed, extras)
+        skip = None
+        if w is not None:
+            skip = route_flips(w.calls, B, P, n_tokens)
+            res["route_flips"] = int(skip.sum())
+        return (res, logits, fed, logits_err(logits, ref, skip),
+                float(ref.abs().max()))
+
+    res, logits, fed, err, scale = served(profile_steps=profile_steps)
     check(bool(torch.isfinite(logits).all()), f"[serve] {label}: decode "
           "logits not finite")
     got = res["launches"]
     check(got == expect_launches, f"[serve] {label}: prefill launched "
           f"{got}, expected {expect_launches}")
-    err, scale = teacher_forced_err(model, prompt, fed, logits)
     del logits
     model.use_kernel = False
     with witness() if witness else contextlib.nullcontext():
-        wres, wlogits, wfed = serve_run(model, prompt, cache_len, n_tokens,
-                                        label)
-        werr, _ = teacher_forced_err(model, prompt, wfed, wlogits)
+        wres, wlogits, wfed, werr, _ = served()
     del wlogits, model
     torch.cuda.empty_cache()
     tol = max(SERVE_WITNESS_FACTOR * werr, 2 ** -7 * scale)
     check(err <= tol, f"[serve] {label}: decode vs teacher-forced forward "
           f"max abs {err:.4e} > {tol:.4e} (witness {werr:.4e})")
     agree = float((fed == wfed).float().mean())
+    if "route_flips" in res:
+        res["witness_route_flips"] = wres["route_flips"]
+        log(f"[serve] {label}: positions left out where an expert choice "
+            f"flipped between the served path and the forward: "
+            f"{res['route_flips']} (witness {wres['route_flips']}) of "
+            f"{B * (n_tokens + 1)}")
     res.update(max_abs_err=err, witness_max_abs_err=werr, tol=tol,
                max_abs_logit=scale, witness_prefill_ms=wres["prefill_ms"],
                witness_decode_ms_per_token=wres["decode_ms_per_token"],
@@ -3411,7 +3521,7 @@ def serve_prefill_32k():
         check(bool(torch.isfinite(logits).all()), "prefill_32k logits")
     # layer 0's q, k, v, recomputed as the prefill computed them
     with torch.no_grad():
-        _, p, _ = next(model._serve_layers(cache, False))
+        _, p, _, _ = next(model._serve_layers(cache, False))
         h = layers.rmsnorm(layers.embed(model.embed.table, prompt),
                            p["norm1"])
         q, k, v = attention.project_qkv(p["attn"], h, cfg)
@@ -3760,6 +3870,318 @@ def serve_phase():
     log(f"[serve] phase took {rec['seconds']:.1f} s")
     return rec
 
+
+
+# ---------------------------------------------------------------------------
+# families: MoE, RG-LRU, encoder-decoder and VLM at full width
+# ---------------------------------------------------------------------------
+# the working lr of the gated runs (Gemma-3's, a model of like width), and
+# the reference's default, a record
+FAM_LR = 3e-4
+FAM_REF_LR = 3e-3
+FAM_STEPS = 5
+# each family's train cell (depth cut to ``layers``, None for full depth;
+# its leaves) and serve cell; mixtral-8x22b is not trained on the card (one
+# layer is 2.9 B parameters, ~58 GB with its AdamW state)
+FAMILIES = {
+    "mixtral-8x7b": dict(
+        train=dict(layers=1, batch=1, seq=2048, leaves=13),
+        serve=dict(layers=1, batch=4, prompt=512, cache=1024, tokens=16)),
+    "mixtral-8x22b": dict(
+        train=None,
+        serve=dict(layers=2, batch=2, prompt=512, cache=1024, tokens=16)),
+    "recurrentgemma-2b": dict(
+        train=dict(layers=3, batch=1, seq=2048, leaves=33),
+        serve=dict(layers=None, batch=4, prompt=512, cache=1024, tokens=16)),
+    "whisper-small": dict(
+        train=dict(layers=None, batch=4, seq=448, leaves=34),
+        serve=dict(layers=None, batch=4, prompt=64, cache=128, tokens=32)),
+    "pixtral-12b": dict(
+        train=dict(layers=2, batch=1, seq=2048, leaves=12),
+        serve=dict(layers=None, batch=1, prompt=1536, cache=2048,
+                   tokens=16)),
+}
+FAM_PROFILED = ("mixtral-8x7b", "recurrentgemma-2b", "whisper-small",
+                "pixtral-12b")
+# kernel 8 at each family's prefill shape: (label, B, S, H, KV, hd, window)
+FAM_ATTENTION = [
+    ("mixtral-8x7b", 4, 512, 32, 8, 128, 4096),
+    ("mixtral-8x22b", 2, 512, 48, 8, 128, 4096),
+    ("recurrentgemma-2b", 4, 512, 10, 1, 256, 2048),
+    ("whisper-small", 4, 64, 12, 12, 64, None),
+    ("pixtral-12b", 1, 1536, 32, 8, 160, None),
+]
+
+
+def fam_config(arch, layers):
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def attention_layers(cfg):
+    pat = cfg.layer_pattern
+    return sum(pat[i % len(pat)] in ("global", "local")
+               for i in range(cfg.n_layers))
+
+
+def fam_stubs(cfg, batch, seed):
+    """The stub patch embeddings or frames of one batch, on the card (fp32
+    draws; the model casts them to its dtype)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import stub_inputs
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            stub_inputs(cfg, batch, np.random.RandomState(seed)).items()}
+
+
+def fam_kernel8(dev):
+    """Kernel 8 at each family's prefill shape: against its plain version
+    (bf16, one launch on the tensor-core route each), then the wrapper
+    called back to back and as a CUDA graph, the plain version, SDPA
+    (causal, GQA) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as swa
+    gen = torch.Generator(device=dev).manual_seed(22)
+    out = {}
+    for label, B, S, H, KV, hd, window in FAM_ATTENTION:
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev)
+                   .bfloat16() for n in (H, KV, KV))
+        before = dict(swa.LAUNCHES)
+        got = swa.swa_attention_fwd(q, k, v, window=window)
+        want = ref.swa_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        check(swa.LAUNCHES["swa_attention_fwd_wgmma"]
+              == before["swa_attention_fwd_wgmma"] + 1
+              and swa.LAUNCHES["swa_attention_fwd"]
+              == before["swa_attention_fwd"] + 1,
+              f"[families] swa_attention_fwd at {label}: not one launch on "
+              "the tensor-core route")
+        diff = (got.float() - want.float()).abs()
+        check(bool(torch.isfinite(got).all()) and bool(
+            (diff <= SWA_BF16_ATOL + SWA_BF16_RTOL * want.float().abs())
+            .all()), f"[families] swa_attention_fwd at {label}: max abs "
+                     f"diff {float(diff.max()):.3e}")
+        # the windows (4096, 2048) reach past S: every call is causal alone
+        flops = 4 * B * H * hd * attention_pairs(S, window, True)
+        nbytes = 2 * (q.numel() * 2 + k.numel() * 2)
+        t_ops, t_bytes = flops / H100_BF16_FLOP_PER_S, \
+            nbytes / H100_BYTES_PER_S
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_err = float((lib_fn().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        fn = lambda: swa.swa_attention_fwd(q, k, v, window=window)  # noqa: E731
+        r = dict(max_abs_err=float(diff.max()), ms=time_ms(fn, reps=10),
+                 graph_ms=graphed_ms(fn),
+                 plain_ms=time_ms(lambda: ref.swa_attention(
+                     q, k, v, window=window), reps=3, warmup=1),
+                 library_ms=time_ms(lib_fn, reps=10),
+                 library_max_abs_err=lib_err,
+                 library="F.scaled_dot_product_attention(is_causal=True, "
+                         "enable_gqa=True), (B, H, S, hd)",
+                 bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 flops=flops, bytes=nbytes,
+                 shapes=f"q ({B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, "
+                        f"{hd}) bf16, causal, window {window}")
+        out[label] = r
+        log(f"[families] swa_attention_fwd at {label}'s prefill, "
+            f"{r['shapes']}: max abs err {r['max_abs_err']:.3e} against "
+            f"the plain version; kernel {r['ms']:.4f} ms (CUDA graph "
+            f"{r['graph_ms']:.4f} ms, {r['bound_ms'] / r['graph_ms']:.3f} "
+            f"of the bound), plain {r['plain_ms']:.4f} ms, SDPA "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+        del q, k, v, got, want, diff, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_train(arch, spec):
+    """The LM entry point on ``arch`` (its train cut) over the open
+    one-rank group: FAM_STEPS steps at FAM_LR, the launch counts, the
+    first step's loss against the kernel-free path's on the same weights
+    and batch, a record of the reference's default lr."""
+    import numpy as np
+    import torch
+    from repro_torch.core.train_step import default_loss
+    from repro_torch.data import lm_batches, token_stream
+    from repro_torch.launch.train import stub_inputs, train
+    from repro_torch.models import build_model
+    cfg = fam_config(arch, spec["layers"])
+    B, S = spec["batch"], spec["seq"]
+    torch.cuda.empty_cache()
+    reset_lm_launches()
+    res = train(arch=arch, n_layers=spec["layers"], batch=B, seq=S,
+                steps=FAM_STEPS, lr=FAM_LR, fused_optimizer=True,
+                device="cuda", log_every=FAM_STEPS, log=None)
+    launches = lm_launches()
+    n_att = attention_layers(cfg)
+    want = {"fused_adamw_flat": spec["leaves"] * FAM_STEPS,
+            "swa_attention_fwd": 2 * n_att * FAM_STEPS,
+            "swa_attention_fwd_wgmma": 2 * n_att * FAM_STEPS,
+            "wkv6_chunked": 0, "wkv6_chunked_tc": 0, **mlless_launches(0)}
+    check(launches == want, f"[families] {arch} train: launches "
+          f"{launches}, expected {want}")
+    losses = res["losses"]
+    check(all(math.isfinite(x) for x in losses), f"[families] {arch}: "
+          f"loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"[families] {arch}: loss did not fall "
+          f"at lr {FAM_LR}: {losses}")
+    # the first step's loss, kernel-free, on the entry point's weights (the
+    # same seed on the card) and first batch
+    it = lm_batches(token_stream(B * S * 64, cfg.vocab_size, seed=0), B, S,
+                    seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             {**next(it), **stub_inputs(cfg, B, np.random.RandomState(0))}
+             .items()}
+    torch.cuda.empty_cache()
+    model = build_model(cfg, use_kernel=False, device="cuda", seed=0)
+    with torch.no_grad():
+        plain = float(default_loss(model, batch))
+    del model, batch
+    rel = abs(losses[0] - plain) / abs(plain)
+    check(rel <= LM_STEP_RTOL, f"[families] {arch}: first step through the "
+          f"kernels {losses[0]:.6f} vs kernel-free {plain:.6f}: rel "
+          f"{rel:.3e} > {LM_STEP_RTOL:.3e}")
+    torch.cuda.empty_cache()
+    record = train(arch=arch, n_layers=spec["layers"], batch=B, seq=S,
+                   steps=FAM_STEPS, lr=FAM_REF_LR, fused_optimizer=True,
+                   device="cuda", log=None)["losses"]
+    log(f"[families] {arch} train, {cfg.n_layers} layers "
+        f"({res['params']:,} parameters), bf16, batch {B} x seq {S}, fused "
+        f"AdamW lr {FAM_LR}, {FAM_STEPS} steps: losses "
+        f"{[round(x, 4) for x in losses]}; launches a step "
+        f"{ {k: n // FAM_STEPS for k, n in launches.items() if n} }; "
+        f"{res['ms_per_step']:.2f} ms/step after the first "
+        f"({res['first_step_ms']:.1f} ms); peak "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; first step vs "
+        f"kernel-free {plain:.6f} (rel {rel:.2e}); lr {FAM_REF_LR} "
+        f"(record): {[round(x, 4) for x in record]}")
+    return {"layers": cfg.n_layers, "params": res["params"],
+            "batch": B, "seq": S, "lr": FAM_LR, "losses": losses,
+            "launches": launches, "ms_per_step": res["ms_per_step"],
+            "first_step_ms": res["first_step_ms"],
+            "peak_mem_bytes": res["peak_mem_bytes"],
+            "first_step_kernel_free_loss": plain,
+            "kernel_vs_plain_rel": rel,
+            "reference_lr_losses": {str(FAM_REF_LR): record}}
+
+
+def moe_kept_shares(fn):
+    """Runs ``fn`` and returns, for each MoE layer call in it, the share of
+    (token, slot) pairs that kept a place in their expert's buffer."""
+    from repro_torch.models import moe
+    shares, route = [], moe._route
+
+    def watch(p, xf, cfg):
+        out = route(p, xf, cfg)
+        shares.append(float(out[2].float().mean()))
+        return out
+    moe._route = watch
+    try:
+        fn()
+    finally:
+        moe._route = route
+    return shares
+
+
+def fam_serve(arch, spec, seed):
+    """``serve_model`` on ``arch`` (its serve cut) with the stub inputs,
+    the prefill's kernel-8 launches one an attention layer, and ms a token
+    against ``costmodel.flops.step_bytes_hbm``'s bound.
+
+    An MoE model first prefills at the reference's capacity (its time,
+    launches and the share of slots kept), then is held at capacity
+    factor E / k, where no slot is dropped: capacity comes from the
+    call's token count, so at the reference's factor a prompt's prefill
+    and the teacher-forced forward drop slots (a random-init router
+    sends most tokens of a long prompt to the same experts) where a
+    decode step of B tokens never does, and the three would compute
+    different functions."""
+    import dataclasses
+    import torch
+    from repro_torch.costmodel import flops
+    from repro_torch.models import build_model
+    cfg = fam_config(arch, spec["layers"])
+    B = spec["batch"]
+    n_att = attention_layers(cfg)
+    want = {"swa_attention_fwd": n_att, "swa_attention_fwd_wgmma": n_att}
+    label = (f"{arch} ({cfg.n_layers} layers) batch {B}, prompt "
+             f"{spec['prompt']}, cache {spec['cache']}")
+    prompt = serve_tokens(cfg.vocab_size, B, spec["prompt"], seed)
+    extras = fam_stubs(cfg, B, seed)
+    torch.cuda.empty_cache()
+    model = build_model(cfg, use_kernel=True, device="cuda", seed=seed)
+    reference_capacity = None
+    if cfg.is_moe:
+        runs = []
+        kept = moe_kept_shares(lambda: runs.append(serve_run(
+            model, prompt, spec["cache"], 1, label, extras=extras)[0]))
+        check(runs[0]["launches"] == want, f"[families] {label}: prefill "
+              f"launched {runs[0]['launches']}, expected {want}")
+        reference_capacity = {"prefill_ms": runs[0]["prefill_ms"],
+                              "prefill_kept_share": kept[:cfg.n_layers]}
+        model.cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+        log(f"[families] {label}: at the reference's capacity factor "
+            f"{cfg.capacity_factor} the prefill keeps "
+            f"{[round(k, 4) for k in kept[:cfg.n_layers]]} of its slots "
+            f"(per layer) in {runs[0]['prefill_ms']:.2f} ms; held below at "
+            f"capacity factor {model.cfg.capacity_factor} (no drops)")
+        label += f", capacity factor {model.cfg.capacity_factor}"
+        del runs
+    rec = serve_model(model.cfg, prompt, spec["cache"], spec["tokens"],
+                      label, want, extras=extras, model=model)
+    del model
+    if reference_capacity:
+        rec["reference_capacity"] = reference_capacity
+    nbytes = flops.step_bytes_hbm(cfg, B, spec["cache"], "decode")
+    rec.update(spec)
+    rec.update(layers=cfg.n_layers, step_bytes_hbm=nbytes,
+               bound_ms=nbytes / H100_BYTES_PER_S * 1e3)
+    log(f"[families] {arch} decode: {rec['decode_ms_per_token']:.3f} ms a "
+        f"token against the bound {rec['bound_ms']:.3f} ms "
+        f"({nbytes / 1e9:.3f} GB at 3.35 TB/s; "
+        f"{rec['bound_ms'] / rec['decode_ms_per_token']:.3f} of it)")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def families_phase():
+    """Mixtral 8x7B and 8x22B, RecurrentGemma-2B, Whisper-small and
+    Pixtral-12B on the card at full width; returns the record."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    rec = {"attention": fam_kernel8(dev), "train": {}, "serve": {},
+           "profile": {}}
+    init = "file://" + os.path.join(
+        tempfile.mkdtemp(prefix="chip_smoke_fam_"), "pg")
+    dist.init_process_group("nccl", init_method=init, rank=0, world_size=1)
+    try:
+        for arch, spec in FAMILIES.items():
+            if spec["train"] is not None:
+                rec["train"][arch] = fam_train(arch, spec["train"])
+            if arch in FAM_PROFILED:
+                t = spec["train"]
+                rec["profile"][arch] = lm_profile(
+                    t["batch"], t["seq"], cfg=fam_config(arch, t["layers"]),
+                    lr=FAM_LR)
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for seed, (arch, spec) in enumerate(FAMILIES.items()):
+        rec["serve"][arch] = fam_serve(arch, spec["serve"], seed)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[families] phase took {rec['seconds']:.1f} s")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -4269,6 +4691,24 @@ def main(argv):
     attention["resilience"]["wgmma_launches"] = {
         label: [r["swa_attention_fwd_wgmma"] for r in ranks]
         for label, ranks in res["launches"].items()}
+    torch.cuda.empty_cache()
+    fam = families_phase()
+    print(json.dumps({"families": fam}))
+    attention["families"] = {
+        "prefill_shapes": fam["attention"],
+        "train_launches": {a: {k: r["launches"][k] for k in (
+            "swa_attention_fwd", "swa_attention_fwd_wgmma")}
+            for a, r in fam["train"].items()},
+        "prefill_launches": {a: r["launches"]
+                             for a, r in fam["serve"].items()},
+        "run": f"families phase: each family's train cell, {FAM_STEPS} "
+               "steps, and one prefill of each serve cell"}
+    adamw["families"] = {
+        "launches": {a: r["launches"]["fused_adamw_flat"]
+                     for a, r in fam["train"].items()},
+        "leaves": {a: FAMILIES[a]["train"]["leaves"] for a in fam["train"]},
+        "run": f"families phase: each family's train cell, {FAM_STEPS} "
+               "steps"}
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,10 @@
 """Architecture registry (``--arch <id>``).
 
-A copy of the reference's registry, cut to what the port runs: the
-``CNNConfig`` of the paper's two CIFAR models and the reference's
-``ModelConfig`` with the transformer LMs whose layer kinds the port's
-``models.transformer`` supports (global and sliding-window attention,
-RWKV6 time-mix), and the input shapes assigned to the paper
-(``INPUT_SHAPES``).  Configs are pure data; ``repro_torch.models``
+A copy of the reference's registry: the ``CNNConfig`` of the paper's two
+CIFAR models, the reference's ``ModelConfig`` with every transformer LM
+of its zoo (dense, sliding-window, MoE, RG-LRU hybrid, RWKV6,
+encoder-decoder audio and VLM), and the input shapes assigned to the
+paper (``INPUT_SHAPES``).  Configs are pure data; ``repro_torch.models``
 interprets them.
 """
 from __future__ import annotations
@@ -171,4 +170,6 @@ def get_config(name: str):
 
 
 _ALL_MODULES = ["mobilenet_cifar", "resnet18_cifar", "smollm_135m",
-                "phi3_mini_3_8b", "qwen1_5_4b", "gemma3_4b", "rwkv6_7b"]
+                "phi3_mini_3_8b", "qwen1_5_4b", "gemma3_4b", "rwkv6_7b",
+                "mixtral_8x7b", "mixtral_8x22b", "recurrentgemma_2b",
+                "whisper_small", "pixtral_12b"]

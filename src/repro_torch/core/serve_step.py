@@ -35,13 +35,25 @@ def build_serve_step(model, *, batch_size: int, cache_len: int,
 
     def make_inputs(shape_kind: str, seq_len: int):
         """Meta tensors of the step's inputs: ``{"tokens": (B, seq_len)}``
-        for ``"prefill"``, else (token (B, 1), the cache, pos ()), every
-        id and position int32 as in the reference."""
+        (with a VLM's ``patch_emb`` (B, n_patches, d) and an
+        encoder-decoder's ``frames`` (B, encoder_seq, d) in the model
+        dtype) for ``"prefill"``, else (token (B, 1), the cache, pos ()),
+        every id and position int32 as in the reference."""
         B = batch_size
         meta = torch.device("meta")
+        cfg = model.cfg
         if shape_kind == "prefill":
-            return {"tokens": torch.empty((B, seq_len), dtype=torch.int32,
-                                          device=meta)}
+            batch = {"tokens": torch.empty((B, seq_len), dtype=torch.int32,
+                                           device=meta)}
+            dtype = getattr(torch, cfg.dtype)
+            if cfg.family == "vlm":
+                batch["patch_emb"] = torch.empty(
+                    (B, cfg.n_patches, cfg.d_model), dtype=dtype, device=meta)
+            if cfg.is_encoder_decoder:
+                batch["frames"] = torch.empty(
+                    (B, cfg.encoder_seq, cfg.d_model), dtype=dtype,
+                    device=meta)
+            return batch
         token = torch.empty((B, 1), dtype=torch.int32, device=meta)
         cache = model.init_cache(B, cache_len, swa_variant=swa_variant,
                                  device=meta)

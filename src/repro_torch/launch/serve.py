@@ -11,7 +11,9 @@ prompts, then decode N tokens greedily through ``core.build_serve_step``.
 
 The model's attention runs through the Hopper kernel (``use_kernel``,
 the plain version on the CPU); weights are drawn from ``--seed`` on the
-device, prompts from a numpy ``RandomState(seed)``.  ``--layers`` cuts
+device, prompts from a numpy ``RandomState(seed)``, and from the same
+draws, as the reference makes them, a VLM's stub patch embeddings and an
+encoder-decoder's stub frames (``0.1 * randn`` in the model dtype).  ``--layers`` cuts
 the depth and nothing else.  Serving over a mesh waits for the sharding
 slice.
 """
@@ -51,12 +53,21 @@ def serve(*, arch: str, batch: int = 4, prompt_len: int = 64,
     cache_len = prompt_len + decode_tokens
     ss = build_serve_step(model, batch_size=batch, cache_len=cache_len)
     rs = np.random.RandomState(seed)
-    tokens = torch.as_tensor(
+    inputs = {"tokens": torch.as_tensor(
         rs.randint(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32),
-        device=dev)
+        device=dev)}
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.family == "vlm":
+        inputs["patch_emb"] = torch.as_tensor(
+            0.1 * rs.randn(batch, cfg.n_patches, cfg.d_model),
+            device=dev).to(dtype)
+    if cfg.is_encoder_decoder:
+        inputs["frames"] = torch.as_tensor(
+            0.1 * rs.randn(batch, cfg.encoder_seq, cfg.d_model),
+            device=dev).to(dtype)
 
     t0 = time.perf_counter()
-    logits, cache = ss.prefill_fn({"tokens": tokens})
+    logits, cache = ss.prefill_fn(inputs)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     log(f"prefill {batch}x{prompt_len}: {prefill_s:.2f}s")

@@ -30,6 +30,16 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \
       --layers 4 --fused-optimizer --steps 20 --batch 4 --seq 512
 
+  # full-width Mixtral 8x7B cut to one layer; Whisper-small at full depth
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
+      --layers 1 --fused-optimizer --steps 5 --batch 1 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
+      --fused-optimizer --steps 5 --batch 4 --seq 448
+
+A VLM's batches carry stub patch embeddings (``patch_emb``, so ``--seq``
+is at least ``n_patches``) and an encoder-decoder's stub frames
+(``frames``), drawn each step as the reference's tests draw them.
+
 One process per rank: NCCL on the GPU (rank r on card r % cards), gloo on
 the CPU and wherever ranks outnumber cards (NCCL refuses two ranks on
 one GPU), rendezvous through a ``file://`` init method in a fresh
@@ -63,7 +73,8 @@ from repro_torch.models import build_cnn, build_model, param_tree
 
 CNN_ARCHS = ("mobilenet-cifar", "resnet18-cifar")
 LM_ARCHS = ("smollm-135m", "phi3-mini-3.8b", "qwen1.5-4b", "gemma3-4b",
-            "rwkv6-7b")
+            "rwkv6-7b", "mixtral-8x7b", "mixtral-8x22b", "recurrentgemma-2b",
+            "whisper-small", "pixtral-12b")
 
 
 def _rank_device(device, rank):
@@ -148,15 +159,31 @@ def _cnn_setup(cfg, batch, lr, dev, seed, rank, B_local):
     return model, optim.sgd(lr, momentum=0.9), next_batch
 
 
+def stub_inputs(cfg, batch, rs):
+    """A VLM's stub patch embeddings and an encoder-decoder's stub frames
+    for one global batch, ``0.1 * randn`` in fp32 from ``rs`` (the
+    reference's ``_batch``); empty for other LMs."""
+    out = {}
+    if cfg.family == "vlm":
+        out["patch_emb"] = rs.randn(batch, cfg.n_patches, cfg.d_model) \
+            .astype(np.float32) * 0.1
+    if cfg.is_encoder_decoder:
+        out["frames"] = rs.randn(batch, cfg.encoder_seq, cfg.d_model) \
+            .astype(np.float32) * 0.1
+    return out
+
+
 def _lm_setup(cfg, batch, seq, lr, fused_optimizer, dev, seed, rank,
               B_local):
     model = build_model(cfg, use_kernel=True, device=dev, seed=seed)
     it = lm_batches(token_stream(batch * seq * 64, cfg.vocab_size,
                                  seed=seed), batch, seq, seed=seed)
+    rs = np.random.RandomState(seed)
 
     def next_batch():
+        b = {**next(it), **stub_inputs(cfg, batch, rs)}
         return {k: torch.from_numpy(v[rank * B_local:(rank + 1) * B_local])
-                .to(dev) for k, v in next(it).items()}
+                .to(dev) for k, v in b.items()}
     return model, optim.adamw(lr, use_fused=fused_optimizer), next_batch
 
 

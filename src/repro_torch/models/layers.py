@@ -8,12 +8,15 @@ Functions over tensors, with the reference's layouts and numerics:
   ``(1 + w)`` with ``w`` an fp32 vector initialised to zeros;
 * RoPE rotates the two halves of the head (not interleaved pairs), with
   frequencies ``1 / theta ** (arange(half) / half)`` in fp32;
-* the GELU MLP uses the tanh approximation (``jax.nn.gelu``'s default).
+* the GELU MLP uses the tanh approximation (``jax.nn.gelu``'s default);
+* sinusoidal positions (the encoder-decoder's, in place of RoPE) are
+  fp32, ``sin`` halves then ``cos`` halves.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -72,6 +75,26 @@ def apply_rope(x, positions, theta):
     rot2 = x2 * cos + x1 * sin
     out = torch.cat([rot1, rot2, x[..., 2 * half:].float()], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len, d_model, device=None):
+    """(seq_len, d_model) fp32, built in float64 numpy and cast, as the
+    reference builds it."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    angle = pos / np.power(10_000.0, 2 * dim / d_model)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32)).to(device)
+
+
+def sinusoidal_position_at(pos, d_model):
+    """The sinusoidal embedding of a position tensor (0-dim or (B,)), in
+    fp32 arithmetic: (..., d_model)."""
+    pos = torch.as_tensor(pos)
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=pos.device)
+    angle = pos.float()[..., None] / torch.pow(
+        torch.tensor(10_000.0, device=pos.device), 2 * dim / d_model)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

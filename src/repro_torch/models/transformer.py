@@ -1,4 +1,5 @@
-"""The dense transformer LM (``repro.models.transformer``, train path).
+"""The transformer LM zoo (``repro.models.transformer``): train forward,
+decode cache, prefill and single-token decode.
 
 ``Model`` holds the reference's parameter tree as the module's parameters,
 named by their paths in the tree, so ``reference_leaves``,
@@ -9,47 +10,63 @@ for leaf:
   ``cfg.layer_pattern`` has one stacked tree ``blocks.j`` whose leaves
   carry a leading dim of ``n_blocks`` (the reference's ``lax.scan`` over
   pattern blocks), and the remainder layers are ``tail.i``, unstacked;
+  an encoder-decoder's encoder is one stacked tree ``encoder`` (leading
+  dim ``n_encoder_layers``) and its final norm ``enc_norm``;
 * weights are (in, out) for ``x @ W``; norms are fp32 vectors even in a
-  bf16 model;
-* the leaf order is the sorted keys: ``blocks.j.attn.{wk,wo,wq,wv}``,
-  ``blocks.j.mlp.*``, ``blocks.j.norm{1,2}``, an RWKV layer's
-  ``blocks.j.rwkv.{bonus_u,decay_a,decay_b,decay_base,mix,w_g,w_k,w_o,
-  w_r,w_v}`` in place of ``attn``, ``embed.table``, ``final_norm``,
-  ``tail.*``, ``unembed.table``.
+  bf16 model, and so are an MoE ``router`` and an RG-LRU ``lam``;
+* the leaf order is the sorted keys: a layer's sequence mixer
+  (``attn.{bk,bq,bv,wk,wo,wq,wv}``, ``rglru.*`` or ``rwkv.*``), its FFN
+  (``mlp.*``, or ``moe.{router,w_down,w_gate,w_up}`` in an MoE model's
+  attention layers), ``norm1``, ``norm2`` and, in a decoder layer of an
+  encoder-decoder, ``norm_x`` and ``xattn.*``; then ``embed.table``,
+  ``enc_norm``, ``encoder.*``, ``final_norm``, ``tail.*``,
+  ``unembed.table``.
 
 MLLess cuts each flattened gradient leaf into 256-wide blocks and the flat
 strategies pack the leaves in this order, so the layout is semantics, not
-taste (SmolLM-135M has 12 leaves and RWKV6-7B 17, not one per layer and
-matrix).
+taste (SmolLM-135M has 12 leaves, Mixtral 13, RecurrentGemma-2B 55,
+Whisper-small 34).
 
-``forward(batch)`` is the reference's ``apply``: token embedding, the
+Layer kinds: GLOBAL and LOCAL (sliding-window) attention, RGLRU (the
+RG-LRU recurrent block of ``models.rglru``) and RWKV (the RWKV6 time-mix
+of ``models.rwkv6``); any other kind raises ``ValueError``.  MoE configs
+replace the MLP of every attention layer by the top-k expert layer of
+``models.moe``, whose load-balance loss ``forward`` returns summed over
+layers.  An encoder-decoder (Whisper) has no rotary embedding: sinusoidal
+positions on the decoder's embeddings, a non-causal encoder over the
+batch's stub ``frames`` (each layer recomputed in the backward), and a
+cross-attention on every decoder layer.  A VLM (Pixtral) replaces the
+first ``n_patches`` token embeddings by the batch's stub ``patch_emb``.
+
+``forward(batch)`` is the reference's ``apply``: the embedding, the
 pattern blocks (each block recomputed in the backward, as
 ``jax.checkpoint`` does, here with ``torch.utils.checkpoint``), the tail
-layers, the final norm and a separate unembedding over the vocab padded to
-a multiple of 128.  Layer kinds GLOBAL and LOCAL (sliding window) and
-RWKV (the RWKV6 time-mix of ``models.rwkv6``, no attention and no rotary
-embedding) are supported; MoE, RG-LRU, encoder-decoder and VLM configs
-raise.  With ``use_kernel`` (the reference's ``use_pallas``) the causal
-self-attention goes through ``kernels.ops.swa_attention`` and the WKV
-recurrence through ``kernels.ops.wkv6``, the Hopper kernels.
+layers, the final norm and a separate unembedding over the vocab padded
+to a multiple of 128.  With ``use_kernel`` (the reference's
+``use_pallas``) the causal self-attention goes through
+``kernels.ops.swa_attention`` and the WKV recurrence through
+``kernels.ops.wkv6``, the Hopper kernels; the encoder's attention and the
+cross-attention are not causal and take the plain chunked path, as the
+reference routes them.
 
 The weights are drawn with the ``torch.Generator`` given, on its device:
 ``build_model`` draws a model for the card on the card.
 
-Serving (``repro.models.transformer``'s ``init_cache``, ``prefill`` and
-``decode_step``): the decode cache is the reference's tree,
-``{"blocks": [...], "tail": [...]}``, one leaf per pattern position
-stacked over blocks (batch at dim 1 under ``blocks``, dim 0 under
-``tail``).  An attention layer's leaf is a ring buffer ``{"k", "v"}`` of
-(B, L, KV, hd) in the model's dtype (``{"q", "scale"}`` each under
-``kv_quant``), L the context for a global layer and at most the window
-for a local one; an RWKV layer's leaf is its recurrent state.  Prefill
-runs each attention layer through kernel 8 when ``use_kernel`` (the
-reference's Pallas path) and the RWKV layers through the plain chunked
-WKV from the cache's zero state, as the reference does.  Both write the
-cache in place (the reference donates it to decode): one slot a layer a
-token, no copy of the cache.  ``prefill`` and ``decode_step`` run without
-autograd.
+Serving (``init_cache``, ``prefill`` and ``decode_step``): the decode
+cache is the reference's tree, ``{"blocks": [...], "tail": [...]}`` and,
+for an encoder-decoder, ``"enc_kv"``; one leaf per pattern position
+stacked over blocks (batch at dim 1 under ``blocks`` and ``enc_kv``, dim
+0 under ``tail``).  An attention layer's leaf is a ring buffer ``{"k",
+"v"}`` of (B, L, KV, hd) in the model's dtype (``{"q", "scale"}`` each
+under ``kv_quant``), L the context for a global layer and at most the
+window for a local one; an RG-LRU or RWKV layer's leaf is its recurrent
+state; ``enc_kv`` holds each decoder layer's cross-attention k and v,
+(n_layers, B, encoder_seq, KV, hd) in layer order.  Prefill runs each
+causal attention layer through kernel 8 when ``use_kernel`` (the
+reference's Pallas path) and the recurrent layers from the cache's zero
+state, as the reference does.  Both write the cache in place (the
+reference donates it to decode): one slot a layer a token, no copy of the
+cache.  ``prefill`` and ``decode_step`` run without autograd.
 """
 from __future__ import annotations
 
@@ -57,33 +74,16 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import GLOBAL, LOCAL, RWKV
+from repro_torch.configs.base import GLOBAL, LOCAL, RGLRU, RWKV
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.models import attention, kvquant, layers, rwkv6
+from repro_torch.models import attention, kvquant, layers, moe, rglru, rwkv6
 from repro_torch.models.params import (  # noqa: F401
     cache_from_reference, cache_to_reference, param_tree,
     params_from_reference, params_to_reference, reference_leaves,
 )
 
-_UNSUPPORTED = ("ROADMAP.md, Open items §1, slice 4: the transformer LM "
-                "family beyond the dense attention and RWKV layers is not "
-                "ported yet")
-_KINDS = (GLOBAL, LOCAL, RWKV)
-
-
-def _check_supported(cfg):
-    what = None
-    if cfg.is_moe:
-        what = "MoE layers"
-    elif cfg.is_encoder_decoder:
-        what = "encoder-decoder models"
-    elif cfg.family == "vlm":
-        what = "VLM front ends"
-    elif any(kind not in _KINDS for kind in cfg.layer_pattern):
-        what = f"layer kinds {sorted(set(cfg.layer_pattern) - set(_KINDS))}"
-    if what is not None:
-        raise NotImplementedError(f"{cfg.name}: {what} ({_UNSUPPORTED})")
+_ATTENTION = (GLOBAL, LOCAL)
 
 
 def _split_depth(cfg):
@@ -110,16 +110,27 @@ def _module_tree(mod: nn.Module) -> dict:
     return tree
 
 
-def _layer_tree(gen, kind, cfg, dtype, lead=()):
-    """One layer's parameters (``lead`` prepends the stacking dim)."""
+def _layer_tree(gen, kind, cfg, dtype, lead=(), cross=False):
+    """One layer's parameters (``lead`` prepends the stacking dim); an
+    unknown layer kind raises ``ValueError(kind)``, as in the reference."""
     tree = {"norm1": layers.rmsnorm_init(*lead, cfg.d_model),
-            "norm2": layers.rmsnorm_init(*lead, cfg.d_model),
-            "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
-                                   dtype, lead)}
-    if kind == RWKV:
+            "norm2": layers.rmsnorm_init(*lead, cfg.d_model)}
+    if kind in _ATTENTION:
+        tree["attn"] = attention.attention_init(gen, cfg, dtype, lead)
+    elif kind == RGLRU:
+        tree["rglru"] = rglru.rglru_init(gen, cfg, dtype, lead)
+    elif kind == RWKV:
         tree["rwkv"] = rwkv6.rwkv_init(gen, cfg, dtype, lead)
     else:
-        tree["attn"] = attention.attention_init(gen, cfg, dtype, lead)
+        raise ValueError(kind)
+    if cross:
+        tree["norm_x"] = layers.rmsnorm_init(*lead, cfg.d_model)
+        tree["xattn"] = attention.attention_init(gen, cfg, dtype, lead)
+    if cfg.is_moe and kind in _ATTENTION:
+        tree["moe"] = moe.moe_init(gen, cfg, dtype, lead)
+    else:
+        tree["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
+                                      dtype, lead)
     return tree
 
 
@@ -134,6 +145,11 @@ class _Table(nn.Module):
         self.table = nn.Parameter(table)
 
 
+def _residual_attention(x, p, o):
+    """x + the attention output o (B, S, H, hd) through ``p["wo"]``."""
+    return x + o.reshape(*o.shape[:2], -1) @ p["wo"]
+
+
 class Model(nn.Module):
     # the reference tree's top-level lists, kept by ``param_tree`` when
     # empty (``'tail': []`` where the depth is whole pattern blocks)
@@ -142,14 +158,15 @@ class Model(nn.Module):
     def __init__(self, cfg, *, use_kernel: bool = False, remat: bool = True,
                  kv_quant: bool = False, gen=None):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         self.use_kernel = use_kernel
         self.remat = remat
         # int8 KV caches (``models.kvquant``), for memory-bound decode
         self.kv_quant = kv_quant
+        self.use_rope = not cfg.is_encoder_decoder
         self.n_blocks, self.tail_kinds = _split_depth(cfg)
         dtype = getattr(torch, cfg.dtype)
+        cross = cfg.is_encoder_decoder
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
         with torch.device(gen.device):
             self.embed = _Table(layers.embed_init(
@@ -159,11 +176,16 @@ class Model(nn.Module):
             self.final_norm = nn.Parameter(layers.rmsnorm_init(cfg.d_model))
             self.blocks = nn.ModuleList(
                 [_tree_module(_layer_tree(gen, kind, cfg, dtype,
-                                          (self.n_blocks,)))
+                                          (self.n_blocks,), cross))
                  for kind in cfg.layer_pattern] if self.n_blocks else [])
             self.tail = nn.ModuleList(
-                [_tree_module(_layer_tree(gen, kind, cfg, dtype))
+                [_tree_module(_layer_tree(gen, kind, cfg, dtype, (), cross))
                  for kind in self.tail_kinds])
+            if cfg.is_encoder_decoder:
+                self.encoder = _tree_module(_layer_tree(
+                    gen, GLOBAL, cfg, dtype, (cfg.n_encoder_layers,)))
+                self.enc_norm = nn.Parameter(
+                    layers.rmsnorm_init(cfg.d_model))
 
     @property
     def padded_vocab(self) -> int:
@@ -183,9 +205,81 @@ class Model(nn.Module):
         return self
 
     # ------------------------------------------------------------------
-    def _layer(self, p, kind, x, positions):
-        """Pre-norm layer: the sequence mixer (attention or the RWKV6
-        time-mix), then the MLP."""
+    def _attention_fn(self):
+        return kops.swa_attention if self.use_kernel else None
+
+    def _embed_inputs(self, batch):
+        """Token embeddings; a VLM's patch embeddings in place of the first
+        ``n_patches`` tokens; an encoder-decoder's sinusoidal positions."""
+        cfg = self.cfg
+        x = layers.embed(self.embed.table, batch["tokens"])
+        S = x.shape[1]
+        if cfg.family == "vlm" and "patch_emb" in batch:
+            n = batch["patch_emb"].shape[1]
+            if S < n:
+                # the reference's concatenation would make the sequence n
+                # long, out of step with the positions and cache slots
+                raise ValueError(f"{cfg.name}: {S} tokens cannot hold "
+                                 f"{n} patch embeddings")
+            x = torch.cat([batch["patch_emb"].to(x.dtype), x[:, n:]], dim=1)
+        if cfg.is_encoder_decoder:
+            x = x + layers.sinusoidal_positions(S, cfg.d_model,
+                                                x.device).to(x.dtype)
+        return x
+
+    def _encoder_layer(self, x, p):
+        cfg = self.cfg
+        h = layers.rmsnorm(x, p["norm1"])
+        q, k, v = attention.project_qkv(p["attn"], h, cfg)
+        o = attention.chunked_attention(q, k, v, causal=False)
+        x = _residual_attention(x, p["attn"], o)
+        h = layers.rmsnorm(x, p["norm2"])
+        return x + layers.mlp_apply(p["mlp"], h, cfg.mlp)
+
+    def _encode(self, frames):
+        """The non-causal encoder over the stub frame embeddings, each
+        layer recomputed in the backward."""
+        cfg = self.cfg
+        x = frames.to(getattr(torch, cfg.dtype))
+        x = x + layers.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                            x.device).to(x.dtype)
+        stacked = _map(lambda t: t.unbind(0), _module_tree(self.encoder))
+        for i in range(cfg.n_encoder_layers):
+            p = _map(lambda ts: ts[i], stacked)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(self._encoder_layer, x, p,
+                               use_reentrant=False)
+            else:
+                x = self._encoder_layer(x, p)
+        return layers.rmsnorm(x, self.enc_norm)
+
+    def _cross(self, x, p, enc_out):
+        """x + the cross-attention of x over ``enc_out``; also the
+        encoder's k and v (B, encoder_seq, KV, hd) of this layer."""
+        cfg = self.cfg
+        h = layers.rmsnorm(x, p["norm_x"])
+        q, _, _ = attention.project_qkv(p["xattn"], h, cfg)
+        _, k, v = attention.project_qkv(p["xattn"], enc_out, cfg)
+        o = attention.chunked_attention(q, k, v, causal=False)
+        return _residual_attention(x, p["xattn"], o), k, v
+
+    def _ffn(self, x, p):
+        """x + the FFN (MLP or MoE) of x; the MoE's aux loss (else 0)."""
+        h = layers.rmsnorm(x, p["norm2"])
+        if "moe" in p:
+            y, aux = moe.moe_apply(p["moe"], h, self.cfg)
+            return x + y, aux
+        return x + layers.mlp_apply(p["mlp"], h, self.cfg.mlp), 0.0
+
+    def _rope(self, t, positions):
+        if not self.use_rope:
+            return t
+        return layers.apply_rope(t, positions, self.cfg.rope_theta)
+
+    def _layer(self, p, kind, x, positions, enc_out):
+        """Pre-norm layer: the sequence mixer (attention, RG-LRU or the
+        RWKV6 time-mix), the cross-attention of an encoder-decoder, then
+        the FFN; returns (x, aux)."""
         cfg = self.cfg
         h = layers.rmsnorm(x, p["norm1"])
         if kind == RWKV:
@@ -193,45 +287,53 @@ class Model(nn.Module):
                                     use_kernel=self.use_kernel,
                                     with_state=False)
             x = x + y
+        elif kind == RGLRU:
+            y, _ = rglru.rglru_apply(p["rglru"], h, cfg)
+            x = x + y
         else:
             q, k, v = attention.project_qkv(p["attn"], h, cfg)
-            q = layers.apply_rope(q, positions, cfg.rope_theta)
-            k = layers.apply_rope(k, positions, cfg.rope_theta)
+            q, k = self._rope(q, positions), self._rope(k, positions)
             o = attention.chunked_attention(
                 q, k, v, causal=True,
                 window=cfg.window if kind == LOCAL else None,
-                pallas_fn=kops.swa_attention if self.use_kernel else None)
-            B, S = o.shape[:2]
-            x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
-        h = layers.rmsnorm(x, p["norm2"])
-        return x + layers.mlp_apply(p["mlp"], h, cfg.mlp)
+                pallas_fn=self._attention_fn())
+            x = _residual_attention(x, p["attn"], o)
+        if enc_out is not None:
+            x, _, _ = self._cross(x, p, enc_out)
+        return self._ffn(x, p)
 
-    def _block(self, x, positions, block_params):
+    def _block(self, x, aux, positions, enc_out, block_params):
         for kind, p in zip(self.cfg.layer_pattern, block_params):
-            x = self._layer(p, kind, x, positions)
-        return x
+            x, a = self._layer(p, kind, x, positions, enc_out)
+            aux = aux + a
+        return x, aux
 
     def forward(self, batch):
-        """batch["tokens"]: (B, S) int -> (logits (B, S, padded vocab) in
-        the model dtype, aux 0-dim fp32; 0 for dense layers)."""
-        tokens = batch["tokens"]
-        x = layers.embed(self.embed.table, tokens)
-        positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+        """batch["tokens"]: (B, S) int (and ``frames`` (B, encoder_seq, d)
+        for an encoder-decoder, ``patch_emb`` (B, n_patches, d) for a VLM)
+        -> (logits (B, S, padded vocab) in the model dtype, aux 0-dim fp32:
+        the MoE layers' load-balance loss summed, 0 without MoE)."""
+        x = self._embed_inputs(batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        enc_out = None
+        if self.cfg.is_encoder_decoder:
+            enc_out = self._encode(batch["frames"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         # one unbind per stacked leaf: its backward is one stack
         stacked = [_map(lambda t: t.unbind(0), _module_tree(m))
                    for m in self.blocks]
         for i in range(self.n_blocks):
             block = [_map(lambda ts: ts[i], tree) for tree in stacked]
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(self._block, x, positions, block,
-                               use_reentrant=False)
+                x, aux = checkpoint(self._block, x, aux, positions, enc_out,
+                                    block, use_reentrant=False)
             else:
-                x = self._block(x, positions, block)
+                x, aux = self._block(x, aux, positions, enc_out, block)
         for kind, m in zip(self.tail_kinds, self.tail):
-            x = self._layer(_module_tree(m), kind, x, positions)
+            x, a = self._layer(_module_tree(m), kind, x, positions, enc_out)
+            aux = aux + a
         x = layers.rmsnorm(x, self.final_norm)
-        logits = layers.unembed(self.unembed.table, x)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return layers.unembed(self.unembed.table, x), aux
 
     # ------------------------------------------------------------------
     # serving: the decode cache, prefill and single-token decode
@@ -261,8 +363,10 @@ class Model(nn.Module):
         device = self.final_norm.device if device is None else device
 
         def one(kind, lead=()):
-            if kind == RWKV:
-                state = rwkv6.rwkv_init_state(cfg, batch_size, dtype, device)
+            if kind in (RWKV, RGLRU):
+                init = rwkv6.rwkv_init_state if kind == RWKV \
+                    else rglru.rglru_init_state
+                state = init(cfg, batch_size, dtype, "meta")
                 return {k: torch.zeros(lead + tuple(v.shape), dtype=v.dtype,
                                        device=device)
                         for k, v in state.items()}
@@ -275,53 +379,71 @@ class Model(nn.Module):
             return {name: torch.zeros(shape, dtype=dtype, device=device)
                     for name in ("k", "v")}
 
-        return {"blocks": [one(kind, (self.n_blocks,))
-                           for kind in self._pattern(swa_variant)]
-                if self.n_blocks else [],
-                "tail": [one(kind) for kind in self._tail(swa_variant)]}
+        cache = {"blocks": [one(kind, (self.n_blocks,))
+                            for kind in self._pattern(swa_variant)]
+                 if self.n_blocks else [],
+                 "tail": [one(kind) for kind in self._tail(swa_variant)]}
+        if cfg.is_encoder_decoder:
+            shape = (cfg.n_layers, batch_size, cfg.encoder_seq,
+                     cfg.n_kv_heads, cfg.head_dim)
+            cache["enc_kv"] = {name: torch.zeros(shape, dtype=dtype,
+                                                 device=device)
+                               for name in ("k", "v")}
+        return cache
 
     def _serve_layers(self, cache, swa_variant):
-        """(kind, parameter tree, cache leaf) of every layer in order; the
-        trees and leaves of stacked blocks are views of row i."""
+        """(kind, parameter tree, cache leaf, encoder k/v leaf or None) of
+        every layer in order; the trees and leaves of stacked blocks, and
+        the encoder k/v, are views of row i."""
         stacked = [_module_tree(m) for m in self.blocks]
         pattern = self._pattern(swa_variant)
-        for i in range(self.n_blocks):
-            for j, kind in enumerate(pattern):
-                yield (kind, _map(lambda t: t[i], stacked[j]),
-                       _map(lambda t: t[i], cache["blocks"][j]))
-        for kind, m, leaf in zip(self._tail(swa_variant), self.tail,
-                                 cache["tail"]):
-            yield kind, _module_tree(m), leaf
+        order = [(kind, _map(lambda t: t[i], stacked[j]),
+                  _map(lambda t: t[i], cache["blocks"][j]))
+                 for i in range(self.n_blocks)
+                 for j, kind in enumerate(pattern)]
+        order += [(kind, _module_tree(m), leaf) for kind, m, leaf in
+                  zip(self._tail(swa_variant), self.tail, cache["tail"])]
+        enc = cache.get("enc_kv")
+        for li, (kind, p, leaf) in enumerate(order):
+            yield kind, p, leaf, (None if enc is None else
+                                  _map(lambda t: t[li], enc))
 
     @torch.no_grad()
     def prefill(self, batch, cache_len=None, swa_variant: bool = False):
         """Forward over a prompt: (last-token logits (B, 1, padded vocab),
         the filled cache).  Each attention layer keeps the trailing
         ``min(L, S)`` positions at ring slots ``(S - take .. S - 1) mod
-        L``."""
+        L``; an encoder-decoder's cache also takes each layer's encoder k
+        and v."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = layers.embed(self.embed.table, tokens)
+        x = self._embed_inputs(batch)
         B, S, _ = x.shape
         cache_len = cache_len or S
         positions = torch.arange(S, device=x.device)[None, :]
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            enc_out = self._encode(batch["frames"])
         cache = self.init_cache(B, cache_len, swa_variant, x.device)
-        for kind, p, leaf in self._serve_layers(cache, swa_variant):
+        for kind, p, leaf, enc in self._serve_layers(cache, swa_variant):
             h = layers.rmsnorm(x, p["norm1"])
-            if kind == RWKV:
-                y, state = rwkv6.rwkv_apply(p["rwkv"], h, cfg, state=leaf)
+            if kind in (RWKV, RGLRU):
+                if kind == RWKV:
+                    y, state = rwkv6.rwkv_apply(p["rwkv"], h, cfg,
+                                                state=leaf)
+                else:
+                    y, state = rglru.rglru_apply(p["rglru"], h, cfg,
+                                                 state=leaf)
                 for name, val in state.items():
                     leaf[name].copy_(val)
                 x = x + y
             else:
                 q, k, v = attention.project_qkv(p["attn"], h, cfg)
-                q = layers.apply_rope(q, positions, cfg.rope_theta)
-                k = layers.apply_rope(k, positions, cfg.rope_theta)
+                q, k = self._rope(q, positions), self._rope(k, positions)
                 o = attention.chunked_attention(
                     q, k, v, causal=True,
                     window=cfg.window if kind == LOCAL else None,
-                    pallas_fn=kops.swa_attention if self.use_kernel else None)
-                x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+                    pallas_fn=self._attention_fn())
+                x = _residual_attention(x, p["attn"], o)
                 L = (leaf["k"]["q"] if self.kv_quant else leaf["k"]).shape[1]
                 take = min(L, S)
                 slots = torch.remainder(
@@ -333,8 +455,11 @@ class Model(nn.Module):
                         leaf[name]["scale"].index_copy_(1, slots, sv)
                     else:
                         leaf[name].index_copy_(1, slots, val[:, S - take:])
-            h = layers.rmsnorm(x, p["norm2"])
-            x = x + layers.mlp_apply(p["mlp"], h, cfg.mlp)
+            if enc is not None:
+                x, ek, ev = self._cross(x, p, enc_out)
+                enc["k"].copy_(ek)
+                enc["v"].copy_(ev)
+            x, _ = self._ffn(x, p)
         x = layers.rmsnorm(x[:, -1:], self.final_norm)
         return layers.unembed(self.unembed.table, x), cache
 
@@ -348,19 +473,23 @@ class Model(nn.Module):
         x = layers.embed(self.embed.table, token)
         B = x.shape[0]
         pos = torch.as_tensor(pos, device=x.device)
+        if cfg.is_encoder_decoder:
+            pe = layers.sinusoidal_position_at(pos, cfg.d_model)
+            x = x + (pe[:, None, :] if pos.dim() == 1 else pe).to(x.dtype)
         positions = pos.reshape(B, 1) if pos.dim() == 1 \
             else pos.expand(B, 1)
-        for kind, p, leaf in self._serve_layers(cache, swa_variant):
+        for kind, p, leaf, enc in self._serve_layers(cache, swa_variant):
             h = layers.rmsnorm(x, p["norm1"])
-            if kind == RWKV:
-                y, state = rwkv6.rwkv_decode_step(p["rwkv"], h, cfg, leaf)
+            if kind in (RWKV, RGLRU):
+                step = rwkv6.rwkv_decode_step if kind == RWKV \
+                    else rglru.rglru_decode_step
+                y, state = step(p[kind], h, cfg, leaf)
                 for name, val in state.items():
                     leaf[name].copy_(val)
                 x = x + y
             else:
                 q, k, v = attention.project_qkv(p["attn"], h, cfg)
-                q = layers.apply_rope(q, positions, cfg.rope_theta)
-                k = layers.apply_rope(k, positions, cfg.rope_theta)
+                q, k = self._rope(q, positions), self._rope(k, positions)
                 window = cfg.window if kind == LOCAL else None
                 if self.kv_quant:
                     kvquant.quant_cache_update(leaf["k"], k, pos)
@@ -371,9 +500,14 @@ class Model(nn.Module):
                     attention.cache_update(leaf["k"], leaf["v"], k, v, pos)
                     o = attention.decode_attention(
                         q, leaf["k"], leaf["v"], pos, window=window)
-                x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
-            h = layers.rmsnorm(x, p["norm2"])
-            x = x + layers.mlp_apply(p["mlp"], h, cfg.mlp)
+                x = _residual_attention(x, p["attn"], o)
+            if enc is not None:
+                h = layers.rmsnorm(x, p["norm_x"])
+                q, _, _ = attention.project_qkv(p["xattn"], h, cfg)
+                o = attention.decode_attention(q, enc["k"], enc["v"],
+                                               enc["k"].shape[1] - 1)
+                x = _residual_attention(x, p["xattn"], o)
+            x, _ = self._ffn(x, p)
         x = layers.rmsnorm(x, self.final_norm)
         return layers.unembed(self.unembed.table, x), cache
 

@@ -33,8 +33,9 @@ class Request:
 
 
 def _batch_dim(path) -> int:
-    """Cache leaves under blocks/ are stacked: batch lives at dim 1."""
-    return 1 if "blocks" in path else 0
+    """Cache leaves under blocks/ are stacked over blocks and those under
+    enc_kv/ over layers: batch lives at dim 1."""
+    return 1 if "blocks" in path or "enc_kv" in path else 0
 
 
 def _leaves(tree, path=()):

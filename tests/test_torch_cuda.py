@@ -523,6 +523,18 @@ SWA_GPU_CASES = [
 ]
 
 
+# the model families' attention: Mixtral 8x7B's 32 heads on 8 at hd 128
+# with its window of 4096 past S, Mixtral 8x22B's 48 on 8 (6 q heads a kv
+# head), Whisper's decoder (12 on 12, hd 64) at its train length of 448
+SWA_FAMILY_CASES = [
+    (1, 2048, 32, 8, 128, 4096, True),
+    (4, 512, 32, 8, 128, 4096, True),
+    (2, 512, 48, 8, 128, 4096, True),
+    (4, 448, 12, 12, 64, None, True),
+]
+SWA_GPU_CASES += SWA_FAMILY_CASES
+
+
 # the wide head_dims, on the tensor-core route in bf16 and the CUDA-core
 # route in fp32: Gemma-3's 320 (its local and global layers at its train
 # shape, a ragged S), pixtral-12b's 160 (32 heads on 8), recurrentgemma-2b's
@@ -1208,3 +1220,57 @@ def test_two_rank_kill_and_takeover_of_reduced_smollm_on_cuda(cuda):
     assert rec["bytes_moved"] == base["state_bytes"] // 2
     assert all(np.isfinite(take["losses"])) and len(take["losses"]) == 5
     assert take["losses"][:3] == base["losses"][:3]
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel MoE on two ranks sharing the card
+# ---------------------------------------------------------------------------
+_MOE_EP_RANK = """
+import dataclasses, sys
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.models import moe
+rank, init = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=1)
+gen = torch.Generator(device="cuda").manual_seed(0)
+with torch.device("cuda"):
+    p = moe.moe_init(gen, cfg, torch.bfloat16)
+gen = torch.Generator(device="cuda").manual_seed(1 + rank)
+x = torch.randn(1, 512, cfg.d_model, generator=gen, device="cuda")
+x = x.bfloat16()
+y, aux = moe.moe_apply_ep(p, x, cfg)
+want, want_aux = moe.moe_apply(p, x, cfg)
+torch.cuda.synchronize()
+assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+err = float((y.float() - want.float()).abs().max())
+step = 2 ** -7 * float(want.float().abs().max())
+assert err <= step, (err, step)
+assert torch.equal(aux, want_aux)
+print("OK", err, step)
+dist.destroy_process_group()
+"""
+
+
+def test_moe_apply_ep_on_two_ranks_sharing_the_card(cuda, tmp_path):
+    """Mixtral 8x7B's full width (d 4096, f 14336, 8 experts, 4 a rank),
+    512 tokens a rank, gloo over the card's tensors: each rank's output
+    against ``moe_apply`` on its own tokens within one bf16 step of the
+    largest value (the expert products run as (4, 2C, d) batches instead
+    of (8, C, d), so a rounding may differ), the aux loss equal."""
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MOE_EP_RANK, str(r), f"file://{tmp_path}/pg"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-3000:]
+        assert out.startswith("OK")

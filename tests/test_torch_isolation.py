@@ -50,7 +50,11 @@ def test_port_has_modules_to_check():
                 "checkpoint/codec.py", "resilience/harness.py",
                 "resilience/schedule.py", "resilience/store.py",
                 "resilience/state.py", "launch/resilient_train.py",
-                "launch/_subprocess.py"):
+                "launch/_subprocess.py", "models/moe.py",
+                "models/rglru.py", "data/loader.py",
+                "configs/mixtral_8x7b.py", "configs/mixtral_8x22b.py",
+                "configs/recurrentgemma_2b.py", "configs/whisper_small.py",
+                "configs/pixtral_12b.py"):
         assert port / rel in FILES, rel
 
 

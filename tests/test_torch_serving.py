@@ -1,6 +1,7 @@
 """Parity of the port's serving path with the JAX reference on the CPU:
 prefill (logits and the whole cache tree) and single-token decode for the
-dense, sliding-window and RWKV layer kinds, both attention paths (the
+dense, sliding-window, RWKV, MoE, RG-LRU, encoder-decoder and VLM
+families, both attention paths (the
 reference's Pallas kernel in interpret mode against the port's kernel
 wrapper, which takes its plain version on the CPU), sequential decode,
 per-slot positions, the sliding-window variant, the int8 KV cache, the
@@ -36,12 +37,19 @@ from repro_torch.models import attention, kvquant, transformer  # noqa: E402
 # (arch, reduced() arguments): SmolLM's GLOBAL layers; Gemma-3's 5 LOCAL
 # (window 64) + 1 GLOBAL, with a prompt past the window so the local
 # rings wrap; RWKV6's recurrent state; Qwen's qkv bias (drawn nonzero
-# below); Phi-3
+# below); Phi-3; Mixtral's MoE (4 experts, top 2) on LOCAL layers;
+# RecurrentGemma's (RG-LRU, RG-LRU, LOCAL) block and a tail of two RG-LRU
+# layers; Whisper's encoder, cross-attention and enc_kv cache (biases
+# drawn nonzero); Pixtral's 8 stub patches
 ARCHS = {"smollm": ("smollm-135m", {}),
          "gemma6": ("gemma3-4b", {"n_layers": 6}),
          "rwkv": ("rwkv6-7b", {}),
          "qwen": ("qwen1.5-4b", {}),
-         "phi3": ("phi3-mini-3.8b", {})}
+         "phi3": ("phi3-mini-3.8b", {}),
+         "mixtral": ("mixtral-8x7b", {}),
+         "rglru5": ("recurrentgemma-2b", {"n_layers": 5}),
+         "whisper": ("whisper-small", {}),
+         "pixtral": ("pixtral-12b", {})}
 B, S, CACHE_LEN = 2, 80, 96
 TOL = 1e-5
 
@@ -54,14 +62,40 @@ def _reference(name, use_kernel=False, kv_quant=False, seed=0):
     tree = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(seed)))
     if jcfg.qkv_bias:
         # the init's biases are zero: draw them, so the bias path counts
-        rs = np.random.RandomState(seed + 1)
-        for blk in tree["blocks"]:
-            for b in ("bq", "bk", "bv"):
-                blk["attn"][b] = rs.randn(*blk["attn"][b].shape).astype(
-                    np.float32)
+        _draw_biases(tree, np.random.RandomState(seed + 1))
     model = transformer.Model(cfg, use_kernel=use_kernel, kv_quant=kv_quant)
     model.load_state_dict(transformer.params_from_reference(tree))
     return jmodel, tree, model
+
+
+def _draw_biases(tree, rs):
+    """Every ``bq``/``bk``/``bv`` leaf of the tree drawn from ``rs``."""
+    for key in sorted(tree) if isinstance(tree, dict) else range(len(tree)):
+        node = tree[key]
+        if isinstance(node, (dict, list)):
+            _draw_biases(node, rs)
+        elif key in ("bq", "bk", "bv"):
+            tree[key] = rs.randn(*node.shape).astype(np.float32)
+
+
+def _batch(cfg, toks):
+    """A prompt batch (numpy): the tokens, a VLM's stub patch embeddings
+    and an encoder-decoder's stub frames, ``0.1 * randn`` from a fixed
+    seed as the reference's tests draw them."""
+    rs = np.random.RandomState(7)
+    out = {"tokens": toks}
+    if cfg.family == "vlm":
+        out["patch_emb"] = (0.1 * rs.randn(toks.shape[0], cfg.n_patches,
+                                           cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        out["frames"] = (0.1 * rs.randn(toks.shape[0], cfg.encoder_seq,
+                                        cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _prefill(model, toks, **kw):
+    return model.prefill({k: torch.as_tensor(v) for k, v in
+                          _batch(model.cfg, toks).items()}, **kw)
 
 
 def _tokens(cfg, n=S + 8, seed=0):
@@ -89,7 +123,7 @@ def _close_trees(got_cache, want_cache, tol=TOL):
 def _jprefill(jmodel, tree, toks, cache_len=CACHE_LEN, swa_variant=False):
     return jax.jit(lambda p, b: jmodel.prefill(
         p, b, cache_len=cache_len, swa_variant=swa_variant))(
-        tree, {"tokens": jnp.asarray(toks)})
+        tree, jax.tree.map(jnp.asarray, _batch(jmodel.cfg, toks)))
 
 
 def _jdecode(jmodel, tree, tok, cache, pos, swa_variant=False):
@@ -110,8 +144,7 @@ def test_prefill_and_decode_match_reference(name, use_kernel):
     toks = _tokens(model.cfg)
     jlogits, jcache = _jprefill(jmodel, tree, toks[:, :S])
     before = dict(tswa.LAUNCHES)
-    logits, cache = model.prefill({"tokens": torch.as_tensor(toks[:, :S])},
-                                  cache_len=CACHE_LEN)
+    logits, cache = _prefill(model, toks[:, :S], cache_len=CACHE_LEN)
     assert tswa.LAUNCHES == before      # the CPU runs the plain version
     assert logits.shape == (B, 1, model.padded_vocab)
     _close(logits, jlogits)
@@ -382,8 +415,12 @@ def test_kv_quant_model_matches_reference(name):
 # ---------------------------------------------------------------------------
 # the cache bridge, the serve step's inputs, the input shapes, the launcher
 # ---------------------------------------------------------------------------
-# an RWKV cache holds no attention ring, so nothing to quantize there
-CACHE_KINDS = [("gemma6", False), ("gemma6", True), ("rwkv", False)]
+# an RWKV cache holds no attention ring, so nothing to quantize there;
+# RecurrentGemma's cache mixes RG-LRU states and rings, Whisper's holds
+# enc_kv, Pixtral's prefill takes patch embeddings
+CACHE_KINDS = [("gemma6", False), ("gemma6", True), ("rwkv", False),
+               ("rglru5", False), ("whisper", False), ("whisper", True),
+               ("pixtral", False)]
 
 
 @pytest.mark.parametrize("name,kv_quant", CACHE_KINDS)
@@ -410,8 +447,11 @@ def test_serve_step_meta_inputs_match_reference(name, kv_quant):
                             cache_len=CACHE_LEN)
     ss = build_serve_step(model, batch_size=B, cache_len=CACHE_LEN)
     jb, b = jss.make_inputs("prefill", S), ss.make_inputs("prefill", S)
-    assert b["tokens"].device.type == "meta"
-    assert tuple(b["tokens"].shape) == jb["tokens"].shape
+    assert sorted(b) == sorted(jb)
+    for key, want in jb.items():
+        assert b[key].device.type == "meta"
+        assert tuple(b[key].shape) == want.shape
+        assert str(b[key].dtype).split(".")[-1] == str(want.dtype)
     assert b["tokens"].dtype == torch.int32
     (jt, jc, jp), (t, c, p) = jss.make_inputs("decode", S), \
         ss.make_inputs("decode", S)

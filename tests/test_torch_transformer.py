@@ -17,6 +17,7 @@ import numpy as np  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from repro import optim as joptim  # noqa: E402
+from repro.configs.base import all_arch_names as jall_arch_names  # noqa: E402
 from repro.configs.base import get_config as jget_config  # noqa: E402
 from repro.core import build_train_step as jbuild_train_step  # noqa: E402
 from repro.core import get_strategy as jget_strategy  # noqa: E402
@@ -25,7 +26,7 @@ from repro.data import token_stream as jtoken_stream  # noqa: E402
 from repro.models.transformer import build_model as jbuild_model  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import RGLRU, ModelConfig  # noqa: E402
+from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import build_train_step, get_strategy, losses  # noqa: E402
 from repro_torch.data import lm_batches, token_stream  # noqa: E402
 from repro_torch.kernels import fused_adamw, swa_attention  # noqa: E402
@@ -34,11 +35,17 @@ from repro_torch.models import transformer  # noqa: E402
 
 # (arch, reduced() arguments): SmolLM's GLOBAL layers; Gemma-3's 5 LOCAL
 # (window 64 after reduced()) + 1 GLOBAL with GELU; Qwen's qkv bias;
-# RWKV6's time-mix layers
+# RWKV6's time-mix layers; Mixtral's fp32 router and experts;
+# RecurrentGemma's RG-LRU blocks and tail; Whisper's encoder dict and
+# cross-attention; Pixtral
 ARCHS = {"smollm": ("smollm-135m", {}),
          "gemma6": ("gemma3-4b", {"n_layers": 6}),
          "qwen": ("qwen1.5-4b", {}),
-         "rwkv": ("rwkv6-7b", {})}
+         "rwkv": ("rwkv6-7b", {}),
+         "mixtral": ("mixtral-8x7b", {}),
+         "rglru5": ("recurrentgemma-2b", {"n_layers": 5}),
+         "whisper": ("whisper-small", {}),
+         "pixtral": ("pixtral-12b", {})}
 
 
 def _configs(name):
@@ -60,8 +67,10 @@ def _port(cfg, tree, use_kernel=False):
 
 
 def test_configs_match_reference():
-    for arch in ("smollm-135m", "phi3-mini-3.8b", "qwen1.5-4b", "gemma3-4b",
-                 "rwkv6-7b"):
+    """Every LM config the reference registers, and its ``reduced()``."""
+    lms = [n for n in jall_arch_names() if jget_config(n).family != "cnn"]
+    assert len(lms) == 10
+    for arch in lms:
         a, b = get_config(arch), jget_config(arch)
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
         assert dataclasses.asdict(a.reduced(n_layers=6)) == \
@@ -90,11 +99,19 @@ def test_params_bridge_round_trips(name):
 
 @pytest.mark.parametrize("arch,n_leaves", [("smollm-135m", 12),
                                            ("gemma3-4b", 8 * 6 + 8 * 4 + 3),
-                                           ("rwkv6-7b", 17)])
+                                           ("rwkv6-7b", 17),
+                                           ("mixtral-8x7b", 13),
+                                           ("mixtral-8x22b", 13),
+                                           ("recurrentgemma-2b", 55),
+                                           ("whisper-small", 34),
+                                           ("pixtral-12b", 12)])
 def test_leaves_match_the_reference_tree(arch, n_leaves):
     """Leaf for leaf in the reference's order, stacked (n_blocks, in, out)
     and tail layers alike (Gemma-3: 5 blocks of 6 and a tail of 4; RWKV6:
-    one stacked block of 32 time-mix layers)."""
+    one stacked block of 32 time-mix layers; Mixtral: the fp32 router and
+    (E, d, f) experts; RecurrentGemma: 8 blocks of (RG-LRU, RG-LRU, LOCAL)
+    and a tail of two RG-LRU layers; Whisper: the decoder's cross-attention
+    and the encoder's stacked dict)."""
     cfg = get_config(arch)
     small = dataclasses.replace(cfg, d_model=64, n_heads=2, n_kv_heads=1,
                                 head_dim=32, d_ff=96, vocab_size=300)
@@ -162,15 +179,18 @@ def test_loss_matches_reference():
         rtol=1e-6)
 
 
-def test_unsupported_layer_kinds_raise():
+def test_unknown_layer_kind_raises():
+    """A layer kind outside GLOBAL, LOCAL, RGLRU and RWKV raises
+    ``ValueError(kind)``, as the reference's ``_layer_init`` does."""
     base = get_config("smollm-135m").reduced()
-    for change in (dict(n_experts=4, experts_per_token=2),
-                   dict(layer_pattern=(RGLRU,)),
-                   dict(is_encoder_decoder=True), dict(family="vlm")):
-        cfg = dataclasses.replace(base, **change)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            transformer.Model(cfg)
     assert isinstance(base, ModelConfig)
+    cfg = dataclasses.replace(base, layer_pattern=("mamba",))
+    with pytest.raises(ValueError, match="mamba"):
+        transformer.Model(cfg)
+    with pytest.raises(ValueError, match="mamba"):
+        jbuild_model(dataclasses.replace(
+            jget_config("smollm-135m").reduced(),
+            layer_pattern=("mamba",))).init(jax.random.PRNGKey(0))
 
 
 # ---------------------------------------------------------------------------
