@@ -157,7 +157,7 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    kernel 8 twice an attention layer a step (all wgmma), the first step's
    loss against the kernel-free path's to 2^-9, a record at the
    reference's lr 3e-3, peak memory; a profiler window over each family's
-   step.  Serving through ``serve_model`` with the stub
+   step but Whisper's (left out for the time of phase 13).  Serving through ``serve_model`` with the stub
    inputs: Mixtral 8x7B (1 layer) and 8x22B (2 layers), RecurrentGemma and
    Whisper at full depth, Pixtral at full depth (1,024 patches and 512
    text tokens); kernel 8 once an attention layer a prefill, decode
@@ -170,11 +170,30 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    is the line ``{"families": {...}}``; the kernels line's attention and
    fused-AdamW entries gain its shapes and launches.
 
+13. sharding: FSDP training and data-sharded serving (``core.sharding``,
+   ``core.train_step``, ``core.serve_step``) on full-width SmolLM-135M,
+   4 ranks sharing the card over gloo (gloo's all-gather and
+   reduce-scatter on CUDA tensors checked first).  Global batch 8 x seq
+   512, 3 steps each of allreduce replicated, allreduce under FSDP and
+   MLLess under FSDP (bf16, fused AdamW, kernel 8): the FSDP losses within
+   2^-9 of the replicated run's, each rank's FSDP leaves and both their
+   moments a quarter of the whole, the first step's collective bytes equal
+   kind for kind to what ``launch.dryrun`` predicts for the same
+   configuration, launches as counted, peak memory a rank beside the
+   dry-run's estimate.  Serving over the 4 ranks, 16 greedy tokens, in
+   fp32 token for token against one rank's decoding of the same prompts
+   and timed in bf16: batch 16 x cache 2,048 batch-sharded, batch 1 x
+   cache 32,768 sequence-sharded (flash-decode).  The dry-run of
+   SmolLM's train_4k and long_500k on the 16x16 mesh under zero3 (peak
+   GB a device, dominant roofline term).  Its record is the line
+   ``{"sharding": {...}}``; the kernels line's fused-AdamW, attention and
+   segmented entries gain its launches.
+
 The line before the last is a JSON object with one entry per kernel; the
-last is ``{"ok": true, "device": {...}}``.  The table3, serve, resilience
-and families records come earlier, on lines of their own: ``{"table3":
-{...}}``, ``{"serve": {...}}``, ``{"resilience": {...}}``, ``{"families":
-{...}}``.
+last is ``{"ok": true, "device": {...}}``.  The table3, serve, resilience,
+families and sharding records come earlier, on lines of their own:
+``{"table3": {...}}``, ``{"serve": {...}}``, ``{"resilience": {...}}``,
+``{"families": {...}}``, ``{"sharding": {...}}``.
 
     python3 chip_smoke.py --compare-mlless ROOT
 
@@ -3901,8 +3920,8 @@ FAMILIES = {
         serve=dict(layers=None, batch=1, prompt=1536, cache=2048,
                    tokens=16)),
 }
-FAM_PROFILED = ("mixtral-8x7b", "recurrentgemma-2b", "whisper-small",
-                "pixtral-12b")
+# Whisper's window (the largest) is left out for the sharding phase's time
+FAM_PROFILED = ("mixtral-8x7b", "recurrentgemma-2b", "pixtral-12b")
 # kernel 8 at each family's prefill shape: (label, B, S, H, KV, hd, window)
 FAM_ATTENTION = [
     ("mixtral-8x7b", 4, 512, 32, 8, 128, 4096),
@@ -4556,6 +4575,333 @@ def resilience_phase():
     log(f"[resilience] phase took {record['seconds']:.1f} s")
     return record
 
+
+# ---------------------------------------------------------------------------
+# sharding: FSDP training and data-sharded serving, 4 ranks, one card
+# ---------------------------------------------------------------------------
+SHARD_RANKS = 4
+SHARD_STEPS = 3
+SHARD_BATCH, SHARD_SEQ = 8, 512          # global batch: 2 rows a rank
+# (strategy, fsdp): the replicated baseline and the two FSDP runs
+SHARD_RUNS = (("allreduce", False), ("allreduce", True), ("mlless", True))
+# (label, batch, cache, prompt): 4 rows a rank; batch 1 sequence-sharded
+# (8,192 ring slots a rank), its 16 tokens crossing from rank 0's slots
+# into rank 1's
+SHARD_SERVE = (("batch16", 16, 2048, 512), ("batch1", 1, 32768, 8184))
+SHARD_TOKENS = 16
+SHARD_DRYRUN = ("train_4k", "long_500k")
+
+
+def shard_expected(strategy, steps=SHARD_STEPS):
+    """Launches a rank makes in ``steps`` train steps: fused AdamW once a
+    leaf, attention twice a layer (forward and remat), MLLess's
+    segmented pair once (FSDP changes none of them)."""
+    return expected_lm_launches(steps, mlless=strategy == "mlless")
+
+
+def shard_dryruns():
+    """The dry-run on the fake group: the phase's own configuration (W =
+    4, every run's strategy and profile) and SmolLM's train_4k and
+    long_500k on the 16x16 mesh under zero3."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    shape = InputShape("sharding_phase", SHARD_SEQ, SHARD_BATCH, "train")
+    t0 = time.perf_counter()
+    out = {"phase": {}, "production": {}}
+    for strategy, fsdp in SHARD_RUNS:
+        out["phase"][f"{strategy}/{'zero3' if fsdp else 'dp'}"] = \
+            dryrun.dryrun_one(LM_ARCH, shape.name, strategy=strategy,
+                              profile="zero3" if fsdp else "dp", save=False,
+                              mesh=make_mesh((SHARD_RANKS,), ("data",)),
+                              input_shape=shape)
+    for name in SHARD_DRYRUN:
+        out["production"][name] = dryrun.dryrun_one(
+            LM_ARCH, name, profile="zero3", save=False)
+    out["fsdp_required"] = sorted(dryrun.FSDP_REQUIRED)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def shard_gloo_check(dev):
+    """gloo's all_gather_into_tensor and reduce_scatter_tensor on CUDA
+    tensors of this card, against their definitions."""
+    import torch
+    import torch.distributed as dist
+    W, r = dist.get_world_size(), dist.get_rank()
+    x = torch.arange(6, dtype=torch.float32, device=dev) + 10 * r
+    out = torch.empty(W * 6, device=dev)
+    dist.all_gather_into_tensor(out, x)
+    want = torch.cat([torch.arange(6, dtype=torch.float32, device=dev)
+                      + 10 * q for q in range(W)])
+    full = torch.arange(W * 3, dtype=torch.float32, device=dev) * (r + 1)
+    part = torch.empty(3, device=dev)
+    dist.reduce_scatter_tensor(part, full)
+    scale = W * (W + 1) / 2
+    return {"all_gather_into_tensor": bool(torch.equal(out, want)),
+            "reduce_scatter_tensor": bool(torch.equal(
+                part, full[r * 3:(r + 1) * 3] / (r + 1) * scale)),
+            "device": str(out.device)}
+
+
+def shard_train(dev, strategy, fsdp, batches):
+    """``SHARD_STEPS`` steps of full-width SmolLM from seed 0's weights;
+    the first step's collectives, the shards each rank holds, launches,
+    step times and peak memory."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import build_train_step, get_strategy
+    from repro_torch.costmodel.collectives import record_collectives, stats
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    model = build_model(get_config(LM_ARCH), use_kernel=True, device=dev)
+    ts = build_train_step(model, optim.adamw(LM_LR, use_fused=True),
+                          get_strategy(strategy),
+                          make_mesh((SHARD_RANKS,), ("data",)), fsdp=fsdp)
+    state = ts.init_state()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_lm_launches()
+    losses, ms, coll = [], [], None
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        with record_collectives() as recs:
+            state, m = ts.step_fn(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            st = stats(recs)
+            coll = {"bytes_by_kind": st.bytes_by_kind, "counts": st.counts,
+                    "wire_bytes": st.wire_bytes}
+    rec = {"losses": losses, "step_ms": ms, "collectives": coll,
+           "launches": lm_launches(),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    if ts.layout is not None:
+        lay = ts.layout
+        rec["shards"] = [
+            {"global": int(math.prod(lay.shapes[i])), "sharded": m,
+             "param": p.numel(), "m": mm.numel(), "v": vv.numel()}
+            for i, (m, p, mm, vv) in enumerate(zip(
+                lay.mask, state["params"], state["opt"]["m"],
+                state["opt"]["v"]))]
+    return rec
+
+
+def shard_serve(dev, dtype, B, cache_len, prompt_len):
+    """Greedy decoding of ``SHARD_TOKENS`` tokens over the data mesh and,
+    on this rank alone, of the same prompts: this rank's rows of both,
+    ms a decode step of each."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import build_serve_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=dtype)
+    model = build_model(cfg, use_kernel=True, device=dev)
+    rs = np.random.RandomState(B)
+    prompt = torch.as_tensor(rs.randint(0, cfg.vocab_size, (B, prompt_len))
+                             .astype(np.int32), device=dev)
+    V = cfg.vocab_size
+
+    def greedy(prefill, decode, tokens):
+        logits, cache = prefill({"tokens": tokens})
+        tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None].int()
+        out = [tok]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(SHARD_TOKENS):
+            logits, cache = decode(tok, cache, prompt_len + i)
+            tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None].int()
+            out.append(tok)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / SHARD_TOKENS
+        del cache
+        return torch.cat(out, dim=1).cpu(), ms
+
+    reset_lm_launches()
+    ss = build_serve_step(model, make_mesh((SHARD_RANKS,), ("data",)),
+                          batch_size=B, cache_len=cache_len)
+    sharded, ms = greedy(ss.prefill_fn, ss.decode_fn, ss.local_rows(prompt))
+    launches = lm_launches()
+    torch.cuda.empty_cache()
+    one = build_serve_step(model, batch_size=B, cache_len=cache_len)
+    whole, ms_one = greedy(one.prefill_fn, one.decode_fn, prompt)
+    whole = ss.local_rows(whole)
+    return {"equal": bool(torch.equal(sharded, whole)),
+            "tokens": sharded.tolist(), "one_rank_tokens": whole.tolist(),
+            "ms_per_token": ms, "one_rank_ms_per_token": ms_one,
+            "launches": launches}
+
+
+def shard_rank(rank, init, out_dir):
+    """One rank of the sharding phase."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import lm_batches, token_stream
+    from repro_torch.launch.train import _rank_device, backend_for
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _rank_device("cuda", rank)
+    rec = {}
+    dist.init_process_group(backend_for(dev, SHARD_RANKS), init_method=init,
+                            rank=rank, world_size=SHARD_RANKS)
+    rec["backend"] = dist.get_backend()
+    rec["gloo_cuda"] = shard_gloo_check(dev)
+    cfg = get_config(LM_ARCH)
+    it = lm_batches(token_stream(SHARD_BATCH * SHARD_SEQ * 8,
+                                 cfg.vocab_size, seed=23), SHARD_BATCH,
+                    SHARD_SEQ, seed=23)
+    B = SHARD_BATCH // SHARD_RANKS
+    batches = [{k: torch.from_numpy(v[rank * B:(rank + 1) * B]).to(dev)
+                for k, v in next(it).items()} for _ in range(SHARD_STEPS)]
+    rec["train"] = {}
+    for strategy, fsdp in SHARD_RUNS:
+        label = f"{strategy}/{'fsdp' if fsdp else 'dp'}"
+        rec["train"][label] = shard_train(dev, strategy, fsdp, batches)
+        torch.cuda.empty_cache()
+    rec["serve"] = {}
+    for dtype in ("float32", "bfloat16"):
+        for label, Bs, cache, prompt in SHARD_SERVE:
+            rec["serve"][f"{label}/{dtype}"] = shard_serve(
+                dev, dtype, Bs, cache, prompt)
+            torch.cuda.empty_cache()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharding_phase():
+    """FSDP training, data-sharded serving and the dry-run on the card;
+    returns the record.  Every number is logged before the gates."""
+    import shutil
+    import torch
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    dry_path = os.path.join(out_dir, "dryrun.json")
+    # the dry-runs (host only, a fake process group of their own) run in
+    # a process of their own beside the ranks
+    child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--sharding-dryrun", dry_path])
+    try:
+        torch.multiprocessing.spawn(
+            shard_rank, args=("file://" + os.path.join(out_dir, "pg"),
+                              out_dir), nprocs=SHARD_RANKS)
+        ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+                 for r in range(SHARD_RANKS)]
+        check(child.wait(timeout=300) == 0, "[sharding] the dry-run failed")
+        dry = json.loads(Path(dry_path).read_text())
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    log(f"[sharding] {LM_ARCH} full width, bf16, {SHARD_RANKS} ranks "
+        f"sharing the card over {r0['backend']}, global batch "
+        f"{SHARD_BATCH} x seq {SHARD_SEQ}, {SHARD_STEPS} steps a run; "
+        f"gloo on CUDA tensors: {[r['gloo_cuda'] for r in ranks]}")
+    for label, run in r0["train"].items():
+        log(f"[sharding] train {label}: losses {run['losses']}, ms/step "
+            f"{run['step_ms']}, peak MB a rank "
+            f"{[r['train'][label]['peak_mem_bytes'] / 2**20 for r in ranks]}"
+            f", first step's collectives {run['collectives']}, launches "
+            f"{run['launches']}")
+    for key, res in dry["phase"].items():
+        log(f"[sharding] dry-run {key} (W {SHARD_RANKS}): collectives "
+            f"{res['collectives']['bytes_by_kind']}, memory "
+            f"{res['memory']}, roofline {res['roofline']}")
+    for name, res in dry["production"].items():
+        log(f"[sharding] dry-run {LM_ARCH} x {name} on 16x16 zero3: peak "
+            f"{res['memory']['peak_estimate_gb']:.4f} GB a device, "
+            f"dominant {res['roofline']['dominant']}, roofline "
+            f"{res['roofline']}, collectives "
+            f"{res['collectives']['bytes_by_kind']}")
+    log(f"[sharding] FSDP required on 80 GB (params 2 B + m, v 8 B over "
+        f"16): {dry['fsdp_required']}; dry-runs took {dry['seconds']:.1f} s")
+    from repro_torch.costmodel.roofline import HW
+    hw = {"name": HW.name, "peak_flops_bf16": HW.peak_flops_bf16,
+          "hbm_bandwidth": HW.hbm_bandwidth,
+          "ici_bandwidth": HW.ici_bandwidth, "hbm_bytes": HW.hbm_bytes,
+          "card_total_memory": torch.cuda.get_device_properties(0)
+          .total_memory, "card": torch.cuda.get_device_name(0)}
+    log(f"[sharding] the roofline's constants beside this card: {hw}")
+    for label, res in r0["serve"].items():
+        log(f"[sharding] serve {label}: ms a token {res['ms_per_token']:.3f}"
+            f" over {SHARD_RANKS} ranks, {res['one_rank_ms_per_token']:.3f}"
+            f" on one; tokens equal on every rank "
+            f"{[r['serve'][label]['equal'] for r in ranks]}; launches "
+            f"{res['launches']}")
+
+    for r, res in enumerate(ranks):
+        check(all(res["gloo_cuda"][k] for k in ("all_gather_into_tensor",
+                                                 "reduce_scatter_tensor")),
+              f"[sharding] rank {r}: gloo on CUDA tensors {res['gloo_cuda']}")
+        for label, run in res["train"].items():
+            strategy = label.split("/")[0]
+            check(run["launches"] == shard_expected(strategy),
+                  f"[sharding] rank {r} {label}: launches "
+                  f"{run['launches']}, expected {shard_expected(strategy)}")
+            check(run["losses"] == r0["train"][label]["losses"]
+                  and all(map(math.isfinite, run["losses"])),
+                  f"[sharding] rank {r} {label}: losses {run['losses']}")
+            profile = "zero3" if label.endswith("fsdp") else "dp"
+            want = dry["phase"][f"{strategy}/{profile}"]["collectives"]
+            check(run["collectives"]["bytes_by_kind"] ==
+                  want["bytes_by_kind"], f"[sharding] rank {r} {label}: "
+                  f"collective bytes {run['collectives']['bytes_by_kind']}"
+                  f" against the dry-run's {want['bytes_by_kind']}")
+            for leaf in run.get("shards", []):
+                n = leaf["global"] // SHARD_RANKS if leaf["sharded"] \
+                    else leaf["global"]
+                check(leaf["param"] == leaf["m"] == leaf["v"] == n,
+                      f"[sharding] rank {r} {label}: shard {leaf}")
+            if "shards" in run:
+                check(sum(leaf["sharded"] for leaf in run["shards"]) > 0,
+                      f"[sharding] {label}: no leaf sharded")
+        for label, sres in res["serve"].items():
+            if label.endswith("float32"):
+                check(sres["equal"], f"[sharding] rank {r} serve {label}: "
+                      f"{sres['tokens']} against one rank's "
+                      f"{sres['one_rank_tokens']}")
+    base, fsdp = (r0["train"]["allreduce/dp"]["losses"],
+                  r0["train"]["allreduce/fsdp"]["losses"])
+    gaps = [abs(a - b) / abs(b) for a, b in zip(fsdp, base)]
+    check(max(gaps) <= LM_STEP_RTOL, f"[sharding] FSDP losses {fsdp} "
+          f"against the replicated run's {base}: rel gaps {gaps} > "
+          f"{LM_STEP_RTOL}")
+    for name, res in dry["production"].items():
+        check(0 < res["memory"]["peak_estimate_gb"] < 80,
+              f"[sharding] dry-run {name}: {res['memory']}")
+    mem = {label: {"peak_mem_bytes": [r["train"][label]["peak_mem_bytes"]
+                                      for r in ranks],
+                   "dryrun_peak_gb": dry["phase"][
+                       f"{label.split('/')[0]}/"
+                       f"{'zero3' if label.endswith('fsdp') else 'dp'}"]
+                   ["memory"]["peak_estimate_gb"]}
+           for label in r0["train"]}
+    log(f"[sharding] peak memory against the dry-run's estimate: {mem}")
+    log(f"[sharding] FSDP losses within {LM_STEP_RTOL} of the replicated "
+        f"run's (gaps {gaps}); collective bytes equal the dry-run's kind "
+        f"for kind; each FSDP leaf a quarter on every rank; fp32 tokens "
+        f"equal one rank's in both layouts")
+    record = {"train": {k: {kk: v for kk, v in run.items()
+                            if kk != "shards"}
+                        for k, run in r0["train"].items()},
+              "launches": {label: [r["train"][label]["launches"]
+                                   for r in ranks] for label in r0["train"]},
+              "memory": mem, "serve": r0["serve"],
+              "dryrun": dry, "gloo_cuda": r0["gloo_cuda"],
+              "loss_gaps": gaps, "hardware": hw}
+    record["seconds"] = time.perf_counter() - t0
+    log(f"[sharding] phase took {record['seconds']:.1f} s")
+    return record
+
+
 def main(argv):
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the repository: src/repro_torch is "
@@ -4567,6 +4913,8 @@ def main(argv):
                     help="only time the MLLess step of this checkout and of "
                          "the one at ROOT, in turns")
     ap.add_argument("--mlless-step", metavar="ARCH", help=argparse.SUPPRESS)
+    ap.add_argument("--sharding-dryrun", metavar="PATH",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--src", default=str(SRC), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     sys.path.insert(0, args.src)
@@ -4576,6 +4924,9 @@ def main(argv):
         return 2
     if args.mlless_step:
         mlless_step(args.mlless_step)
+        return 0
+    if args.sharding_dryrun:
+        Path(args.sharding_dryrun).write_text(json.dumps(shard_dryruns()))
         return 0
     t0 = time.perf_counter()
     setup()
@@ -4694,6 +5045,23 @@ def main(argv):
     torch.cuda.empty_cache()
     fam = families_phase()
     print(json.dumps({"families": fam}))
+    torch.cuda.empty_cache()
+    shard = sharding_phase()
+    print(json.dumps({"sharding": shard}))
+    run = (f"sharding phase: {LM_ARCH} full width, {SHARD_RANKS} ranks "
+           f"sharing the card, {SHARD_STEPS} steps a run, one list entry a "
+           "rank")
+    for entry, keys in ((adamw, ("fused_adamw_flat",)),
+                        (attention, ("swa_attention_fwd",
+                                     "swa_attention_fwd_wgmma"))):
+        entry["sharding"] = {"launches": {
+            label: [{k: r[k] for k in keys} for r in ranks]
+            for label, ranks in shard["launches"].items()}, "run": run}
+    for entry in line["kernels"]:
+        if entry["name"] in ("segment_norms", "segment_filter"):
+            entry["sharding"] = {"launches": {
+                label: [r[entry["name"]] for r in ranks]
+                for label, ranks in shard["launches"].items()}, "run": run}
     attention["families"] = {
         "prefill_shapes": fam["attention"],
         "train_launches": {a: {k: r["launches"][k] for k in (

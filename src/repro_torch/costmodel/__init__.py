@@ -1,4 +1,6 @@
 """Cost models (``repro.costmodel``): the cloud pricing the serverless
-simulator bills with, and the analytic FLOP / byte / parameter counts.
-The roofline model waits for the sharding and dry-run slice."""
-from repro_torch.costmodel import flops, pricing  # noqa: F401
+simulator bills with, the analytic FLOP / byte / parameter counts, the
+collective bytes a step issues and the H100 roofline."""
+from repro_torch.costmodel import (  # noqa: F401
+    collectives, flops, pricing, roofline,
+)

@@ -28,7 +28,8 @@ and (with ``--json-out``) writes the full traces and recovery rows as
 JSON, in the reference's schema (a recovery row also carries its wall
 time by part, ``split_s``).  ``--init-from`` starts from a checkpoint: a
 parameter tree (``launch.train --checkpoint``, or the reference's) or a
-whole harness state.  ``--fsdp`` is refused: the port has no FSDP yet.
+whole harness state.  ``--fsdp`` shards the block leaves over the fleet
+(``resilience.harness``; the reference's default, the port's option).
 """
 from __future__ import annotations
 
@@ -199,7 +200,8 @@ def main(argv=None) -> None:
                     help="restore onto the W-1 survivors instead of "
                          "re-invoking the dead worker")
     ap.add_argument("--fsdp", action="store_true",
-                    help="refused: the port has no FSDP yet")
+                    help="shard the block leaves over the fleet (the "
+                         "reference's default)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--init-from", default=None, metavar="PATH",
                     help="start from this checkpoint (a parameter tree or "
@@ -217,7 +219,7 @@ def main(argv=None) -> None:
         fsdp=args.fsdp, restore_reinvoke=not args.no_reinvoke,
         seed=args.seed, modes=args.modes,
         device=args.device, init_from=args.init_from)
-    # refuse a bad scenario (fsdp among them) before spawning a rank
+    # refuse a bad scenario before spawning a rank
     ResilienceConfig(**{k: kwargs[k] for k in (
         "arch", "sim_arch", "n_workers", "steps", "global_batch", "seq",
         "lr", "checkpoint_every", "fsdp", "seed")},

@@ -14,13 +14,24 @@ the plain version on the CPU); weights are drawn from ``--seed`` on the
 device, prompts from a numpy ``RandomState(seed)``, and from the same
 draws, as the reference makes them, a VLM's stub patch embeddings and an
 encoder-decoder's stub frames (``0.1 * randn`` in the model dtype).  ``--layers`` cuts
-the depth and nothing else.  Serving over a mesh waits for the sharding
-slice.
+the depth and nothing else.
+
+``--mesh DxM`` serves over D ranks (``--world-size``, one process each, as
+``launch.train`` runs them): the cache is batch-sharded where the batch
+divides over the ranks and sequence-sharded otherwise
+(``core.serve_step``); a model axis larger than 1 raises
+``NotImplementedError``.
+
+  # reduced SmolLM, batch 1, the cache sequence-sharded over 4 CPU ranks
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --reduced --device cpu --world-size 4 --mesh 4x1 --batch 1
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -28,7 +39,7 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.core import build_serve_step
-from repro_torch.device import resolve_device
+from repro_torch.launch.train import _rank_device, parse_mesh, process_group
 from repro_torch.models import build_model
 
 
@@ -39,11 +50,26 @@ def _sync(dev):
 
 def serve(*, arch: str, batch: int = 4, prompt_len: int = 64,
           decode_tokens: int = 16, reduced: bool = False, n_layers=None,
-          device="cuda", seed: int = 0, log=print) -> dict:
+          device="cuda", seed: int = 0, mesh=None, rank: int = 0,
+          world_size: int = 1, init_method=None, log=print) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
-    ``decode_tokens`` more; returns the tokens ((batch, 1 + decode_tokens)
-    numpy int32, the first from the prefill) and the host times."""
-    dev = resolve_device(device)
+    ``decode_tokens`` more; returns the tokens ((rows, 1 + decode_tokens)
+    numpy int32, the first from the prefill; the rank's rows over a
+    batch-sharded mesh) and the host times.  ``mesh`` (``"DxM"``) serves
+    as ``rank`` of ``world_size`` (see the module docstring)."""
+    mesh = parse_mesh(mesh, world_size)
+    dev = _rank_device(device, rank)
+    if mesh is None:
+        return _serve(arch, batch, prompt_len, decode_tokens, reduced,
+                      n_layers, dev, seed, None, log)
+    with process_group(dev, rank, world_size, init_method):
+        return _serve(arch, batch, prompt_len, decode_tokens, reduced,
+                      n_layers, dev, seed, mesh, log if rank == 0 else
+                      (lambda _: None))
+
+
+def _serve(arch, batch, prompt_len, decode_tokens, reduced, n_layers, dev,
+           seed, mesh, log):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -51,7 +77,14 @@ def serve(*, arch: str, batch: int = 4, prompt_len: int = 64,
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(cfg, use_kernel=True, device=dev, seed=seed)
     cache_len = prompt_len + decode_tokens
-    ss = build_serve_step(model, batch_size=batch, cache_len=cache_len)
+    if mesh is None:
+        ss = build_serve_step(model, batch_size=batch, cache_len=cache_len)
+    else:
+        ss = build_serve_step(model, mesh,
+                              data_axes=tuple(a for a in mesh.axis_names
+                                              if a != "model"),
+                              model_axis="model", batch_size=batch,
+                              cache_len=cache_len)
     rs = np.random.RandomState(seed)
     inputs = {"tokens": torch.as_tensor(
         rs.randint(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32),
@@ -66,6 +99,8 @@ def serve(*, arch: str, batch: int = 4, prompt_len: int = 64,
             0.1 * rs.randn(batch, cfg.encoder_seq, cfg.d_model),
             device=dev).to(dtype)
 
+    if mesh is not None:
+        inputs = {k: ss.local_rows(v) for k, v in inputs.items()}
     t0 = time.perf_counter()
     logits, cache = ss.prefill_fn(inputs)
     _sync(dev)
@@ -83,7 +118,7 @@ def serve(*, arch: str, batch: int = 4, prompt_len: int = 64,
     _sync(dev)
     dt = time.perf_counter() - t0
     log(f"decoded {decode_tokens} tokens in {dt:.2f}s "
-        f"({decode_tokens * batch / dt:.1f} tok/s)")
+        f"({decode_tokens * tok.shape[0] / dt:.1f} tok/s a rank)")
     toks = torch.cat(out, dim=1).cpu().numpy()
     log(f"sample: {toks[0][:16]}")
     return {"tokens": toks, "prefill_s": prefill_s, "decode_s": dt,
@@ -101,11 +136,25 @@ def main(argv=None):
                     help="cut the depth to this many layers")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="data x model ranks; the model axis must be 1")
+    ap.add_argument("--world-size", type=int, default=1)
     args = ap.parse_args(argv)
-    return serve(arch=args.arch, batch=args.batch,
-                 prompt_len=args.prompt_len,
-                 decode_tokens=args.decode_tokens, reduced=args.reduced,
-                 n_layers=args.layers, device=args.device, seed=args.seed)
+    kwargs = dict(arch=args.arch, batch=args.batch,
+                  prompt_len=args.prompt_len,
+                  decode_tokens=args.decode_tokens, reduced=args.reduced,
+                  n_layers=args.layers, device=args.device, seed=args.seed,
+                  mesh=args.mesh, world_size=args.world_size)
+    if args.world_size == 1:
+        return serve(**kwargs)
+    kwargs["init_method"] = "file://" + os.path.join(
+        tempfile.mkdtemp(prefix="repro_torch_pg_"), "rendezvous")
+    torch.multiprocessing.spawn(_worker, args=(kwargs,),
+                                nprocs=args.world_size)
+
+
+def _worker(rank, kwargs):
+    serve(rank=rank, **kwargs)
 
 
 if __name__ == "__main__":

@@ -36,6 +36,17 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
       --fused-optimizer --steps 5 --batch 4 --seq 448
 
+``--mesh DxM`` lays the ranks out as the reference's ("data", "model")
+mesh (``PxDxM``: ("pod", "data", "model")): the data axes' product must
+be the world size, and a model axis larger than 1 (tensor parallelism)
+raises ``NotImplementedError``.  ``--fsdp`` shards the block leaves and
+their AdamW moments over the data axes (``core.train_step``):
+
+  # reduced SmolLM, FSDP over 4 CPU ranks
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+      --reduced --device cpu --world-size 4 --mesh 4x1 --fsdp --steps 3 \
+      --batch 8 --seq 64
+
 A VLM's batches carry stub patch embeddings (``patch_emb``, so ``--seq``
 is at least ``n_patches``) and an encoder-decoder's stub frames
 (``frames``), drawn each step as the reference's tests draw them.
@@ -69,7 +80,9 @@ from repro_torch.core import build_train_step, get_strategy
 from repro_torch.core.strategies import STRATEGIES
 from repro_torch.data import cifar_like, lm_batches, token_stream
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_cnn, build_model, param_tree
+from repro_torch.models.params import full_leaves
 
 CNN_ARCHS = ("mobilenet-cifar", "resnet18-cifar")
 LM_ARCHS = ("smollm-135m", "phi3-mini-3.8b", "qwen1.5-4b", "gemma3-4b",
@@ -120,7 +133,7 @@ def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
           reduced: bool = False, n_layers=None, seed: int = 0,
           rank: int = 0, world_size: int = 1, init_method=None,
           init_params=None, checkpoint=None, log_every: int = 10,
-          log=print) -> dict:
+          mesh=None, fsdp: bool = False, log=print) -> dict:
     """Train ``steps`` steps as ``rank`` of ``world_size`` and return a
     summary: per-step losses, the last metrics, timings and, on a GPU,
     peak device memory.  ``batch`` is the global batch; each rank trains
@@ -129,7 +142,9 @@ def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
     ``reduced``), widths unchanged.  ``init_params`` is a state dict to
     start from (for instance ``params_from_reference`` of a reference
     tree) instead of the seeded draw.  ``checkpoint`` is a path where rank 0
-    saves the trained parameter tree in the reference's format.  Joins the
+    saves the trained parameter tree in the reference's format (whole,
+    under FSDP too).  ``mesh`` is ``"DxM"`` or ``"PxDxM"`` (see the module
+    docstring), ``fsdp`` shards the model over its data axes.  Joins the
     default process group when it is already initialised; otherwise
     creates it from ``init_method`` (with one rank, a fresh ``file://``
     path when None) and destroys it after.
@@ -137,11 +152,35 @@ def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
     if batch % world_size:
         raise ValueError(f"global batch {batch} is not divisible by "
                          f"world size {world_size}")
+    mesh = parse_mesh(mesh, world_size)
+    if fsdp and mesh is None:
+        raise ValueError("fsdp needs a mesh (--mesh Wx1)")
     dev = _rank_device(device, rank)
     with process_group(dev, rank, world_size, init_method):
         return _train(arch, strategy, steps, batch, seq, lr, fused_optimizer,
                       dev, reduced, n_layers, seed, init_params, checkpoint,
-                      log_every, log if rank == 0 else None)
+                      log_every, log if rank == 0 else None, mesh, fsdp)
+
+
+def parse_mesh(spec, world_size: int):
+    """``"DxM"`` -> a ("data", "model") mesh, ``"PxDxM"`` -> ("pod",
+    "data", "model") (None stays None).  The data axes must span the
+    ranks; a model axis above 1 raises ``NotImplementedError``."""
+    if spec is None:
+        return None
+    dims = tuple(int(x) for x in spec.split("x"))
+    if len(dims) not in (2, 3):
+        raise ValueError(f"mesh {spec!r}: expected DxM or PxDxM")
+    if dims[-1] > 1:
+        raise NotImplementedError(
+            f"mesh {spec!r}: a model axis of {dims[-1]} (tensor "
+            "parallelism) is not ported yet (the TP slice, ROADMAP §1)")
+    if int(np.prod(dims)) != world_size:
+        raise ValueError(f"mesh {spec!r} has {int(np.prod(dims))} ranks, "
+                         f"the world {world_size}")
+    axes = ("data", "model") if len(dims) == 2 else ("pod", "data",
+                                                       "model")
+    return make_mesh(dims, axes)
 
 
 def _cnn_setup(cfg, batch, lr, dev, seed, rank, B_local):
@@ -189,7 +228,7 @@ def _lm_setup(cfg, batch, seq, lr, fused_optimizer, dev, seed, rank,
 
 def _train(arch, strategy, steps, batch, seq, lr, fused_optimizer, dev,
            reduced, n_layers, seed, init_params, checkpoint, log_every,
-           log):
+           log, mesh=None, fsdp=False):
     rank, W = dist.get_rank(), dist.get_world_size()
     cfg = get_config(arch)
     if reduced:
@@ -208,12 +247,19 @@ def _train(arch, strategy, steps, batch, seq, lr, fused_optimizer, dev,
                                            B_local)
     if init_params is not None:
         model.load_state_dict(init_params)
-    ts = build_train_step(model, opt, get_strategy(strategy))
+    if mesh is None:
+        ts = build_train_step(model, opt, get_strategy(strategy))
+    else:
+        ts = build_train_step(model, opt, get_strategy(strategy), mesh,
+                              data_axes=tuple(a for a in mesh.axis_names
+                                              if a != "model"),
+                              model_axis="model", fsdp=fsdp)
+    n_params = sum(p.numel() for p in model.parameters())
     state = ts.init_state()
-    n_params = sum(p.numel() for p in state["params"])
     if log:
         log(f"arch={cfg.name} strategy={strategy} params={n_params:,} "
-            f"world_size={W} device={dev}")
+            f"world_size={W} device={dev}"
+            + (f" mesh={mesh.shape} fsdp={fsdp}" if mesh else ""))
 
     def sync():
         if dev.type == "cuda":
@@ -249,10 +295,15 @@ def _train(arch, strategy, steps, batch, seq, lr, fused_optimizer, dev,
     if dev.type == "cuda":
         out["device_name"] = torch.cuda.get_device_name(dev)
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
-    if checkpoint and rank == 0:
-        ckpt.save(checkpoint, param_tree(model))
-        if log:
-            log(f"saved params to {checkpoint}")
+    if ts.layout is not None:
+        out["local_params"] = sum(p.numel() for p in state["params"])
+    if checkpoint:
+        # the whole tree (FSDP shards gathered: every rank takes part)
+        tree = ckpt.unflatten(param_tree(model), full_leaves(model))
+        if rank == 0:
+            ckpt.save(checkpoint, tree)
+            if log:
+                log(f"saved params to {checkpoint}")
     return out
 
 
@@ -281,13 +332,19 @@ def main(argv=None):
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="save the trained parameters here, in the "
                          "reference's checkpoint format")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="data x model ranks (PxDxM with pods); the model "
+                         "axis must be 1")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard the block leaves over the data axes")
     args = ap.parse_args(argv)
     kwargs = dict(arch=args.arch, strategy=args.strategy, steps=args.steps,
                   batch=args.batch, seq=args.seq, lr=args.lr,
                   fused_optimizer=args.fused_optimizer, device=args.device,
                   reduced=args.reduced, n_layers=args.layers,
                   seed=args.seed, checkpoint=args.checkpoint,
-                  world_size=args.world_size)
+                  world_size=args.world_size, mesh=args.mesh,
+                  fsdp=args.fsdp)
     if args.world_size == 1:
         res = train(**kwargs)
         print(f"ms/step {res['ms_per_step']}  first step "

@@ -37,11 +37,44 @@ def _walk(tree, prefix=()):
         yield prefix, np.asarray(tree)
 
 
-def params_from_reference(tree) -> dict:
+def params_from_reference(tree, mesh=None, rank=None, *, data_axes=None,
+                          model_axis="auto") -> dict:
     """State dict for ``load_state_dict`` from the reference's parameter
-    tree of numpy arrays."""
-    return {".".join(path): torch.from_numpy(np.array(arr, order="C"))
-            for path, arr in _walk(tree)}
+    tree of numpy arrays.  With ``mesh``, each FSDP leaf (``param_pspecs``
+    at ``fsdp=True`` over ``data_axes``, by default the mesh's
+    ``pod``/``data`` axes) keeps only global ``rank``'s slice: the state
+    of a model that ``build_train_step(..., fsdp=True)`` has sharded.
+    ``model_axis`` defaults to ``"model"`` where the mesh has that axis
+    (the reference's default), else None."""
+    flat = {".".join(path): arr for path, arr in _walk(tree)}
+    if mesh is not None:
+        from repro_torch.core import sharding
+        from repro_torch.launch.mesh import data_axes_of
+        if model_axis == "auto":
+            model_axis = "model" if "model" in mesh.axis_names else None
+        sharding.require_no_tp(mesh, model_axis)
+        specs = sharding.param_pspecs(
+            _map_tree(np.asarray, tree), mesh, fsdp=True,
+            data_axes=data_axes or data_axes_of(mesh),
+            model_axis=model_axis)
+        for path, spec in _walk_specs(specs):
+            key = ".".join(path)
+            flat[key] = sharding.Sharding(mesh, spec).shard(
+                torch.from_numpy(np.asarray(flat[key])), rank).numpy()
+    return {k: torch.from_numpy(np.array(v, order="C"))
+            for k, v in flat.items()}
+
+
+def _walk_specs(tree, prefix=()):
+    from repro_torch.core.sharding import PSpec
+    if isinstance(tree, PSpec):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk_specs(v, prefix + (str(k),))
+    else:
+        for i, v in enumerate(tree):
+            yield from _walk_specs(v, prefix + (str(i),))
 
 
 def param_tree(model: nn.Module):
@@ -72,9 +105,76 @@ def param_tree(model: nn.Module):
 
 def params_to_reference(model: nn.Module):
     """The reference's parameter tree of numpy arrays for ``model``; the
-    inverse of ``params_from_reference``."""
+    inverse of ``params_from_reference``.  A model sharded by FSDP
+    (``model.fsdp_layout``) gathers its shards first: collective over the
+    layout's group."""
+    full = {id(p): t for p, t in zip(reference_leaves(model),
+                                     full_leaves(model))}
     return _map_tree(lambda p: np.ascontiguousarray(
-        p.detach().cpu().numpy()), param_tree(model))
+        full[id(p)].detach().cpu().numpy()), param_tree(model))
+
+
+# ---------------------------------------------------------------------------
+# FSDP: a module holding shards of its parameters
+# ---------------------------------------------------------------------------
+def layout_of(model: nn.Module):
+    """The module's FSDP layout (``core.sharding.FsdpLayout``), None
+    where it holds every parameter whole."""
+    return getattr(model, "fsdp_layout", None)
+
+
+def global_shapes(model: nn.Module):
+    """Each parameter's global shape, in the reference's leaf order."""
+    layout = layout_of(model)
+    if layout is not None:
+        return list(layout.shapes)
+    return [tuple(p.shape) for p in reference_leaves(model)]
+
+
+def global_tree(model: nn.Module):
+    """``param_tree`` with each leaf an empty ``meta`` tensor of the
+    parameter's global shape and dtype."""
+    shapes = {id(p): s for p, s in zip(reference_leaves(model),
+                                       global_shapes(model))}
+    return _map_tree(lambda p: torch.empty(shapes[id(p)], dtype=p.dtype,
+                                           device="meta"), param_tree(model))
+
+
+def full_leaves(model: nn.Module):
+    """The parameters whole, in the reference's leaf order (the shards
+    of an FSDP leaf gathered: collective over the layout's group)."""
+    params = reference_leaves(model)
+    layout = layout_of(model)
+    if layout is None:
+        return params
+    with torch.no_grad():
+        return [layout.gather(i, p.detach()) for i, p in enumerate(params)]
+
+
+@torch.no_grad()
+def set_leaves(model: nn.Module, leaves, layout=None):
+    """Write whole parameter values (reference leaf order) into ``model``
+    laid out by ``layout`` (None: whole): a parameter whose shape changes
+    gets new storage, the Parameter object stays the same."""
+    for i, (p, full) in enumerate(zip(reference_leaves(model), leaves)):
+        t = full if layout is None else layout.shard(i, full)
+        t = t.to(device=p.device, dtype=p.dtype)
+        if tuple(p.shape) == tuple(t.shape):
+            p.copy_(t)
+        else:
+            p.data = t.clone()
+    model.fsdp_layout = layout
+
+
+def shard_model(model: nn.Module, layout):
+    """Lay the module's parameters out by ``layout`` (a no-op where they
+    already are); from another layout the shards are gathered first,
+    collectively over the old layout's group."""
+    old = layout_of(model)
+    if old is not None and layout is not None and old.key() == layout.key():
+        model.fsdp_layout = layout
+        return
+    set_leaves(model, full_leaves(model), layout)
 
 
 def _map_tree(fn, tree):

@@ -67,8 +67,19 @@ reference's Pallas path) and the recurrent layers from the cache's zero
 state, as the reference does.  Both write the cache in place (the
 reference donates it to decode): one slot a layer a token, no copy of the
 cache.  ``prefill`` and ``decode_step`` run without autograd.
+
+Sharding (``core.sharding``): under FSDP ``param_hook`` gathers each
+layer's parameter shards inside the layer (inside the recomputed block,
+so the backward gathers again, as the reference's remat does) and on each
+tail layer; the encoder calls no hook, as in the reference.
+``decode_step(..., shard=)`` decodes on a rank's slice of a
+sequence-sharded cache (``core.serve_step.SeqShard``); the cache held
+whole goes through ``WHOLE_CACHE``, the same interface.
+``build_model(..., device="meta")`` gives shapes only (the dry-run).
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 from torch import nn
@@ -156,7 +167,7 @@ class Model(nn.Module):
     reference_lists = ("blocks", "tail")
 
     def __init__(self, cfg, *, use_kernel: bool = False, remat: bool = True,
-                 kv_quant: bool = False, gen=None):
+                 kv_quant: bool = False, gen=None, device=None):
         super().__init__()
         self.cfg = cfg
         self.use_kernel = use_kernel
@@ -168,7 +179,15 @@ class Model(nn.Module):
         dtype = getattr(torch, cfg.dtype)
         cross = cfg.is_encoder_decoder
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
-        with torch.device(gen.device):
+        # FSDP: fn(layer subtree, kind in {"block", "tail"}, idx) -> the
+        # gathered subtree, called inside each (recomputed) layer; set by
+        # ``core.train_step.build_train_step``, identity when None
+        self.param_hook = None
+        # a stand-in for kernel 8 in the causal self-attention (the
+        # dry-run's shape-only one on ``meta`` tensors); None: as
+        # ``use_kernel`` says
+        self.attention_fn = None
+        with torch.device(device if device is not None else gen.device):
             self.embed = _Table(layers.embed_init(
                 gen, (self.padded_vocab, cfg.d_model), dtype))
             self.unembed = _Table(layers.dense_init(
@@ -206,6 +225,8 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
     def _attention_fn(self):
+        if self.attention_fn is not None:
+            return self.attention_fn
         return kops.swa_attention if self.use_kernel else None
 
     def _embed_inputs(self, batch):
@@ -302,9 +323,16 @@ class Model(nn.Module):
             x, _, _ = self._cross(x, p, enc_out)
         return self._ffn(x, p)
 
+    def _hook(self, tree, kind, idx):
+        if self.param_hook is None:
+            return tree
+        return self.param_hook(tree, kind, idx)
+
     def _block(self, x, aux, positions, enc_out, block_params):
-        for kind, p in zip(self.cfg.layer_pattern, block_params):
-            x, a = self._layer(p, kind, x, positions, enc_out)
+        for j, (kind, p) in enumerate(zip(self.cfg.layer_pattern,
+                                          block_params)):
+            x, a = self._layer(self._hook(p, "block", j), kind, x,
+                               positions, enc_out)
             aux = aux + a
         return x, aux
 
@@ -329,8 +357,9 @@ class Model(nn.Module):
                                     block, use_reentrant=False)
             else:
                 x, aux = self._block(x, aux, positions, enc_out, block)
-        for kind, m in zip(self.tail_kinds, self.tail):
-            x, a = self._layer(_module_tree(m), kind, x, positions, enc_out)
+        for i, (kind, m) in enumerate(zip(self.tail_kinds, self.tail)):
+            x, a = self._layer(self._hook(_module_tree(m), "tail", i), kind,
+                               x, positions, enc_out)
             aux = aux + a
         x = layers.rmsnorm(x, self.final_norm)
         return layers.unembed(self.unembed.table, x), aux
@@ -464,12 +493,22 @@ class Model(nn.Module):
         return layers.unembed(self.unembed.table, x), cache
 
     @torch.no_grad()
-    def decode_step(self, token, cache, pos, swa_variant: bool = False):
+    def decode_step(self, token, cache, pos, swa_variant: bool = False,
+                    shard=None):
         """token: (B, 1) int; ``pos`` the position of this token, an int or
         a 0-dim tensor for all rows, or a (B,) tensor of per-row positions
         (continuous batching).  Writes the token's entries into ``cache``
-        in place and returns (logits (B, 1, padded vocab), cache)."""
+        in place and returns (logits (B, 1, padded vocab), cache).
+
+        ``shard`` (``core.serve_step.SeqShard``): ``cache`` is this rank's
+        slice of a cache sharded over ranks along the dim after the batch
+        (the sequence of a ring buffer, a width of a recurrent state, the
+        encoder positions of ``enc_kv``); a sharded ring buffer is written
+        by its owner and attended through flash-decode, a sharded state is
+        gathered for the step and its slice kept."""
         cfg = self.cfg
+        whole = shard is None
+        shard = WHOLE_CACHE if whole else shard
         x = layers.embed(self.embed.table, token)
         B = x.shape[0]
         pos = torch.as_tensor(pos, device=x.device)
@@ -478,38 +517,67 @@ class Model(nn.Module):
             x = x + (pe[:, None, :] if pos.dim() == 1 else pe).to(x.dtype)
         positions = pos.reshape(B, 1) if pos.dim() == 1 \
             else pos.expand(B, 1)
-        for kind, p, leaf, enc in self._serve_layers(cache, swa_variant):
+        glob = itertools.repeat((None,) * 4) if whole else \
+            self._serve_layers(shard.cache, swa_variant)
+        for (kind, p, leaf, enc), (_, _, gleaf, genc) in zip(
+                self._serve_layers(cache, swa_variant), glob):
             h = layers.rmsnorm(x, p["norm1"])
             if kind in (RWKV, RGLRU):
                 step = rwkv6.rwkv_decode_step if kind == RWKV \
                     else rglru.rglru_decode_step
-                y, state = step(p[kind], h, cfg, leaf)
+                y, state = step(p[kind], h, cfg, shard.gather(leaf, gleaf))
                 for name, val in state.items():
-                    leaf[name].copy_(val)
+                    leaf[name].copy_(shard.keep(val, leaf[name]))
                 x = x + y
             else:
                 q, k, v = attention.project_qkv(p["attn"], h, cfg)
                 q, k = self._rope(q, positions), self._rope(k, positions)
                 window = cfg.window if kind == LOCAL else None
-                if self.kv_quant:
-                    kvquant.quant_cache_update(leaf["k"], k, pos)
-                    kvquant.quant_cache_update(leaf["v"], v, pos)
-                    o = attention.decode_attention_quant(
-                        q, leaf["k"], leaf["v"], pos, window=window)
-                else:
-                    attention.cache_update(leaf["k"], leaf["v"], k, v, pos)
-                    o = attention.decode_attention(
-                        q, leaf["k"], leaf["v"], pos, window=window)
+                o = shard.attend(q, k, v, leaf, gleaf, pos, window,
+                                 self.kv_quant)
                 x = _residual_attention(x, p["attn"], o)
             if enc is not None:
                 h = layers.rmsnorm(x, p["norm_x"])
                 q, _, _ = attention.project_qkv(p["xattn"], h, cfg)
-                o = attention.decode_attention(q, enc["k"], enc["v"],
-                                               enc["k"].shape[1] - 1)
+                o = shard.attend_all(q, enc, genc)
                 x = _residual_attention(x, p["xattn"], o)
             x, _ = self._ffn(x, p)
         x = layers.rmsnorm(x, self.final_norm)
         return layers.unembed(self.unembed.table, x), cache
+
+
+class WholeCache:
+    """The decode step's cache operations on a cache held whole (the
+    interface ``core.serve_step.SeqShard`` implements for a slice)."""
+
+    @staticmethod
+    def gather(leaf, _):
+        return leaf
+
+    @staticmethod
+    def keep(val, _):
+        return val
+
+    @staticmethod
+    def attend(q, k, v, leaf, _, pos, window, kv_quant):
+        """Write the token's k and v at ring slot ``pos % L`` and attend."""
+        if kv_quant:
+            kvquant.quant_cache_update(leaf["k"], k, pos)
+            kvquant.quant_cache_update(leaf["v"], v, pos)
+            return attention.decode_attention_quant(
+                q, leaf["k"], leaf["v"], pos, window=window)
+        attention.cache_update(leaf["k"], leaf["v"], k, v, pos)
+        return attention.decode_attention(q, leaf["k"], leaf["v"], pos,
+                                          window=window)
+
+    @staticmethod
+    def attend_all(q, enc, _):
+        """Attend to every position of the encoder's k and v."""
+        return attention.decode_attention(q, enc["k"], enc["v"],
+                                          enc["k"].shape[1] - 1)
+
+
+WHOLE_CACHE = WholeCache()
 
 
 def build_model(cfg, *, use_kernel: bool = False, remat: bool = True,
@@ -517,7 +585,12 @@ def build_model(cfg, *, use_kernel: bool = False, remat: bool = True,
     """The LM for ``cfg`` on ``device``, weights drawn from ``seed`` by a
     ``torch.Generator`` on that device (a card's draws differ from the
     CPU's; the reference's ``jax.random`` draws cannot be reproduced, so
-    parity starts from ``params_from_reference``)."""
+    parity starts from ``params_from_reference``).  ``device="meta"``
+    gives the parameters' shapes and dtypes only."""
+    if str(device) == "meta":
+        # shapes and dtypes only (the dry-run): nothing is allocated
+        return Model(cfg, use_kernel=use_kernel, remat=remat,
+                     gen=torch.Generator().manual_seed(seed), device="meta")
     dev = resolve_device(device)
     return Model(cfg, use_kernel=use_kernel, remat=remat,
                  gen=torch.Generator(device=dev).manual_seed(seed))

@@ -44,8 +44,18 @@ times measure state movement and replay, not first-call costs.  Each
 recovery's wall time is split into ``split_s``: read (the file, or the
 store's partitions), decode, to-device and replay.
 
-Differences from the reference: the port has no FSDP, so
-``ResilienceConfig.fsdp`` defaults to False and True raises (ROADMAP M8);
+FSDP (``fsdp=True``): each fleet is the reference's ("data", "model")
+mesh of W x 1 ranks, and the block leaves whose spec divides over the
+fleet shard over it with their moments (``core.train_step``).  Every
+checkpoint and in-DB blob is the whole state, gathered; a fleet that
+shrinks re-derives the specs on ``sharding.survivor_mesh``, where a leaf
+that no longer divides goes back to replication, and keeps its shards
+of the restored whole state.
+
+Differences from the reference: ``ResilienceConfig.fsdp`` defaults to
+False (the reference's default is True), so existing scenarios keep their
+replicated state; an encoder-decoder refuses ``fsdp=True`` (the
+reference's step fails there, ROADMAP §3);
 ``jax.random`` draws cannot be reproduced, so a run starts from the
 parameters passed in (``init_params``, for instance
 ``params_from_reference`` of the reference's tree), from a checkpoint
@@ -70,7 +80,9 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import build_train_step
 from repro_torch.data import lm_batches, token_stream
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import build_model, param_tree, reference_leaves
+from repro_torch.models.params import global_shapes, set_leaves
 from repro_torch.resilience import state as bridge
 from repro_torch.resilience.schedule import FaultSchedule
 from repro_torch.resilience.store import InMemoryStore
@@ -91,9 +103,9 @@ class ResilienceConfig:
     ``sim_arch`` names the serverless :class:`~repro_torch.serverless.
     archs.ArchSpec` twin: the harness trains with that spec's strategy
     (``spec.make_strategy()``), so the simulated scenario and the real
-    run share one architecture definition.  ``fsdp`` must stay False
-    (the reference's default is True; the port has no FSDP until ROADMAP
-    M8)."""
+    run share one architecture definition.  ``fsdp`` shards the block
+    leaves over the fleet (the reference's default is True, the port's
+    False)."""
     arch: str = "smollm-135m"
     sim_arch: str = "spirt"
     n_workers: int = 4
@@ -109,10 +121,11 @@ class ResilienceConfig:
     seed: int = 0
 
     def __post_init__(self):
-        if self.fsdp:
-            raise NotImplementedError(
-                "fsdp=True: the port has no FSDP yet (ROADMAP M8, "
-                "core/sharding.py); run with fsdp=False")
+        if self.fsdp and get_config(self.arch).is_encoder_decoder:
+            raise ValueError(
+                f"fsdp=True: {self.arch} shards its encoder's leaves, "
+                "which the reference never gathers (its step fails; "
+                "ROADMAP §3, M8)")
         if self.n_workers < 2:
             raise ValueError(
                 f"n_workers must be >= 2 (a one-worker fleet has no "
@@ -227,7 +240,9 @@ class ResilientTrainer:
                                      use_fused=dev.type == "cuda")
         self.strategy = get_arch(config.sim_arch).make_strategy()
         self._all = tuple(range(config.n_workers))
+        self._fleet: Tuple[int, ...] = self._all
         self._groups: Dict[Tuple[int, ...], Any] = {self._all: None}
+        self._steps: Dict[Tuple[int, ...], Any] = {}
         self._warmed: set = set()
         self._keep = keep_checkpoints
         if ckpt_dir is None:
@@ -289,24 +304,42 @@ class ResilientTrainer:
     def _group(self, fleet):
         return self._groups[fleet]
 
+    def _train_step(self, fleet):
+        """The fleet's ``TrainStep`` on its W x 1 ("data", "model") mesh
+        (the reference's harness mesh), built once."""
+        if fleet not in self._steps:
+            mesh = Mesh(np.asarray(fleet).reshape(-1, 1), ("data", "model"))
+            self._steps[fleet] = build_train_step(
+                self.model, self.optimizer, self.strategy, mesh,
+                group=self._group(fleet), data_axes=("data",),
+                model_axis="model", fsdp=self.config.fsdp)
+        return self._steps[fleet]
+
     def _step_fn(self, fleet):
-        return build_train_step(self.model, self.optimizer, self.strategy,
-                                group=self._group(fleet)).step_fn
+        return self._train_step(fleet).step_fn
+
+    def _layout(self):
+        """The current fleet's FSDP layout (None without FSDP)."""
+        return self._train_step(self._fleet).layout
 
     def _fresh_state(self):
         params = reference_leaves(self.model)
+        layout = self._layout() if self._fleet in self._steps else None
+        sync = params if layout is None else \
+            [p for p, m in zip(params, layout.mask) if not m]
         return {"params": params, "opt": self.optimizer.init(params),
-                "strat": self.strategy.init_state(params), "step": 0}
+                "strat": self.strategy.init_state(sync), "step": 0}
 
     def _reset(self):
-        """Initial parameters, fresh optimizer and strategy state, or the
-        resumed checkpoint's state."""
-        with torch.no_grad():
-            for p, p0 in zip(reference_leaves(self.model), self._init):
-                p.copy_(p0)
+        """Initial parameters (laid out for the current fleet), fresh
+        optimizer and strategy state, or the resumed checkpoint's
+        state."""
+        layout = self._layout()
+        set_leaves(self.model, self._init, layout)
         self._state = self._fresh_state()
         if self._resume is not None:
-            bridge.from_reference(self._resume, self._state, self.rank)
+            bridge.from_reference(self._resume, self._state, self.rank,
+                                  layout, self.model)
         self._first = self._state["step"]
 
     def _fleets(self, schedule, policy):
@@ -341,8 +374,8 @@ class ResilientTrainer:
                 continue
             self._warmed.add(fleet)
             if self.rank in fleet:
-                self._reset()
                 self._fleet = fleet
+                self._reset()
                 self._do_step(0, self._step_fn(fleet))
         self._state = None
 
@@ -353,8 +386,8 @@ class ResilientTrainer:
         from the state the previous call left.  For a profiler window or
         a determinism probe outside :meth:`run`."""
         if start == 0:
-            self._reset()
             self._fleet, self._ts = self._all, self._step_fn(self._all)
+            self._reset()
         elif self._state is None or self._fleet != self._all:
             raise RuntimeError("fault_free_steps(start > 0) goes on from "
                                "an earlier fault_free_steps call")
@@ -380,7 +413,8 @@ class ResilientTrainer:
     # ------------------------------------------------------------------
     def _blob(self):
         return checkpoint.dumps(bridge.to_reference(
-            self._state, self.model, self._group(self._fleet)))
+            self._state, self.model, self._group(self._fleet),
+            self._layout()))
 
     def _snapshot(self) -> Optional[int]:
         """Persist the current state: a checkpoint file every
@@ -415,15 +449,18 @@ class ResilientTrainer:
         return len(blob)
 
     def _template(self):
-        return bridge.template(self._state, self.model, len(self._fleet))
+        return bridge.template(self._state, self.model, len(self._fleet),
+                               self._layout())
 
     def _adopt(self, tree, row, fleet, split, t):
-        """Write a restored host tree into the state on the device as
-        row ``row`` of the strategy state, then switch to ``fleet``."""
-        bridge.from_reference(tree, self._state, row)
+        """Switch to ``fleet`` and write a restored host tree into the
+        state on the device, laid out for that fleet, as row ``row`` of
+        the strategy state."""
+        self._fleet, self._ts = fleet, self._step_fn(fleet)
+        bridge.from_reference(tree, self._state, row, self._layout(),
+                              self.model)
         self._sync()
         split["to_device"] = _now() - t
-        self._fleet, self._ts = fleet, self._step_fn(fleet)
 
     def _die(self):
         """This rank is the lost worker: it drops its state and store and
@@ -545,7 +582,7 @@ class ResilientTrainer:
         self._reset()
         self._completed = self._first
         state_bytes = self._snapshot() or len(self._blob())
-        n_params = sum(p.numel() for p in self._state["params"])
+        n_params = sum(int(np.prod(s)) for s in global_shapes(self.model))
 
         recoveries: List[RecoveryOutcome] = []
         step_walls: Dict[int, List[float]] = {}

@@ -1274,3 +1274,70 @@ def test_moe_apply_ep_on_two_ranks_sharing_the_card(cuda, tmp_path):
         out, err = p.communicate(timeout=600)
         assert p.returncode == 0, err[-3000:]
         assert out.startswith("OK")
+
+
+# ---------------------------------------------------------------------------
+# sharding: FSDP's collectives over gloo on the card, one FSDP step
+# ---------------------------------------------------------------------------
+_FSDP_PROBE = """
+import sys
+import torch
+import torch.distributed as dist
+from repro_torch import optim
+from repro_torch.configs.base import get_config
+from repro_torch.core import build_train_step, get_strategy
+from repro_torch.core.sharding import gather_dim, scatter_dim
+from repro_torch.data import lm_batches, token_stream
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import build_model
+
+rank, init = int(sys.argv[1]), sys.argv[2]
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+x = torch.arange(12., device=dev).reshape(3, 4) + 100 * rank
+full = gather_dim(x, 1)
+assert full.is_cuda and torch.equal(full.cpu(), torch.cat(
+    [torch.arange(12.).reshape(3, 4) + 100 * q for q in range(2)], dim=1))
+part = scatter_dim(full.to(torch.bfloat16), 1)
+assert part.is_cuda and part.dtype == torch.bfloat16
+assert torch.equal(part.float().cpu(), 2 * full[:, 4 * rank:4 * rank + 4]
+                   .cpu().to(torch.bfloat16).float())
+cfg = get_config("smollm-135m").reduced()
+it = lm_batches(token_stream(4 * 64 * 8, cfg.vocab_size), 4, 64)
+b = {k: torch.from_numpy(v[2 * rank:2 * rank + 2]).to(dev)
+     for k, v in next(it).items()}
+losses = []
+for fsdp in (False, True):
+    model = build_model(cfg, use_kernel=True, device="cpu").to(dev)
+    ts = build_train_step(model, optim.adamw(1e-3, use_fused=True),
+                          get_strategy("allreduce"),
+                          make_mesh((2,), ("data",)), fsdp=fsdp)
+    state = ts.init_state()
+    state, m = ts.step_fn(state, b)
+    state, m = ts.step_fn(state, b)
+    losses.append(float(m["loss"]))
+    if fsdp:
+        assert sum(ts.layout.mask) == 9
+assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0]), losses
+dist.destroy_process_group()
+"""
+
+
+def test_fsdp_collectives_and_step_on_cuda(cuda, tmp_path):
+    """Two gloo ranks on one card: FSDP's all-gather
+    (``all_gather_into_tensor``) and reduce-scatter
+    (``reduce_scatter_tensor``, bf16) on CUDA tensors, and two steps of
+    reduced SmolLM (fp32, kernels 8 and 3) under FSDP against the same
+    steps replicated, losses to 1e-5."""
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _FSDP_PROBE, str(r), f"file://{tmp_path}/pg"],
+        stderr=subprocess.PIPE, text=True, env=env) for r in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-2000:]

@@ -54,7 +54,10 @@ def test_port_has_modules_to_check():
                 "models/rglru.py", "data/loader.py",
                 "configs/mixtral_8x7b.py", "configs/mixtral_8x22b.py",
                 "configs/recurrentgemma_2b.py", "configs/whisper_small.py",
-                "configs/pixtral_12b.py"):
+                "configs/pixtral_12b.py", "core/sharding.py",
+                "launch/mesh.py", "launch/distributed.py",
+                "launch/dryrun.py", "costmodel/collectives.py",
+                "costmodel/roofline.py"):
         assert port / rel in FILES, rel
 
 

@@ -1,8 +1,10 @@
 """The port's resilience harness against the reference's, on the CPU.
 
 The reference's ``ResilientTrainer`` runs once in a child process on 4
-forced host devices (``fsdp=False``: its default fails here, ROADMAP §1)
-beside the port's 4 gloo ranks, on the same scenario: reduced SmolLM,
+forced host devices (``fsdp=False``; at its default ``fsdp=True`` its
+restore fails here, ROADMAP §3, and its baseline and takeover are held
+against the port's FSDP harness) beside the port's 4 gloo ranks, on the
+same scenario: reduced SmolLM,
 global batch 12, seq 8, 5 steps, worker 1 killed at step 3, a checkpoint
 every 2 steps, seed 0, both starting from the reference's parameters
 (``build_model(...).init(PRNGKey(0))`` in this one-device process, saved
@@ -77,6 +79,17 @@ out["treedef"] = str(jax.tree.structure(tr._state))
 shrunk = ResilientTrainer(ResilienceConfig(restore_reinvoke=False, **kw),
                           ckpt_dir=os.path.join(tmp, "ref_ckpt_shrunk"))
 out["shrunk"] = pack(shrunk.run(sched, restore))
+# the reference's default: FSDP over the (4, 1) mesh
+os.makedirs(os.path.join(tmp, "ref_ckpt_fsdp"))
+tr = ResilientTrainer(ResilienceConfig(**dict(kw, fsdp=True)),
+                      ckpt_dir=os.path.join(tmp, "ref_ckpt_fsdp"))
+out["fsdp_baseline"] = pack(tr.run())
+out["fsdp_takeover"] = pack(tr.run(sched, PeerTakeover()))
+try:
+    tr.run(sched, restore)
+    out["fsdp_restore_error"] = None
+except Exception as e:
+    out["fsdp_restore_error"] = type(e).__name__
 json.dump(out, open(os.path.join(tmp, "reference.json"), "w"))
 """
 
@@ -135,6 +148,20 @@ if phase == "main":
     out["mlless_baseline"] = pack(ml.run())
     out["mlless_restore"] = pack(ml.run(first, restore))
     out["mlless_takeover"] = pack(ml.run(first, PeerTakeover()))
+elif phase == "fsdp":
+    tr = trainer("port_ckpt_fsdp", params, fsdp=True)
+    out["fsdp_baseline"] = pack(tr.run())
+    out["fsdp_local"] = [[int(p.numel()), int(m.numel())] for p, m in zip(
+        tr._train_step(tr._all).init_state()["params"],
+        tr._train_step(tr._all).init_state()["opt"]["m"])]
+    out["fsdp_full"] = [int(np.prod(s)) for s in
+                        tr._train_step(tr._all).layout.shapes]
+    out["fsdp_mask"] = tr._train_step(tr._all).layout.mask
+    out["fsdp_restore"] = pack(tr.run(sched, restore))
+    out["fsdp_takeover"] = pack(tr.run(sched, PeerTakeover()))
+    shrunk = trainer("port_ckpt_fsdp_shrunk", params, fsdp=True,
+                     restore_reinvoke=False)
+    out["fsdp_shrunk"] = pack(shrunk.run(sched, restore))
 else:
     tr = trainer("port_ckpt_resume", os.path.join(
         tmp, "ref_ckpt_baseline", "step_000002.msgpack"))
@@ -181,12 +208,13 @@ def runs(tmp_path_factory):
         env=_env(XLA_FLAGS="--xla_force_host_platform_device_count=4",
                  JAX_PLATFORMS="cpu"))
     _wait(_port_ranks(tmp, "main") + [ref])
-    _wait(_port_ranks(tmp, "resume"))
+    _wait(_port_ranks(tmp, "resume") + _port_ranks(tmp, "fsdp"))
     ports = [json.loads((tmp / f"port_main{r}.json").read_text())
              for r in range(4)]
     for r in range(4):
-        ports[r].update(json.loads(
-            (tmp / f"port_resume{r}.json").read_text()))
+        for phase in ("resume", "fsdp"):
+            ports[r].update(json.loads(
+                (tmp / f"port_{phase}{r}.json").read_text()))
     return {"tmp": tmp, "params": params, "port": ports[0],
             "ranks": ports,
             "ref": json.loads((tmp / "reference.json").read_text())}
@@ -358,11 +386,72 @@ def test_result_line_parses(runs):
 
 
 def test_fsdp_is_refused_naming_m8():
-    with pytest.raises(NotImplementedError, match="M8"):
-        ResilienceConfig(fsdp=True)
+    """FSDP runs (M8) except for an encoder-decoder, whose encoder leaves
+    the reference shards and never gathers (its step fails): refused
+    before any rank is spawned.  The port's default stays False."""
+    assert ResilienceConfig(fsdp=True).fsdp is True
+    with pytest.raises(ValueError, match="M8"):
+        ResilienceConfig(fsdp=True, arch="whisper-small")
     assert ResilienceConfig().fsdp is False
-    with pytest.raises(NotImplementedError, match="M8"):
-        resilient_train.main(["--fsdp", "--device", "cpu"])
+    with pytest.raises(ValueError, match="M8"):
+        resilient_train.main(["--fsdp", "--arch", "whisper-small",
+                              "--device", "cpu"])
+
+
+def test_fsdp_baseline_and_takeover_match_the_reference(runs):
+    """The reference's default, FSDP over its (4, 1) ("data", "model")
+    mesh: the same losses to 1e-5, the same whole-state blob (16,532,556
+    B, the gathered tree) and the dead partition's bytes; the reference's
+    restore under FSDP fails (a ``TypeError`` in its replay, ROADMAP
+    §3)."""
+    port, ref = runs["port"], runs["ref"]
+    for label in ("fsdp_baseline", "fsdp_takeover"):
+        np.testing.assert_allclose(port[label]["losses"],
+                                   ref[label]["losses"], rtol=RTOL)
+        assert port[label]["state_bytes"] == ref[label]["state_bytes"] \
+            == 16_532_556
+    (rec,) = port["fsdp_takeover"]["recoveries"]
+    (want,) = ref["fsdp_takeover"]["recoveries"]
+    assert (rec["bytes_moved"], rec["n_workers_after"]) == \
+        (want["bytes_moved"], want["n_workers_after"]) == \
+        (16_532_556 // 4, 3)
+    assert ref["fsdp_restore_error"] == "TypeError"
+
+
+def test_fsdp_holds_shards_and_writes_the_whole_state(runs):
+    """On the (4, 1) mesh the model axis of size 1 takes each block
+    leaf's widest dim and FSDP the next one that divides by 4: the
+    attention and MLP weights, not the norms (whose one width dim the
+    model axis took).  Each rank holds a quarter of those leaves and of
+    their moments; the step-0 checkpoint is the whole state, byte for
+    byte the replicated run's file."""
+    port, tmp = runs["port"], runs["tmp"]
+    mask = port["fsdp_mask"]
+    assert sum(mask) == 7 and len(mask) == 12
+    for sharded, (p, m), n in zip(mask, port["fsdp_local"],
+                                  port["fsdp_full"]):
+        assert p == m == (n // 4 if sharded else n)
+    assert (tmp / "port_ckpt_fsdp" / "step_000000.msgpack").read_bytes() \
+        == (tmp / "port_ckpt" / "step_000000.msgpack").read_bytes()
+
+
+def test_fsdp_restore_against_the_ports_own_replicated_run(runs):
+    """Where the reference fails, the port's FSDP restore replays bit for
+    bit against its own FSDP baseline, and its losses equal the
+    replicated harness's restore to 1e-5; the shrunk restore re-derives
+    the specs on the 3 survivors (nothing divides by 3: replicated)."""
+    port = runs["port"]
+    res = port["fsdp_restore"]
+    assert res["losses"] == port["fsdp_baseline"]["losses"]
+    assert res["replay_exact"]
+    np.testing.assert_allclose(res["losses"], port["restore"]["losses"],
+                               rtol=RTOL)
+    (rec,) = res["recoveries"]
+    assert (rec["replayed_steps"], rec["ckpt_step"], rec["bytes_moved"]) \
+        == (1, 2, 16_532_556)
+    np.testing.assert_allclose(port["fsdp_shrunk"]["losses"],
+                               port["shrunk"]["losses"], rtol=RTOL)
+    assert port["fsdp_shrunk"]["n_workers_end"] == 3
 
 
 @pytest.mark.parametrize("kw,match", [
