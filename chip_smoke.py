@@ -65,10 +65,10 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    (every attention launch on the tensor-core route), two steps through
    the kernels against the kernel-free path, a record of the entry point's
    default lr 3e-3 on the same steps, reduced logits on the card against
-   the CPU, SPIRT and MLLess for 3 steps each, 5 steps at seq 2048, and
-   profiler windows at seq 128 and seq 2048, the second with attention's
-   device time split into the kernel, the plain recompute and the
-   backward.
+   the CPU, SPIRT and MLLess for 3 steps each, and 5 steps at seq 2048
+   (its profiler windows, at seq 128 and at seq 2048 with attention's
+   device time split, are cut for the time limit: PERF.md keeps their
+   earlier readings).
 8. gemma: attention at the wide head_dims (Gemma-3's 320 at its train
    shape, local and global, and a ragged S; 160; 256) against its plain
    version in bf16 (every launch on the tensor-core route) and fp32 (the
@@ -141,7 +141,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    checkpoint of the card's state through ``dumps``/``loads`` bit for
    bit; ``benchmarks/recovery_replay.py``'s sign check through the port's
    event runtime; wall times split into read, decode, to-device and
-   replay; a profiler window over rank 0's step.  Its record is the line
+   replay (its profiler window over rank 0's step is cut for the time
+   limit: PERF.md keeps its earlier reading).  Its record is the line
    ``{"resilience": {...}}``; the kernels line's fused-AdamW and
    attention entries gain its launches.
 
@@ -156,8 +157,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    of 1500); losses finite and falling, fused AdamW once a leaf a step,
    kernel 8 twice an attention layer a step (all wgmma), the first step's
    loss against the kernel-free path's to 2^-9, a record at the
-   reference's lr 3e-3, peak memory; a profiler window over each family's
-   step but Whisper's (left out for the time of phase 13).  Serving through ``serve_model`` with the stub
+   reference's lr 3e-3, peak memory (the profiler windows over each
+   family's step are cut for the time limit: PERF.md keeps their
+   earlier readings).  Serving through ``serve_model`` with the stub
    inputs: Mixtral 8x7B (1 layer) and 8x22B (2 layers), RecurrentGemma and
    Whisper at full depth, Pixtral at full depth (1,024 patches and 512
    text tokens); kernel 8 once an attention layer a prefill, decode
@@ -189,11 +191,29 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    ``{"sharding": {...}}``; the kernels line's fused-AdamW, attention and
    segmented entries gain its launches.
 
+14. tp: tensor parallelism (``models.tp``) on full-width SmolLM-135M, 4
+   ranks sharing the card over gloo on a (2, 2) ("data", "model") mesh
+   (gloo's bf16 all-reduce and reduce-scatter on CUDA tensors checked
+   first).  The sharding phase's batches (global 8 x seq 512), 3 steps
+   each of allreduce, allreduce under FSDP and MLLess (whole leaves, as
+   the reference's): losses finite, the allreduce runs within 2^-9 of
+   the sharding phase's replicated run, the first step's collective
+   bytes and counts equal to the ``baseline`` dry-run of the same mesh,
+   peak memory a rank below the replicated run's, launches as counted
+   (kernel 8 on all 9 heads: 9 do not divide over 2).  Serving batch 16 x
+   cache 2,048 (the cache on head_dim: 3 kv heads do not divide), 8
+   greedy tokens, fp32 token for token against one rank's and timed in
+   bf16.  Then ranks 0-2 on (1, 3), where 9 / 3 heads and d 576 divide:
+   prefill through kernel 8 on 3 heads a rank (fp32 and bf16, the cache
+   on the kv heads), 8 fp32 tokens against one rank's.  Its record is
+   the line ``{"tp": {...}}``; the kernels line's fused-AdamW, attention
+   and segmented entries gain its launches.
+
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  The table3, serve, resilience,
-families and sharding records come earlier, on lines of their own:
+families, sharding and tp records come earlier, on lines of their own:
 ``{"table3": {...}}``, ``{"serve": {...}}``, ``{"resilience": {...}}``,
-``{"families": {...}}``, ``{"sharding": {...}}``.
+``{"families": {...}}``, ``{"sharding": {...}}``, ``{"tp": {...}}``.
 
     python3 chip_smoke.py --compare-mlless ROOT
 
@@ -1833,7 +1853,7 @@ def lm_train_phase(init_method):
     """The LM entry point on full-width SmolLM-135M over a one-rank NCCL
     group; the main path's launch counts; the kernel step against the
     kernel-free step; reduced logits on the card against the CPU; SPIRT
-    and MLLess; the long sequence; a profile."""
+    and MLLess; the long sequence."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.train import train
@@ -1899,9 +1919,6 @@ def lm_train_phase(init_method):
             f"{r['peak_mem_bytes'] / 2**30:.2f} GiB")
         runs["long"] = r
         torch.cuda.empty_cache()
-        runs["profile"] = lm_profile()
-        runs["long_profile"] = lm_profile(LONG_BATCH, LONG_SEQ,
-                                          split_attention=True)
         return launches, runs
     finally:
         dist.destroy_process_group()
@@ -2157,9 +2174,7 @@ def lm_phase():
          **long,
          "train_shape": times["swa_attention_fwd/train"],
          "window_1024": times["swa_attention_fwd/long_window_1024"],
-         "sass": sass,
-         "profile": runs["profile"].get("swa_wgmma_kernel"),
-         "long_profile": runs["long_profile"]},
+         "sass": sass},
     ]
 
 
@@ -3921,7 +3936,6 @@ FAMILIES = {
                    tokens=16)),
 }
 # Whisper's window (the largest) is left out for the sharding phase's time
-FAM_PROFILED = ("mixtral-8x7b", "recurrentgemma-2b", "pixtral-12b")
 # kernel 8 at each family's prefill shape: (label, B, S, H, KV, hd, window)
 FAM_ATTENTION = [
     ("mixtral-8x7b", 4, 512, 32, 8, 128, 4096),
@@ -4179,8 +4193,7 @@ def families_phase():
     import torch.distributed as dist
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    rec = {"attention": fam_kernel8(dev), "train": {}, "serve": {},
-           "profile": {}}
+    rec = {"attention": fam_kernel8(dev), "train": {}, "serve": {}}
     init = "file://" + os.path.join(
         tempfile.mkdtemp(prefix="chip_smoke_fam_"), "pg")
     dist.init_process_group("nccl", init_method=init, rank=0, world_size=1)
@@ -4188,12 +4201,6 @@ def families_phase():
         for arch, spec in FAMILIES.items():
             if spec["train"] is not None:
                 rec["train"][arch] = fam_train(arch, spec["train"])
-            if arch in FAM_PROFILED:
-                t = spec["train"]
-                rec["profile"][arch] = lm_profile(
-                    t["batch"], t["seq"], cfg=fam_config(arch, t["layers"]),
-                    lr=FAM_LR)
-                torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     for seed, (arch, spec) in enumerate(FAMILIES.items()):
@@ -4311,35 +4318,6 @@ def res_roundtrip(model):
             "dumps_s": dumps_s, "loads_to_card_s": loads_s}
 
 
-def res_profile(trainer, rank, steps=1):
-    """``torch.profiler`` over fault-free full-width steps of rank 0 (the
-    other ranks step alongside): device busy against the host clock and
-    the host time inside gloo's all-reduce."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    trainer.fault_free_steps(1)
-    if rank != 0:
-        trainer.fault_free_steps(steps, start=1)
-        return None
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.fault_free_steps(steps, start=1)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    out = profile_report(prof, steps, wall_ms, f"{LM_ARCH} harness step "
-                         f"(rank 0 of {RES_RANKS} sharing the card)",
-                         ("swa_wgmma_kernel", "fused_adamw_kernel"), top=6)
-    reduce_ms = [e.cpu_time_total / 1e3 / steps
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CPU
-                 and "all_reduce" in e.key.lower()]
-    out["all_reduce_host_ms"] = max(reduce_ms, default=None)
-    log(f"[resilience] host time in the gradient all-reduce (gloo): "
-        f"{out['all_reduce_host_ms']} ms/step of {wall_ms:.3f}")
-    return out
-
-
 def res_nondeterminism(trainer):
     """One step with ``torch.use_deterministic_algorithms(True,
     warn_only=True)``: the ops that warn have no deterministic
@@ -4401,7 +4379,6 @@ def res_rank(rank, init, out_dir, ckpt_dir):
     if not (runs["restore/0"]["losses"] == runs["restore/1"]["losses"]
             == runs["baseline"]["losses"]):
         rec["nondeterministic_ops"] = res_nondeterminism(trainer)
-    rec["profile"] = res_profile(trainer, rank)
     if rank == 0:
         rec["roundtrip"] = res_roundtrip(trainer.model)
     del trainer
@@ -4566,7 +4543,6 @@ def resilience_phase():
         f"round trip bit for bit; the sign check holds")
     record = {
         "runs": runs, "sign_check": sign, "roundtrip": rt,
-        "profile": ranks[0]["profile"],
         "launches": {label: [r["runs"][label]["launches"] for r in ranks]
                      for label in runs},
         "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
@@ -4902,6 +4878,348 @@ def sharding_phase():
     return record
 
 
+# ---------------------------------------------------------------------------
+# tp: tensor parallelism on a (2, 2) ("data", "model") mesh, 4 ranks, one
+# card; the head-local case on (1, 3), 3 ranks
+# ---------------------------------------------------------------------------
+TP_MESH = (2, 2)
+TP_RANKS = 4
+# (strategy, fsdp), on the sharding phase's batches: global 8 x 512
+TP_RUNS = (("allreduce", False), ("allreduce", True), ("mlless", False))
+# batch, cache, prompt: 8 rows a data rank
+TP_SERVE = (16, 2048, 512)
+TP_TOKENS = 8
+# SmolLM's 9 / 3 heads and d 576 divide over 3: head-local attention, the
+# cache sharded on its kv heads
+TP_LOCAL_MESH = (1, 3)
+TP_LOCAL = (4, 1024, 512)
+TP_LOCAL_TOKENS = 8
+
+
+def tp_label(strategy, fsdp):
+    return f"{strategy}/{'fsdp' if fsdp else 'tp'}"
+
+
+def tp_dryruns():
+    """The ``baseline`` dry-run (fake process group, meta tensors) of each
+    train run of the phase on its (2, 2) mesh, at its shape."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    shape = InputShape("tp_phase", SHARD_SEQ, SHARD_BATCH, "train")
+    t0 = time.perf_counter()
+    out = {tp_label(s, f): dryrun.dryrun_one(
+        LM_ARCH, shape.name, strategy=s, fsdp=f, profile="baseline",
+        save=False, mesh=make_mesh(TP_MESH, ("data", "model")),
+        input_shape=shape) for s, f in TP_RUNS}
+    return {"runs": out, "seconds": time.perf_counter() - t0}
+
+
+def tp_gloo_check(dev):
+    """gloo's bf16 all-reduce and reduce-scatter on CUDA tensors of this
+    card (the TP collectives run in the activations' dtype)."""
+    import torch
+    import torch.distributed as dist
+    W, r = dist.get_world_size(), dist.get_rank()
+    x = torch.full((6,), r + 1.0, dtype=torch.bfloat16, device=dev)
+    dist.all_reduce(x)
+    full = torch.arange(W * 3, dtype=torch.bfloat16, device=dev)
+    part = torch.empty(3, dtype=torch.bfloat16, device=dev)
+    dist.reduce_scatter_tensor(part, full)
+    return {"all_reduce_bf16": bool((x == W * (W + 1) / 2).all()),
+            "reduce_scatter_bf16": bool(torch.equal(
+                part, full[r * 3:(r + 1) * 3] * W))}
+
+
+def tp_train(dev, strategy, fsdp, batches):
+    """``SHARD_STEPS`` steps of full-width SmolLM on the (2, 2) mesh from
+    seed 0's weights: losses, the first step's collectives, launches, step
+    times, peak memory and the parameters a rank holds."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import build_train_step, get_strategy
+    from repro_torch.costmodel.collectives import record_collectives, stats
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    model = build_model(get_config(LM_ARCH), use_kernel=True, device=dev)
+    ts = build_train_step(model, optim.adamw(LM_LR, use_fused=True),
+                          get_strategy(strategy),
+                          make_mesh(TP_MESH, ("data", "model")),
+                          model_axis="model", fsdp=fsdp)
+    state = ts.init_state()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_lm_launches()
+    losses, ms, coll = [], [], None
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        with record_collectives() as recs:
+            state, m = ts.step_fn(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            st = stats(recs)
+            coll = {"bytes_by_kind": st.bytes_by_kind, "counts": st.counts,
+                    "wire_bytes": st.wire_bytes}
+    return {"losses": losses, "step_ms": ms, "collectives": coll,
+            "launches": lm_launches(),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "local_params": sum(p.numel() for p in state["params"])}
+
+
+def tp_greedy(dev, prefill, decode, tokens, prompt_len, n, V):
+    import torch
+    logits, cache = prefill({"tokens": tokens})
+    tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None].int()
+    out = [tok]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(n):
+        logits, cache = decode(tok, cache, prompt_len + i)
+        tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None].int()
+        out.append(tok)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / n if n else None
+    del cache
+    return torch.cat(out, dim=1).cpu(), ms
+
+
+def tp_serve(dev, dtype, mesh_shape, B, cache_len, prompt_len, n):
+    """Greedy decoding of ``n`` tokens over the mesh and, on this rank
+    alone, of the same prompts (its rows of both); ms a decode step of
+    each; the query heads kernel 8 saw a launch in the mesh's prefill."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import build_serve_step
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=dtype)
+    model = build_model(cfg, use_kernel=True, device=dev)
+    heads = []
+
+    def attention(q, k, v, window=None):
+        heads.append((q.shape[2], k.shape[2]))
+        return kops.swa_attention(q, k, v, window=window)
+    model.attention_fn = attention
+    rs = np.random.RandomState(B)
+    prompt = torch.as_tensor(rs.randint(0, cfg.vocab_size, (B, prompt_len))
+                             .astype(np.int32), device=dev)
+    reset_lm_launches()
+    ss = build_serve_step(model, make_mesh(mesh_shape, ("data", "model")),
+                          model_axis="model", batch_size=B,
+                          cache_len=cache_len)
+    cache_shape = list(ss.make_inputs("decode", cache_len)[1]["blocks"][0]
+                       ["k"].shape)
+    tokens, ms = tp_greedy(dev, ss.prefill_fn, ss.decode_fn,
+                           ss.local_rows(prompt), prompt_len, n,
+                           cfg.vocab_size)
+    launches = lm_launches()
+    prefill_heads = sorted(set(heads))
+    torch.cuda.empty_cache()
+    one = build_serve_step(model, batch_size=B, cache_len=cache_len)
+    whole, ms_one = tp_greedy(dev, one.prefill_fn, one.decode_fn, prompt,
+                              prompt_len, n, cfg.vocab_size)
+    whole = ss.local_rows(whole)
+    return {"equal": bool(torch.equal(tokens, whole)),
+            "tokens": tokens.tolist(), "one_rank_tokens": whole.tolist(),
+            "ms_per_token": ms, "one_rank_ms_per_token": ms_one,
+            "launches": launches, "prefill_heads": prefill_heads,
+            "cache_shape": cache_shape}
+
+
+def tp_rank(rank, init, out_dir):
+    """One rank of the phase's (2, 2) mesh."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import lm_batches, token_stream
+    from repro_torch.launch.mesh import make_mesh, mesh_groups
+    from repro_torch.launch.train import _rank_device, backend_for
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _rank_device("cuda", rank)
+    rec = {}
+    dist.init_process_group(backend_for(dev, TP_RANKS), init_method=init,
+                            rank=rank, world_size=TP_RANKS)
+    rec["backend"] = dist.get_backend()
+    rec["gloo_cuda"] = tp_gloo_check(dev)
+    cfg = get_config(LM_ARCH)
+    # the sharding phase's batches, this rank's data coordinate's rows
+    it = lm_batches(token_stream(SHARD_BATCH * SHARD_SEQ * 8,
+                                 cfg.vocab_size, seed=23), SHARD_BATCH,
+                    SHARD_SEQ, seed=23)
+    D = TP_MESH[0]
+    B = SHARD_BATCH // D
+    di = make_mesh(TP_MESH, ("data", "model")).coords(rank)["data"]
+    batches = [{k: torch.from_numpy(v[di * B:(di + 1) * B]).to(dev)
+                for k, v in next(it).items()} for _ in range(SHARD_STEPS)]
+    rec["train"] = {}
+    for strategy, fsdp in TP_RUNS:
+        rec["train"][tp_label(strategy, fsdp)] = tp_train(
+            dev, strategy, fsdp, batches)
+        torch.cuda.empty_cache()
+    rec["serve"] = {}
+    for dtype in ("float32", "bfloat16"):
+        rec["serve"][dtype] = tp_serve(dev, dtype, TP_MESH, *TP_SERVE,
+                                       TP_TOKENS)
+        torch.cuda.empty_cache()
+    # the head-local case on ranks 0-2; rank 3 takes part in making the
+    # mesh's groups (``dist.new_group`` is collective) and waits
+    local = make_mesh(TP_LOCAL_MESH, ("data", "model"))
+    runs = (("float32", TP_LOCAL_TOKENS), ("bfloat16", 0))
+    if rank < local.size:
+        rec["head_local"] = {dtype: tp_serve(dev, dtype, TP_LOCAL_MESH,
+                                             *TP_LOCAL, n)
+                             for dtype, n in runs}
+    else:
+        for _ in runs:
+            for axes in (("data",), ("model",)):
+                mesh_groups(local, axes)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_phase(shard):
+    """Tensor-parallel training and serving and the ``baseline`` dry-run
+    on the card, held against the sharding phase's replicated run
+    (``shard``, its record); returns the record.  Every number is logged
+    before the gates."""
+    import shutil
+    import torch
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    dry_path = os.path.join(out_dir, "dryrun.json")
+    child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--tp-dryrun", dry_path])
+    try:
+        torch.multiprocessing.spawn(
+            tp_rank, args=("file://" + os.path.join(out_dir, "pg"),
+                           out_dir), nprocs=TP_RANKS)
+        ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+                 for r in range(TP_RANKS)]
+        local = [r["head_local"] for r in ranks if "head_local" in r]
+        check(len(local) == math.prod(TP_LOCAL_MESH),
+              f"[tp] head-local ranks {len(local)}")
+        check(child.wait(timeout=300) == 0, "[tp] the dry-run failed")
+        dry = json.loads(Path(dry_path).read_text())
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    base = shard["train"]["allreduce/dp"]
+    base_peak = max(shard["memory"]["allreduce/dp"]["peak_mem_bytes"])
+    log(f"[tp] {LM_ARCH} full width, bf16, {TP_RANKS} ranks sharing the "
+        f"card over {r0['backend']} on a {TP_MESH} (data, model) mesh, "
+        f"global batch {SHARD_BATCH} x seq {SHARD_SEQ}, {SHARD_STEPS} steps "
+        f"a run; gloo bf16 on CUDA tensors: "
+        f"{[r['gloo_cuda'] for r in ranks]}")
+    for label, run in r0["train"].items():
+        log(f"[tp] train {label}: losses {run['losses']}, ms/step "
+            f"{run['step_ms']}, peak MiB a rank "
+            f"{[r['train'][label]['peak_mem_bytes'] / 2**20 for r in ranks]}"
+            f", parameters a rank {run['local_params']:,}, first step's "
+            f"collectives {run['collectives']}, launches {run['launches']}")
+    log(f"[tp] the sharding phase's replicated run (4 data ranks): losses "
+        f"{base['losses']}, peak MiB a rank {base_peak / 2**20:.1f}")
+    for label, res in dry["runs"].items():
+        log(f"[tp] dry-run {label} (baseline, {TP_MESH}): collectives "
+            f"{res['collectives']['counts']} "
+            f"{res['collectives']['bytes_by_kind']}, memory {res['memory']}"
+            f", roofline {res['roofline']}")
+    for dtype, res in r0["serve"].items():
+        log(f"[tp] serve {dtype} batch {TP_SERVE[0]} x cache {TP_SERVE[1]} "
+            f"on {TP_MESH}: ms a token {res['ms_per_token']:.3f} over "
+            f"{TP_RANKS} ranks, {res['one_rank_ms_per_token']:.3f} on one; "
+            f"tokens equal on every rank "
+            f"{[r['serve'][dtype]['equal'] for r in ranks]}; kernel 8 heads "
+            f"(q, kv) {res['prefill_heads']}; cache leaf a rank "
+            f"{res['cache_shape']}; launches {res['launches']}")
+    for dtype, res in local[0].items():
+        log(f"[tp] head-local {TP_LOCAL_MESH} {dtype}: kernel 8 heads (q, kv)"
+            f" {res['prefill_heads']}, cache leaf a rank "
+            f"{res['cache_shape']}, launches {res['launches']}, tokens equal "
+            f"{[r[dtype]['equal'] for r in local]}, ms a token "
+            f"{res['ms_per_token']} ({res['one_rank_ms_per_token']} on one)")
+
+    gaps = {}
+    for r, res in enumerate(ranks):
+        check(all(res["gloo_cuda"].values()),
+              f"[tp] rank {r}: gloo on CUDA tensors {res['gloo_cuda']}")
+        for label, run in res["train"].items():
+            strategy = label.split("/")[0]
+            check(run["launches"] == shard_expected(strategy),
+                  f"[tp] rank {r} {label}: launches {run['launches']}, "
+                  f"expected {shard_expected(strategy)}")
+            check(run["losses"] == r0["train"][label]["losses"]
+                  and all(map(math.isfinite, run["losses"])),
+                  f"[tp] rank {r} {label}: losses {run['losses']}")
+            want = dry["runs"][label]["collectives"]
+            check(run["collectives"]["bytes_by_kind"] == want["bytes_by_kind"]
+                  and run["collectives"]["counts"] == want["counts"],
+                  f"[tp] rank {r} {label}: collectives "
+                  f"{run['collectives']} against the dry-run's {want}")
+            check(run["peak_mem_bytes"] < base_peak,
+                  f"[tp] rank {r} {label}: peak {run['peak_mem_bytes']} B, "
+                  f"not below the replicated run's {base_peak}")
+        for dtype, sres in res["serve"].items():
+            if dtype == "float32":
+                check(sres["equal"], f"[tp] rank {r} serve: {sres['tokens']}"
+                      f" against one rank's {sres['one_rank_tokens']}")
+            check(sres["launches"]["swa_attention_fwd"] == 30,
+                  f"[tp] rank {r} serve {dtype}: {sres['launches']}")
+            if dtype == "bfloat16":
+                check(sres["launches"]["swa_attention_fwd_wgmma"] == 30,
+                      f"[tp] rank {r} serve bf16: {sres['launches']}")
+            # 9 heads do not divide over 2: every head on every rank
+            check(sres["prefill_heads"] == [[9, 3]],
+                  f"[tp] rank {r}: kernel 8 saw {sres['prefill_heads']}")
+    for label in ("allreduce/tp", "allreduce/fsdp"):
+        got = r0["train"][label]["losses"]
+        gaps[label] = [abs(a - b) / abs(b) for a, b in zip(got,
+                                                           base["losses"])]
+        check(max(gaps[label]) <= LM_STEP_RTOL,
+              f"[tp] {label} losses {got} against the replicated run's "
+              f"{base['losses']}: rel gaps {gaps[label]} > {LM_STEP_RTOL}")
+    for r, res in enumerate(local):
+        check(res["float32"]["equal"], f"[tp] head-local rank {r}: "
+              f"{res['float32']['tokens']} against one rank's "
+              f"{res['float32']['one_rank_tokens']}")
+        for dtype, sres in res.items():
+            check(sres["prefill_heads"] == [[3, 1]] and
+                  sres["launches"]["swa_attention_fwd"] == 30,
+                  f"[tp] head-local rank {r} {dtype}: heads "
+                  f"{sres['prefill_heads']}, launches {sres['launches']}")
+        check(res["bfloat16"]["launches"]["swa_attention_fwd_wgmma"] == 30,
+              f"[tp] head-local rank {r} bf16: {res['bfloat16']['launches']}")
+    log(f"[tp] allreduce losses within {LM_STEP_RTOL} of the replicated "
+        f"run's (gaps {gaps}); collective bytes and counts equal the "
+        "baseline dry-run's; peak memory a rank below the replicated run's; "
+        "fp32 tokens equal one rank's on both meshes; kernel 8 on 3 heads a "
+        "rank on (1, 3)")
+    record = {"train": r0["train"],
+              "launches": {label: [r["train"][label]["launches"]
+                                   for r in ranks] for label in r0["train"]},
+              "peak_mem_bytes": {label: [r["train"][label]["peak_mem_bytes"]
+                                         for r in ranks]
+                                 for label in r0["train"]},
+              "replicated": {"losses": base["losses"],
+                             "peak_mem_bytes": base_peak},
+              "loss_gaps": gaps, "serve": r0["serve"],
+              "head_local": local[0], "dryrun": dry,
+              "gloo_cuda": r0["gloo_cuda"]}
+    record["seconds"] = time.perf_counter() - t0
+    log(f"[tp] phase took {record['seconds']:.1f} s")
+    return record
+
+
 def main(argv):
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the repository: src/repro_torch is "
@@ -4915,6 +5233,7 @@ def main(argv):
     ap.add_argument("--mlless-step", metavar="ARCH", help=argparse.SUPPRESS)
     ap.add_argument("--sharding-dryrun", metavar="PATH",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dryrun", metavar="PATH", help=argparse.SUPPRESS)
     ap.add_argument("--src", default=str(SRC), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     sys.path.insert(0, args.src)
@@ -4927,6 +5246,9 @@ def main(argv):
         return 0
     if args.sharding_dryrun:
         Path(args.sharding_dryrun).write_text(json.dumps(shard_dryruns()))
+        return 0
+    if args.tp_dryrun:
+        Path(args.tp_dryrun).write_text(json.dumps(tp_dryruns()))
         return 0
     t0 = time.perf_counter()
     setup()
@@ -5062,6 +5384,23 @@ def main(argv):
             entry["sharding"] = {"launches": {
                 label: [r[entry["name"]] for r in ranks]
                 for label, ranks in shard["launches"].items()}, "run": run}
+    torch.cuda.empty_cache()
+    tp = tp_phase(shard)
+    print(json.dumps({"tp": tp}))
+    run = (f"tp phase: {LM_ARCH} full width on a {TP_MESH} (data, model) "
+           f"mesh, {TP_RANKS} ranks sharing the card, {SHARD_STEPS} steps a "
+           "run, one list entry a rank")
+    for entry, keys in ((adamw, ("fused_adamw_flat",)),
+                        (attention, ("swa_attention_fwd",
+                                     "swa_attention_fwd_wgmma"))):
+        entry["tp"] = {"launches": {
+            label: [{k: r[k] for k in keys} for r in ranks]
+            for label, ranks in tp["launches"].items()}, "run": run}
+    for entry in line["kernels"]:
+        if entry["name"] in ("segment_norms", "segment_filter"):
+            entry["tp"] = {"launches": {
+                label: [r[entry["name"]] for r in ranks]
+                for label, ranks in tp["launches"].items()}, "run": run}
     attention["families"] = {
         "prefill_shapes": fam["attention"],
         "train_launches": {a: {k: r["launches"][k] for k in (

@@ -51,18 +51,23 @@ def _valid(q, pos, B, L_loc, total_len, window, group, shard):
 
 
 def flash_decode_attention(q, k_shard, v_shard, pos, *, group=None,
-                           total_len, window=None, shard=None):
+                           total_len, window=None, shard=None,
+                           head_dim=None, partial=None):
     """q: (B, 1, H, hd), the same on every rank; k/v_shard: (B, L_loc,
     KV, hd), slice ``shard`` (by default the rank in ``group``) of a ring
     buffer of global length ``total_len`` laid out contiguously over the
-    ranks of ``group``.  Returns (B, 1, H, hd), the same on every rank."""
+    ranks of ``group``.  Returns (B, 1, H, hd), the same on every rank.
+    ``head_dim`` and ``partial`` as in ``attention.decode_attention`` (a
+    slice that is also sharded on head_dim, over another group)."""
     B, L_loc, KV, hd = k_shard.shape
     H = q.shape[2]
     G = H // KV
     valid = _valid(q, pos, B, L_loc, total_len, window, group, shard)
     qg = q.reshape(B, KV, G, hd)
     s = torch.stack([bmm_f32(qg[:, j], k_shard[:, :, j].transpose(1, 2))
-                     for j in range(KV)], dim=2) / (hd ** 0.5)  # (B,G,KV,L)
+                     for j in range(KV)], dim=2) / ((head_dim or hd) ** 0.5)
+    if partial is not None:
+        s = partial(s)                                          # (B,G,KV,L)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
 
     def acc_of(p):
@@ -73,7 +78,8 @@ def flash_decode_attention(q, k_shard, v_shard, pos, *, group=None,
 
 
 def flash_decode_attention_quant(q, k_shard, v_shard, pos, *, group=None,
-                                 total_len, window=None, shard=None):
+                                 total_len, window=None, shard=None,
+                                 head_dim=None, partial=None):
     """``flash_decode_attention`` over int8 cache slices (``{"q": int8,
     "scale": fp16}`` per k and v, ``models.kvquant``): the scales fold
     into the fp32 scores and weights, as ``attention.
@@ -85,7 +91,10 @@ def flash_decode_attention_quant(q, k_shard, v_shard, pos, *, group=None,
     G = H // KV
     valid = _valid(q, pos, B, L_loc, total_len, window, group, shard)
     qg = q.reshape(B, KV, G, hd).float()
-    s = torch.einsum("bkgh,blkh->bgkl", qg, kq.float()) / (hd ** 0.5)
+    s = torch.einsum("bkgh,blkh->bgkl", qg, kq.float()) / \
+        ((head_dim or hd) ** 0.5)
+    if partial is not None:
+        s = partial(s)
     s = s * ks[..., 0].float().transpose(1, 2)[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
 

@@ -8,10 +8,11 @@ writes the cache in place (what donation buys the reference).
 ``make_inputs`` gives tensors on the ``meta`` device, which allocate
 nothing, for the dry-run.
 
-Over a mesh (``mesh``, one process a rank of ``group``): the parameters
-are replicated (``param_shardings``; a model axis larger than 1 raises
-``NotImplementedError``) and the cache is laid out by
-``core.sharding.cache_pspecs``, as in the reference:
+Over a mesh (``mesh``, one process a rank): the parameters are laid out
+by ``param_shardings`` (``core.sharding.param_pspecs`` at ``fsdp=False``:
+replicated over the data axes, sliced over a model axis larger than 1,
+which is tensor parallelism for the dense LMs, ``models.tp``) and the
+cache by ``core.sharding.cache_pspecs``, as in the reference:
 
 * batch-sharded, where the batch divides over the W ranks of the data
   axes: each rank holds B/W rows of every leaf (its rows of the global
@@ -28,7 +29,18 @@ are replicated (``param_shardings``; a model axis larger than 1 raises
   (``core.flash_decode``), which combines the ranks' partial softmaxes
   exactly, and gathers a sharded recurrent state for the step.
 
-Every step's inputs and outputs are the rank's local shards.
+Under tensor parallelism each rank of a model group holds the same rows
+and slots and its slice of every ring along the model axis: its kv
+heads where M divides them, else its slice of head_dim (and an int8
+scale's slots where they divide).  Prefill fills that slice directly;
+decode computes every head (one all-reduce for q, k and v) and
+:class:`TpCache` hands the inner cache operations (the whole cache's or
+``SeqShard``'s) this rank's heads, or its head_dim slice with the scores
+summed over the model group, and gathers the output over it.  Logits
+come back whole.
+
+Every step's inputs and outputs are the rank's local shards (the logits
+whole).
 """
 from __future__ import annotations
 
@@ -40,8 +52,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import flash_decode, sharding
-from repro_torch.models import kvquant
-from repro_torch.models.params import global_tree
+from repro_torch.launch.mesh import rank_groups
+from repro_torch.models import attention, kvquant
+from repro_torch.models.params import (global_shapes, global_tree,
+                                       layout_of, shard_model)
+from repro_torch.models.tp import TensorParallel
 from repro_torch.models.transformer import WHOLE_CACHE
 
 
@@ -82,32 +97,36 @@ class SeqShard:
         n = local.shape[d]
         return val.narrow(d, self.index * n, n)
 
-    def attend(self, q, k, v, leaf, gleaf, pos, window, kv_quant):
+    def attend(self, q, k, v, leaf, gleaf, pos, window, kv_quant, *,
+               head_dim=None, partial=None, quantized=None):
         payload = leaf["k"]["q"] if kv_quant else leaf["k"]
         whole = gleaf["k"]["q"] if kv_quant else gleaf["k"]
+        extra = dict(head_dim=head_dim, partial=partial)
         d = _sharded_dim(payload, whole)
         if d is None:
             return WHOLE_CACHE.attend(q, k, v, leaf, gleaf, pos, window,
-                                      kv_quant)
+                                      kv_quant, quantized=quantized, **extra)
         if d != 1:
             raise NotImplementedError(
                 f"a ring buffer {tuple(whole.shape)} sharded on dim {d}, "
                 "not on its slots")
         kw = dict(total_len=whole.shape[1], shard=self.index)
         if kv_quant:
-            for name, val in (("k", k), ("v", v)):
-                qv, sv = kvquant.quantize_kv(val)
+            if quantized is None:
+                quantized = (*kvquant.quantize_kv(k),
+                             *kvquant.quantize_kv(v))
+            for name, (qv, sv) in zip("kv", (quantized[:2], quantized[2:])):
                 flash_decode.write_ring_shard(leaf[name]["q"], qv, pos, **kw)
                 flash_decode.write_ring_shard(leaf[name]["scale"], sv, pos,
                                               **kw)
             return flash_decode.flash_decode_attention_quant(
                 q, leaf["k"], leaf["v"], pos, group=self.group,
-                window=window, **kw)
+                window=window, **kw, **extra)
         flash_decode.write_ring_shard(leaf["k"], k, pos, **kw)
         flash_decode.write_ring_shard(leaf["v"], v, pos, **kw)
         return flash_decode.flash_decode_attention(
             q, leaf["k"], leaf["v"], pos, group=self.group, window=window,
-            **kw)
+            **kw, **extra)
 
     def attend_all(self, q, enc, genc):
         d = _sharded_dim(enc["k"], genc["k"])
@@ -121,6 +140,67 @@ class SeqShard:
         return flash_decode.flash_decode_attention(
             q, enc["k"], enc["v"], total - 1, group=self.group,
             total_len=total, shard=self.index)
+
+
+class TpCache:
+    """The decode step's cache operations under tensor parallelism: q, k
+    and v arrive with every head (the same on every rank of the model
+    group ``tp``), the ring holds this rank's slice along the model axis,
+    and ``inner`` (``WHOLE_CACHE`` or a ``SeqShard``, whose ``cache`` then
+    has the model-local shapes) runs on that slice.  Kv heads: the rank's
+    heads of q, k and v, the output gathered over the heads.  head_dim:
+    the rank's slice of each, the scores summed over the group
+    (``partial``), the output gathered over head_dim; int8 entries are
+    quantized over the whole head_dim first, and a scale whose slots are
+    sharded over the group is written by its owner and gathered.  (The
+    recurrent and encoder-decoder families, whose states and encoder k/v
+    it would also pass through, run no tensor parallelism yet.)"""
+
+    def __init__(self, inner, tp, cfg):
+        self.inner, self.tp, self.cfg = inner, tp, cfg
+        self.cache = getattr(inner, "cache", None)
+
+    def _partial(self, s):
+        s = s.contiguous()
+        dist.all_reduce(s, group=self.tp.group)
+        return s
+
+    def attend(self, q, k, v, leaf, gleaf, pos, window, kv_quant):
+        tp, cfg = self.tp, self.cfg
+        payload = leaf["k"]["q"] if kv_quant else leaf["k"]
+        if payload.shape[2] < cfg.n_kv_heads:
+            q, k, v = (tp.slice(t, 2) for t in (q, k, v))
+            o = self.inner.attend(q, k, v, leaf, gleaf, pos, window,
+                                  kv_quant)
+            return sharding.gather_dim(o, 2, tp.group)
+        if payload.shape[3] == cfg.head_dim:
+            return self.inner.attend(q, k, v, leaf, gleaf, pos, window,
+                                     kv_quant)
+        kw = dict(head_dim=cfg.head_dim, partial=self._partial)
+        ql = tp.slice(q, 3)
+        if not kv_quant:
+            o = self.inner.attend(ql, tp.slice(k, 3), tp.slice(v, 3), leaf,
+                                  gleaf, pos, window, False, **kw)
+            return sharding.gather_dim(o, 3, tp.group)
+        (qk, sk), (qv, sv) = kvquant.quantize_kv(k), kvquant.quantize_kv(v)
+        if leaf["k"]["scale"].shape[1] == payload.shape[1]:
+            o = self.inner.attend(
+                ql, None, None, leaf, gleaf, pos, window, True,
+                quantized=(tp.slice(qk, 3), sk, tp.slice(qv, 3), sv), **kw)
+            return sharding.gather_dim(o, 3, tp.group)
+        # the scales' slots over the model axis (a ring held whole over the
+        # data axes): the owner writes, every rank reads them all
+        L = payload.shape[1]
+        whole = {}
+        for name, (qn, sn) in (("k", (qk, sk)), ("v", (qv, sv))):
+            attention.write_slots(leaf[name]["q"], tp.slice(qn, 3), pos)
+            flash_decode.write_ring_shard(leaf[name]["scale"], sn, pos,
+                                          total_len=L, shard=tp.index)
+            whole[name] = {"q": leaf[name]["q"], "scale": sharding.gather_dim(
+                leaf[name]["scale"], 1, tp.group)}
+        o = attention.decode_attention_quant(ql, whole["k"], whole["v"], pos,
+                                             window=window, **kw)
+        return sharding.gather_dim(o, 3, tp.group)
 
 
 def _sharded_dim(local, whole):
@@ -141,12 +221,46 @@ def _map_tree(fn, *trees):
     return fn(*trees)
 
 
+def _refuse_slot_payloads(cfg, specs, model_axis):
+    """``NotImplementedError`` where ``cache_pspecs`` puts the model axis
+    on a ring's slots (neither its kv heads nor head_dim divide over the
+    model axis): prefill and decode run on kv heads or head_dim only.  An
+    int8 scale's slots are fine."""
+    def one(path, spec):
+        if path[-1] != "scale" and len(spec) >= 3 and \
+                model_axis in sharding._entry_axes(spec[-3]):
+            raise NotImplementedError(
+                f"{cfg.name}: the model axis falls on the slots of the ring "
+                f"{'.'.join(map(str, path))} ({cfg.n_kv_heads} kv heads and "
+                f"head_dim {cfg.head_dim} do not divide over it)")
+        return spec
+    sharding._map_with_path(one, specs, is_leaf=sharding._is_spec)
+
+
+def _drop_axes(spec, axes):
+    """``spec`` with every entry that names one of ``axes`` replicated."""
+    axes = set(sharding._entry_axes(axes))
+    return sharding.PSpec(*(None if e is not None and axes & set(
+        sharding._entry_axes(e)) else e for e in spec))
+
+
+def _empty(tree, shardings, device, zeros=True):
+    """Tensors of ``tree``'s leaves at the local shapes of ``shardings``."""
+    make = torch.zeros if zeros else torch.empty
+    return _map_tree(lambda t, sh: make(sh.shard_shape(t.shape),
+                                        dtype=t.dtype, device=device),
+                     tree, shardings)
+
+
 def build_serve_step(model, mesh=None, *, group=None, data_axes=("data",),
                      model_axis=None, batch_size: int, cache_len: int,
                      swa_variant: bool = False) -> ServeStep:
     """Prefill and decode for ``model``; with ``mesh`` (a
-    ``launch.mesh.Mesh`` whose ``data_axes`` span the ranks of
-    ``group``), over the data mesh as the module docstring says."""
+    ``launch.mesh.Mesh`` whose ``data_axes`` span the ranks of ``group``,
+    or, with a ``model_axis`` above 1, the groups this makes from the
+    mesh: every rank builds at once), over the mesh as the module
+    docstring says.  Without tensor parallelism a model that holds slices
+    of its parameters gathers them first (collective)."""
     cfg = model.cfg
     prefill = functools.partial(model.prefill, cache_len=cache_len,
                                 swa_variant=swa_variant)
@@ -155,17 +269,34 @@ def build_serve_step(model, mesh=None, *, group=None, data_axes=("data",),
     local_rows = None
     B_loc = batch_size
     shard = None
+    tp = None
+    M = 1 if mesh is None else sharding.model_size(mesh, model_axis)
+    if M == 1 and layout_of(model) is not None:
+        shard_model(model, None)
     if mesh is not None:
-        sharding.require_no_tp(mesh, model_axis)
+        sharding.require_tp_family(cfg, mesh, model_axis)
+        mgroup = None
+        if M > 1:
+            if group is not None:
+                raise ValueError("with a model axis the serve step makes "
+                                 "its data and model groups from the mesh")
+            group, mgroup = rank_groups(mesh, data_axes, model_axis)
         W = sharding._axis_size(mesh, data_axes)
         if W != dist.get_world_size(group):
             raise ValueError(f"data axes {data_axes} span {W} ranks, the "
                              f"group {dist.get_world_size(group)}")
         model.param_hook = None
         rank = dist.get_rank()
-        param_sh = sharding.shardings(sharding.param_pspecs(
+        pspecs = sharding.param_pspecs(
             global_tree(model), mesh, fsdp=False, data_axes=data_axes,
-            model_axis=model_axis), mesh)
+            model_axis=model_axis)
+        param_sh = sharding.shardings(pspecs, mesh)
+        if M > 1:
+            layout = sharding.shard_layout(
+                global_shapes(model), sharding.tree_leaves(pspecs), mesh,
+                data_axes, rank, group, model_axis=model_axis, mgroup=mgroup)
+            shard_model(model, layout)
+            tp = TensorParallel(mgroup, M, layout.mindex)
         dp = data_axes if len(data_axes) > 1 else data_axes[0]
         batch_shardable = batch_size % W == 0
         gcache = model.init_cache(batch_size, cache_len,
@@ -174,28 +305,50 @@ def build_serve_step(model, mesh=None, *, group=None, data_axes=("data",),
             gcache, mesh, batch_axes=dp, model_axis=model_axis,
             shard_seq=not batch_shardable)
         if batch_shardable:
+            # a tail leaf's rows, and its model entry as the reference's
             specs["tail"] = [sharding._map_with_path(
-                lambda _, t: sharding.PSpec(dp, *[None] * (t.dim() - 1)),
-                leaf) for leaf in gcache["tail"]]
+                lambda _, sp: sharding.PSpec(
+                    dp, *_drop_axes(sp, data_axes)[1:]), leaf,
+                is_leaf=sharding._is_spec) for leaf in specs["tail"]]
+        if M > 1:
+            _refuse_slot_payloads(cfg, specs, model_axis)
         cache_sh = sharding.shardings(specs, mesh)
+        # the model axis alone: a rank's cache before the data axes cut it
+        model_sh = sharding.shardings(_map_tree(
+            lambda sp: _drop_axes(sp, data_axes), specs), mesh)
         index = sharding.data_index(mesh, data_axes, rank)
         if batch_shardable:
             B_loc = batch_size // W
 
             def local_rows(x):
                 return x[index * B_loc:(index + 1) * B_loc]
+
+            if tp is not None:
+                def prefill(batch):
+                    return model.prefill(
+                        batch, cache_len=cache_len, swa_variant=swa_variant,
+                        cache=_empty(gcache, cache_sh,
+                                     batch["tokens"].device))
         else:
-            shard = SeqShard(gcache, group, W, index)
+            shard = SeqShard(_empty(gcache, model_sh, meta, zeros=False),
+                             group, W, index)
+            data_sh = sharding.shardings(_map_tree(
+                lambda sp: _drop_axes(sp, model_axis), specs), mesh)
 
             def local_rows(x):
                 return x
 
             def prefill(batch):
+                cache = None if tp is None else _empty(
+                    gcache, model_sh, batch["tokens"].device)
                 logits, cache = model.prefill(batch, cache_len=cache_len,
-                                              swa_variant=swa_variant)
+                                              swa_variant=swa_variant,
+                                              cache=cache)
                 return logits, _map_tree(
-                    lambda t, sh: sh.shard(t, rank).clone(), cache,
-                    cache_sh)
+                    lambda t, sh: sh.shard(t, rank).clone(), cache, data_sh)
+    model.tp = tp
+    if tp is not None:
+        shard = TpCache(WHOLE_CACHE if shard is None else shard, tp, cfg)
 
     def decode(token, cache, pos):
         return model.decode_step(token, cache, pos, swa_variant=swa_variant,

@@ -18,9 +18,11 @@ tree; its leaves may be tensors, meta tensors or anything with a
 spec on a :class:`~repro_torch.launch.mesh.Mesh` and gives the local
 shard of a global shape for one rank.
 
-The port executes the data axes only: a mesh whose model axis is larger
-than 1 (tensor parallelism) is held spec for spec here, and the steps
-that would run it raise ``NotImplementedError`` (``require_no_tp``).
+A model axis larger than 1 is tensor parallelism (``models.tp``): the
+port runs it for the dense LMs, and the families left for the next slice
+raise ``NotImplementedError`` (``require_tp_family``).  A
+:class:`ShardLayout` says which slice of each parameter a rank holds over
+the model axis and, under FSDP, over the data axes.
 """
 from __future__ import annotations
 
@@ -248,14 +250,27 @@ def data_dim(spec, data_axes) -> Optional[int]:
     return None
 
 
-def require_no_tp(mesh, model_axis):
+def model_size(mesh, model_axis) -> int:
+    """The ranks along ``model_axis`` (1 where it is None)."""
+    return 1 if model_axis is None else _axis_size(mesh, model_axis)
+
+
+def require_tp_family(cfg, mesh, model_axis):
     """Raise ``NotImplementedError`` where ``model_axis`` spans more than
-    one rank: the port runs the data axes only."""
-    if model_axis is not None and _axis_size(mesh, model_axis) > 1:
+    one rank and ``cfg`` is not a dense attention LM (the families whose
+    tensor parallelism is the next slice, and the CNNs)."""
+    M = model_size(mesh, model_axis)
+    if M == 1:
+        return
+    kinds = set(getattr(cfg, "layer_pattern", ()))
+    dense = getattr(cfg, "family", "cnn") == "dense" and \
+        not cfg.is_moe and kinds <= {"global", "local"}
+    if not dense:
         raise NotImplementedError(
-            f"tensor parallelism: mesh axis {model_axis!r} of size "
-            f"{_axis_size(mesh, model_axis)} is not ported yet (the TP "
-            "slice, ROADMAP §1); use a model axis of size 1")
+            f"tensor parallelism for {cfg.name} (family "
+            f"{getattr(cfg, 'family', 'cnn')!r}) over a model axis of {M}: "
+            "the TP slice for MoE / RG-LRU / RWKV / encoder-decoder / VLM "
+            "(ROADMAP §1); the dense LMs run it")
 
 
 # ---------------------------------------------------------------------------
@@ -329,48 +344,65 @@ def drop_leading(spec: PSpec) -> PSpec:
 
 
 # ---------------------------------------------------------------------------
-# FSDP: which leaves a rank holds a shard of
+# which slice of each leaf a rank holds (FSDP over the data axes, TP over
+# the model axis)
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True, eq=False)
-class FsdpLayout:
-    """The FSDP layout of a parameter list (the reference tree's leaf
-    order) on one rank: each leaf's global shape and the dim sharded over
-    the data axes (None: replicated), the data-parallel width ``W``, this
-    rank's shard ``index`` and the ``group`` the shards are gathered
-    over (its ranks in shard order)."""
+class ShardLayout:
+    """The layout of a parameter list (the reference tree's leaf order) on
+    one rank: each leaf's global shape, the dim sharded over the data axes
+    (``dims``; None: replicated there) and over the model axis (``mdims``),
+    the data-parallel width ``W`` and the model width ``M``, this rank's
+    slice along each (``index``, ``mindex``) and the groups the slices are
+    gathered over (``group``, ``mgroup``; their ranks in slice order)."""
     shapes: tuple
     dims: tuple
     W: int
     index: int
     group: Any = None
+    mdims: tuple = None
+    M: int = 1
+    mindex: int = 0
+    mgroup: Any = None
+
+    def __post_init__(self):
+        if self.mdims is None:
+            object.__setattr__(self, "mdims", (None,) * len(self.shapes))
 
     def key(self):
-        return (self.shapes, self.dims, self.W, self.index)
+        return (self.shapes, self.dims, self.W, self.index, self.mdims,
+                self.M, self.mindex)
 
     @property
     def mask(self):
-        """Per leaf: True where the leaf is sharded."""
+        """Per leaf: True where the leaf is sharded over the data axes
+        (FSDP: its gradient arrives reduce-scattered)."""
         return [d is not None for d in self.dims]
 
     def local_shape(self, i: int) -> tuple:
-        shape, d = list(self.shapes[i]), self.dims[i]
-        if d is not None:
-            shape[d] //= self.W
+        shape = list(self.shapes[i])
+        for d, n in ((self.dims[i], self.W), (self.mdims[i], self.M)):
+            if d is not None:
+                shape[d] //= n
         return tuple(shape)
 
     def shard(self, i: int, full):
-        """This rank's shard of leaf ``i``'s global tensor (a view)."""
-        d = self.dims[i]
-        if d is None:
-            return full
-        n = full.shape[d] // self.W
-        return full.narrow(d, self.index * n, n)
+        """This rank's slice of leaf ``i``'s global tensor (a view)."""
+        out = full
+        for d, n, k in ((self.dims[i], self.W, self.index),
+                        (self.mdims[i], self.M, self.mindex)):
+            if d is not None:
+                size = full.shape[d] // n
+                out = out.narrow(d, k * size, size)
+        return out
 
     def gather(self, i: int, local):
-        """Leaf ``i``'s global tensor from every rank's shard (collective
-        over ``group`` for a sharded leaf)."""
-        d = self.dims[i]
-        return local if d is None else gather_dim(local, d, self.group)
+        """Leaf ``i``'s global tensor from every rank's slice (collective
+        over ``group`` for a data-sharded leaf, then over ``mgroup`` for a
+        model-sharded one)."""
+        d, md = self.dims[i], self.mdims[i]
+        out = local if d is None else gather_dim(local, d, self.group)
+        return out if md is None else gather_dim(out, md, self.mgroup)
 
 
 def data_index(mesh, data_axes, rank: int) -> int:
@@ -382,11 +414,18 @@ def data_index(mesh, data_axes, rank: int) -> int:
                                     [mesh.shape[a] for a in axes]))
 
 
-def fsdp_layout(shapes, specs, mesh, data_axes, rank: int, group=None):
-    """The :class:`FsdpLayout` of global rank ``rank`` for leaves of
+def shard_layout(shapes, specs, mesh, data_axes, rank: int, group=None, *,
+                 model_axis=None, mgroup=None):
+    """The :class:`ShardLayout` of global rank ``rank`` for leaves of
     ``shapes`` under ``specs`` (``param_pspecs``' leaves in order)."""
     axes = _entry_axes(data_axes)
-    return FsdpLayout(shapes=tuple(tuple(s) for s in shapes),
-                      dims=tuple(data_dim(s, axes) for s in specs),
-                      W=_axis_size(mesh, axes),
-                      index=data_index(mesh, axes, rank), group=group)
+    M = model_size(mesh, model_axis)
+    return ShardLayout(
+        shapes=tuple(tuple(s) for s in shapes),
+        dims=tuple(data_dim(s, axes) for s in specs),
+        W=_axis_size(mesh, axes), index=data_index(mesh, axes, rank),
+        group=group,
+        mdims=tuple(data_dim(s, model_axis) if M > 1 else None
+                    for s in specs),
+        M=M, mindex=mesh.coords(rank)[model_axis] if M > 1 else 0,
+        mgroup=mgroup)

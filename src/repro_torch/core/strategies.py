@@ -30,7 +30,7 @@ memory by hand.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, ClassVar, Dict, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +73,10 @@ class Strategy:
     """Base: subclasses override ``sync`` (and optionally state hooks)."""
     name: str = "base"
     microbatches: int = 1          # >1 => train_step accumulates (SPIRT)
+    # True where the sync is elementwise over the leaves (a mean), so it
+    # runs on tensor-parallel slices as they are; the train step gives
+    # any other strategy whole leaves
+    elementwise: ClassVar[bool] = False
 
     def init_state(self, grads_like) -> Any:
         return ()
@@ -88,6 +92,7 @@ class Strategy:
 @dataclasses.dataclass(frozen=True)
 class AllReduce(Strategy):
     name: str = "allreduce"
+    elementwise = True
 
     def sync(self, grads, state, group=None):
         return _pmean32(grads, group), state, {}
@@ -104,6 +109,7 @@ class ParameterServer(Strategy):
     worker's full gradient (all-gather) and reduces locally; the W-fold
     bytes are the master bottleneck the paper measures."""
     name: str = "parameter_server"
+    elementwise = True
 
     def sync(self, grads, state, group=None):
         flat = torch.cat([g.reshape(-1) for g in grads])
@@ -122,6 +128,7 @@ class ParameterServer(Strategy):
 @dataclasses.dataclass(frozen=True)
 class ScatterReduce(Strategy):
     name: str = "scatterreduce"
+    elementwise = True
 
     def sync(self, grads, state, group=None):
         W = dist.get_world_size(group)
@@ -149,6 +156,7 @@ class Spirt(Strategy):
     microbatches."""
     name: str = "spirt"
     microbatches: int = 4
+    elementwise = True
 
     def sync(self, grads, state, group=None):
         return _pmean32(grads, group), state, {}
@@ -215,7 +223,7 @@ class MLLess(Strategy):
                                           self.threshold)
         kept, new_resid = k.segment_filter(grads, resid.flat, layout, mask)
         dist.all_reduce(kept, op=dist.ReduceOp.SUM, group=group)
-        out = layout.leaf_views(kept / dist.get_world_size(group))
+        out = layout.leaf_views(kept.div_(dist.get_world_size(group)))
         frac = counts.sum().float() / max(layout.n_rows, 1)
         return out, _Residual(layout, new_resid), \
             {"significant_fraction": frac}

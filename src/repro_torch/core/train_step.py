@@ -18,8 +18,23 @@ remat does) and the gather's backward reduce-scatters the gradient in
 ``fsdp_rs_dtype``.  Those leaves arrive summed over ranks: they bypass
 the strategy and are divided by W, and the strategy syncs, and keeps its
 state for, the other leaves only (the reference's ``fsdp_mask``).  Under
-SPIRT every microbatch gathers and reduce-scatters.  A mesh axis of
-tensor parallelism larger than 1 raises ``NotImplementedError``.
+SPIRT every microbatch gathers and reduce-scatters.
+
+Tensor parallelism (a ``model_axis`` of M > 1 ranks; the dense LMs,
+``models.tp``): each rank holds its slice of every leaf that
+``param_pspecs`` puts on the model axis, and so do its AdamW moments (the
+reference's ``opt_specs_like``); the step makes its data group (the ranks
+of its model coordinate) and its model group from the mesh.  The loss is
+vocab-parallel and the same on every rank of a model group; strategies
+sync over the data group.  The elementwise means (``Strategy.
+elementwise``) run on the slices as they are; any other strategy (MLLess
+blocks each flattened leaf, the int8 sync scales chunks of it) sees whole
+leaves, as the reference's does inside its ``shard_map`` whose model axis
+stays auto: the slices are gathered over the model group (one call a
+dtype), synced at the data width, and each rank keeps its slice, so
+their state stays whole.  Under FSDP and TP together a leaf carries both
+(the model axis on its widest dim, the data axes on the next): the FSDP
+gather runs first, inside the layer, then the TP functions.
 
 The model is any module whose parameter names are the reference tree's
 paths (``models.cnn``, ``models.transformer``); the batch is a dict of
@@ -36,8 +51,10 @@ import torch.distributed as dist
 
 from repro_torch.core import losses, sharding
 from repro_torch.core.strategies import Strategy
+from repro_torch.launch.mesh import rank_groups
 from repro_torch.models.params import (global_tree, reference_leaves,
                                        shard_model)
+from repro_torch.models.tp import TensorParallel
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 
 
@@ -45,7 +62,7 @@ from repro_torch.optim.optimizers import Optimizer, apply_updates
 class TrainStep:
     step_fn: Callable            # (state, batch) -> (state, metrics)
     init_state: Callable         # () -> state
-    layout: Any = None           # sharding.FsdpLayout under FSDP
+    layout: Any = None           # sharding.ShardLayout under FSDP or TP
 
 
 def _pmean(x, group):
@@ -63,24 +80,31 @@ def default_loss(model, batch):
         return losses.classification_loss(model(batch["images"]),
                                           batch["labels"])
     logits, aux = model(batch)
-    return losses.softmax_cross_entropy(logits, batch["labels"]) + aux
+    tp = model.tp if getattr(model, "logits_sharded", False) else None
+    return losses.softmax_cross_entropy(logits, batch["labels"], tp=tp) \
+        + aux
 
 
-def _fsdp_plan(model, mesh, data_axes, model_axis, group, rs_dtype):
-    """(layout, param_hook) of ``model`` on ``mesh``."""
+def _plan(model, mesh, data_axes, model_axis, fsdp, group, mgroup,
+          rs_dtype):
+    """(layout, param_hook) of ``model`` on ``mesh``: the FSDP gather hook
+    under ``fsdp`` (else None)."""
     tree = global_tree(model)
-    pspecs = sharding.param_pspecs(tree, mesh, fsdp=True,
+    pspecs = sharding.param_pspecs(tree, mesh, fsdp=fsdp,
                                    data_axes=data_axes,
                                    model_axis=model_axis)
     specs = sharding.tree_leaves(pspecs)
-    layout = sharding.fsdp_layout(
+    layout = sharding.shard_layout(
         [t.shape for t in sharding.tree_leaves(
             tree, lambda x: isinstance(x, torch.Tensor))],
-        specs, mesh, data_axes, dist.get_rank(), group)
+        specs, mesh, data_axes, dist.get_rank(), group,
+        model_axis=model_axis, mgroup=mgroup)
     if layout.index != dist.get_rank(group):
         raise ValueError(f"rank {dist.get_rank()} holds shard "
                          f"{layout.index} but is rank "
                          f"{dist.get_rank(group)} of its group")
+    if not fsdp:
+        return layout, None
     enc = pspecs.get("encoder")
     if enc is not None and any(sharding.data_dim(s, data_axes) is not None
                                for s in sharding.tree_leaves(enc)):
@@ -101,6 +125,35 @@ def _fsdp_plan(model, mesh, data_axes, model_axis, group, rs_dtype):
     return layout, param_hook
 
 
+def _whole_leaves(grads, layout, tp):
+    """The model-sharded leaves of ``grads`` whole: gathered over the
+    model group, one ``all_gather_into_tensor`` a dtype."""
+    out = list(grads)
+    by_dtype = {}
+    for i, g in enumerate(grads):
+        if layout.mdims[i] is not None:
+            by_dtype.setdefault(g.dtype, []).append(i)
+    M = tp.size
+    for idx in by_dtype.values():
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        full = flat.new_empty((M, flat.numel()))
+        dist.all_gather_into_tensor(full.view(-1), flat, group=tp.group)
+        at = 0
+        for i in idx:
+            g, d = grads[i], layout.mdims[i]
+            n = g.numel()
+            out[i] = full[:, at:at + n].reshape(M, *g.shape).movedim(0, d) \
+                .reshape(*g.shape[:d], M * g.shape[d], *g.shape[d + 1:])
+            at += n
+    return out
+
+
+def _slices(leaves, layout, tp):
+    """This rank's model slice of each whole leaf."""
+    return [t if d is None else tp.slice(t, d)
+            for t, d in zip(leaves, layout.mdims)]
+
+
 def build_train_step(model, optimizer: Optimizer, strategy: Strategy,
                      mesh=None, *, group=None, data_axes=("data",),
                      model_axis=None, fsdp: bool = False, loss_fn=None,
@@ -111,35 +164,65 @@ def build_train_step(model, optimizer: Optimizer, strategy: Strategy,
 
     ``mesh`` (``launch.mesh.Mesh``) names the data axes: their product
     must be the group's size, and the rank's place on the mesh its rank in
-    the group.  ``model_axis`` of size above 1 raises
-    ``NotImplementedError``; of size 1 it only steers the specs, as in the
-    reference.  ``fsdp=True`` shards the model's block/tail leaves (see
-    the module docstring) when ``init_state`` is called.
+    the group.  A ``model_axis`` of size above 1 is tensor parallelism
+    (dense LMs; the module docstring): then ``group`` is None and the
+    step makes its data and model groups from the mesh (every rank builds
+    at once).  Of size 1 it only steers the specs, as in the reference.
+    ``fsdp=True`` shards the model's block/tail leaves (see the module
+    docstring); the model takes its layout when ``init_state`` is
+    called.
 
     ``state["params"]`` are the module's own parameters, in the reference
     tree's leaf order, updated in place."""
     K = strategy.microbatches
     loss_fn = default_loss if loss_fn is None else loss_fn
-    layout = hook = None
+    layout = hook = tp = None
     if mesh is not None:
-        sharding.require_no_tp(mesh, model_axis)
+        sharding.require_tp_family(model.cfg, mesh, model_axis)
+        M = sharding.model_size(mesh, model_axis)
+        mgroup = None
+        if M > 1:
+            if group is not None:
+                raise ValueError("with a model axis the train step makes "
+                                 "its data and model groups from the mesh")
+            group, mgroup = rank_groups(mesh, data_axes, model_axis)
         W = sharding._axis_size(mesh, data_axes)
         if W != dist.get_world_size(group):
             raise ValueError(f"data axes {data_axes} span {W} ranks, the "
                              f"group {dist.get_world_size(group)}")
-        if fsdp:
-            layout, hook = _fsdp_plan(model, mesh, data_axes, model_axis,
-                                      group, fsdp_rs_dtype)
+        if fsdp or M > 1:
+            layout, hook = _plan(model, mesh, data_axes, model_axis, fsdp,
+                                 group, mgroup, fsdp_rs_dtype)
+        if M > 1:
+            tp = TensorParallel(mgroup, M, layout.mindex)
     elif fsdp:
         raise ValueError("fsdp=True needs a mesh")
     mask = layout.mask if layout is not None else None
+    # a strategy that is not elementwise syncs whole leaves
+    whole = tp is not None and not strategy.elementwise
+    sub = None
+    if layout is not None:
+        # the layout of the leaves the strategy syncs (FSDP's bypass it)
+        keep = [i for i, m in enumerate(layout.mask) if not m]
+        sub = dataclasses.replace(
+            layout, shapes=tuple(layout.shapes[i] for i in keep),
+            dims=tuple(None for _ in keep),
+            mdims=tuple(layout.mdims[i] for i in keep))
 
     def value_and_grad(params, batch):
         loss = loss_fn(model, batch)
         return loss.detach(), torch.autograd.grad(loss, params)
 
+    def sync(grads, strat):
+        if not whole:
+            return strategy.sync(grads, strat, group)
+        synced, strat, info = strategy.sync(
+            _whole_leaves(grads, sub, tp), strat, group)
+        return _slices(synced, sub, tp), strat, info
+
     def step_fn(state, batch):
         model.param_hook = hook
+        model.tp = tp
         params = state["params"]
         B_local = next(iter(batch.values())).shape[0]
         Ke = math.gcd(K, B_local) if K > 1 else 1
@@ -158,12 +241,10 @@ def build_train_step(model, optimizer: Optimizer, strategy: Strategy,
             loss, grads = value_and_grad(params, batch)
 
         if mask is None:
-            synced, state["strat"], info = strategy.sync(
-                list(grads), state["strat"], group)
+            synced, state["strat"], info = sync(list(grads), state["strat"])
         else:
-            part, state["strat"], info = strategy.sync(
-                [g for g, m in zip(grads, mask) if not m], state["strat"],
-                group)
+            part, state["strat"], info = sync(
+                [g for g, m in zip(grads, mask) if not m], state["strat"])
             part = iter(part)
             # reduce-scattered leaves: the sum over ranks -> the mean
             synced = [g / layout.W if m else next(part)
@@ -177,11 +258,15 @@ def build_train_step(model, optimizer: Optimizer, strategy: Strategy,
         return state, metrics
 
     def init_state():
-        if layout is not None:
-            shard_model(model, layout)
+        shard_model(model, layout)
+        model.tp = tp
         params = reference_leaves(model)
         sync_like = params if mask is None else \
             [p for p, m in zip(params, mask) if not m]
+        if whole:
+            # the strategy's state is whole, as the reference's
+            sync_like = [p.new_empty(s) for p, s in zip(sync_like,
+                                                       sub.shapes)]
         return {"params": params, "opt": optimizer.init(params),
                 "strat": strategy.init_state(sync_like), "step": 0}
 

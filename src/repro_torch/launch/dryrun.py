@@ -24,17 +24,24 @@ so nothing is allocated and nothing is computed, only shapes:
 
 Kernel 8 runs as a shape-only stand-in on ``meta`` tensors (its output;
 its tiles live on chip), the rest of the step as the plain PyTorch path.
-Profiles: ``dp`` (every mesh axis data-parallel, no tensor parallelism)
-and ``zero3`` (the same, with FSDP); ``baseline`` (16-way TP) raises
-``NotImplementedError`` until the TP slice.  ``cost_analysis_raw`` has
-no analogue (None); ``trace_s`` takes the place of ``lower_s`` and
-``compile_s``.
+Profiles, as the reference's: ``baseline`` (the default: tensor
+parallelism over the 16-way model axis, ``models.tp``, the strategies
+over the data axes, FSDP where ``FSDP_REQUIRED`` says), ``dp`` (every
+mesh axis data-parallel, no tensor parallelism) and ``zero3`` (the same,
+with FSDP).  Under ``baseline`` the families whose tensor parallelism is
+the next slice (MoE, RG-LRU, RWKV, encoder-decoder, VLM) raise
+``NotImplementedError``; ``--all`` writes a skipped entry with the
+reason for each.  ``cost_analysis_raw`` has no analogue (None);
+``trace_s`` takes the place of ``lower_s`` and ``compile_s``.
 
 Usage:
+  python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k \\
       --profile zero3
-  python -m repro_torch.launch.dryrun --all --both-meshes --profile dp
-Results land in ``results/dryrun_torch/<arch>__<shape>__<mesh>__<tag>.json``.
+  python -m repro_torch.launch.dryrun --all --both-meshes
+Results land in ``results/dryrun_torch/<arch>__<shape>__<mesh>[__<tag>].json``
+(no tag for ``baseline``, the profile's name for ``dp`` and ``zero3``, as
+the reference names them).
 """
 from __future__ import annotations
 
@@ -58,8 +65,9 @@ from repro_torch.core import build_serve_step, build_train_step, get_strategy
 from repro_torch.costmodel import flops as flopslib
 from repro_torch.costmodel.collectives import (record_collectives, stats,
                                                tree_bytes)
+from repro_torch.core import sharding
 from repro_torch.costmodel.roofline import HW, roofline
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import data_axes_of, make_production_mesh
 from repro_torch.models.transformer import Model
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / \
@@ -168,7 +176,8 @@ def _extras(cfg, B, meta):
     return out
 
 
-def _train(model, cfg, shp, mesh, data_axes, strategy, fsdp, rs_dtype):
+def _train(model, cfg, shp, mesh, data_axes, model_axis, strategy, fsdp,
+           rs_dtype):
     W = 1
     for a in data_axes:
         W *= mesh.shape[a]
@@ -179,8 +188,8 @@ def _train(model, cfg, shp, mesh, data_axes, strategy, fsdp, rs_dtype):
     if hasattr(strat, "use_kernel"):     # the plain twins on meta tensors
         strat = dataclasses.replace(strat, use_kernel=False)
     ts = build_train_step(model, optim.adamw(3e-4), strat, mesh,
-                          data_axes=data_axes, model_axis=None, fsdp=fsdp,
-                          fsdp_rs_dtype=rs_dtype)
+                          data_axes=data_axes, model_axis=model_axis,
+                          fsdp=fsdp, fsdp_rs_dtype=rs_dtype)
     state = ts.init_state()
     meta = torch.device("meta")
     B = shp.global_batch // W
@@ -199,8 +208,9 @@ def _train(model, cfg, shp, mesh, data_axes, strategy, fsdp, rs_dtype):
     return args, run
 
 
-def _serve(model, cfg, shp, mesh, data_axes, swa_variant):
-    ss = build_serve_step(model, mesh, data_axes=data_axes, model_axis=None,
+def _serve(model, cfg, shp, mesh, data_axes, model_axis, swa_variant):
+    ss = build_serve_step(model, mesh, data_axes=data_axes,
+                          model_axis=model_axis,
                           batch_size=shp.global_batch, cache_len=shp.seq_len,
                           swa_variant=swa_variant)
     params = tree_bytes(list(model.parameters()))
@@ -219,18 +229,22 @@ def _serve(model, cfg, shp, mesh, data_axes, swa_variant):
 
 def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                strategy: str = "allreduce", fsdp=None,
-               profile: str = "zero3", tag: str = "", save: bool = True,
+               profile: str = "baseline", tag: str = "", save: bool = True,
                fsdp_rs_dtype="float32", remat: bool = True,
                kv_quant: bool = False, mesh=None, config=None,
                input_shape=None) -> dict:
     """One dry-run; the result has the reference's keys.  ``profile``:
-    ``dp`` (pure data parallelism over every mesh axis) or ``zero3`` (the
-    same, parameters and optimizer state sharded too); ``baseline`` (TP on
-    the model axis) raises ``NotImplementedError``.  ``fsdp`` follows the
-    profile, as in the reference's dp/zero3.  For small cases (tests),
-    ``mesh`` replaces the production mesh, ``config`` the arch's config
-    and ``input_shape`` (an ``InputShape``) the named shape."""
-    del fsdp
+    ``baseline`` (tensor parallelism over the mesh's ``model`` axis, the
+    strategies over its data axes; ``fsdp`` None follows ``FSDP_REQUIRED``,
+    as in the reference; a family whose tensor parallelism is the next
+    slice raises ``NotImplementedError``), ``dp`` (pure data parallelism
+    over every mesh axis) or ``zero3`` (the same, parameters and optimizer
+    state sharded too; ``fsdp`` follows the profile, as in the
+    reference).  For small cases (tests), ``mesh`` replaces the production
+    mesh, ``config`` the arch's config and ``input_shape`` (an
+    ``InputShape``) the named shape."""
+    if profile not in ("baseline", "dp", "zero3"):
+        raise ValueError(f"profile {profile!r}: baseline, dp or zero3")
     cfg = config or get_config(arch)
     shp = input_shape or INPUT_SHAPES[shape_name]
     mesh_tag = "2x16x16" if multi_pod else "16x16"
@@ -240,18 +254,19 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         if save:
             _save(res, arch, shape_name, mesh_tag, tag)
         return res
-    if profile not in ("dp", "zero3"):
-        raise NotImplementedError(
-            f"profile {profile!r}: tensor parallelism over the 16-way "
-            "model axis is not ported yet (the TP slice, ROADMAP §1); run "
-            "dp or zero3")
     if mesh is None:
         mesh = make_production_mesh(multi_pod=multi_pod)
     else:
         mesh_tag = "x".join(str(n) for n in mesh.shape.values())
     chips = mesh.size
-    data_axes = tuple(mesh.axis_names)
-    fsdp = profile == "zero3"
+    if profile == "baseline":
+        data_axes, model_axis = data_axes_of(mesh), "model"
+        sharding.require_tp_family(cfg, mesh, model_axis)
+        if fsdp is None:
+            fsdp = arch in FSDP_REQUIRED
+    else:
+        data_axes, model_axis = tuple(mesh.axis_names), None
+        fsdp = profile == "zero3"
     swa_variant = shp.name == "long_500k" and cfg.long_context == "swa"
 
     with fake_group(chips):
@@ -259,11 +274,12 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         model.attention_fn = shape_only_attention
         t0 = time.perf_counter()  # repro: allow[no-wallclock] -- trace time is a reported dry-run field
         if shp.kind == "train":
-            args, run = _train(model, cfg, shp, mesh, data_axes, strategy,
-                               fsdp, getattr(torch, fsdp_rs_dtype))
+            args, run = _train(model, cfg, shp, mesh, data_axes,
+                               model_axis, strategy, fsdp,
+                               getattr(torch, fsdp_rs_dtype))
         else:
             args, run = _serve(model, cfg, shp, mesh, data_axes,
-                               swa_variant)
+                               model_axis, swa_variant)
         with record_collectives() as records, LiveBytes() as live:
             out = run()
             out_bytes = tree_bytes(out)
@@ -288,7 +304,8 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     hbm_per_dev = args + out_bytes + 2 * temp
     rf = roofline(flops_g, hbm_per_dev, coll.wire_bytes, chips, model_flops)
 
-    tag = tag or profile
+    if profile != "baseline" and not tag:
+        tag = profile
     res = {
         "arch": arch, "shape": shape_name, "mesh": mesh_tag,
         "chips": chips, "strategy": strategy if shp.kind == "train" else None,
@@ -339,8 +356,10 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--strategy", default="allreduce")
-    ap.add_argument("--profile", default="zero3",
-                    choices=["dp", "zero3", "baseline"])
+    ap.add_argument("--profile", default="baseline",
+                    choices=["baseline", "dp", "zero3"],
+                    help="baseline (the default, the reference's): TP over "
+                         "the model axis; dp; zero3")
     ap.add_argument("--tag", default="")
     ap.add_argument("--json-out", default=None,
                     help="also write the list of results here")
@@ -370,6 +389,14 @@ def main(argv=None):
                           f"dominant={rf['dominant']} "
                           f"t*={rf['step_time_lower_bound_s']:.4f}s",
                           flush=True)
+                except NotImplementedError as e:
+                    # a family whose tensor parallelism is the next slice
+                    r = {"arch": arch, "shape": shape, "multi_pod": mp,
+                         "profile": args.profile, "skipped": str(e)}
+                    results.append(r)
+                    _save(r, arch, shape, "2x16x16" if mp else "16x16",
+                          args.tag)
+                    print(f"[skip] {label}: {e}", flush=True)
                 except Exception as e:
                     failures.append((label, repr(e)))
                     results.append({"arch": arch, "shape": shape,

@@ -3,7 +3,8 @@
 A :class:`Mesh` holds axis names, their sizes and the grid of global
 ranks (row-major by default), the port's stand-in for a ``jax`` mesh of
 devices: one process a rank.  Building one touches no process group;
-``mesh_groups`` makes the process groups of its slices.
+``mesh_groups`` makes the process groups of its slices and
+``rank_groups`` a rank's data and model groups (tensor parallelism).
 """
 from __future__ import annotations
 
@@ -90,3 +91,17 @@ def mesh_groups(mesh, axes: Sequence[str]):
         out[ranks] = None if len(ranks) == world and \
             ranks == tuple(range(world)) else dist.new_group(list(ranks))
     return out
+
+
+def rank_groups(mesh, data_axes: Sequence[str], model_axis: str):
+    """(data group, model group) of this rank: the ranks that share its
+    model coordinate, laid out over ``data_axes``, and the ranks that share
+    its data coordinates, along ``model_axis``.  Every slice's group of
+    both kinds is made (``mesh_groups``), so every rank must call this
+    before the first step."""
+    rank = dist.get_rank()
+    out = []
+    for axes in (tuple(data_axes), (model_axis,)):
+        groups = mesh_groups(mesh, axes)
+        out.append(next(g for ranks, g in groups.items() if rank in ranks))
+    return tuple(out)

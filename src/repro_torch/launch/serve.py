@@ -16,15 +16,20 @@ draws, as the reference makes them, a VLM's stub patch embeddings and an
 encoder-decoder's stub frames (``0.1 * randn`` in the model dtype).  ``--layers`` cuts
 the depth and nothing else.
 
-``--mesh DxM`` serves over D ranks (``--world-size``, one process each, as
-``launch.train`` runs them): the cache is batch-sharded where the batch
-divides over the ranks and sequence-sharded otherwise
-(``core.serve_step``); a model axis larger than 1 raises
-``NotImplementedError``.
+``--mesh DxM`` serves over D x M ranks (``--world-size``, one process
+each, as ``launch.train`` runs them): the cache is batch-sharded where the
+batch divides over the D data ranks and sequence-sharded otherwise
+(``core.serve_step``); a model axis M above 1 is tensor parallelism (the
+dense LMs): each rank of a model group holds its slice of the
+parameters and of the cache's kv heads or head_dim.
 
   # reduced SmolLM, batch 1, the cache sequence-sharded over 4 CPU ranks
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --reduced --device cpu --world-size 4 --mesh 4x1 --batch 1
+
+  # full-width SmolLM, 2-way data x 2-way tensor parallel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --world-size 4 --mesh 2x2 --batch 16 --prompt-len 512
 """
 from __future__ import annotations
 
@@ -137,7 +142,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="data x model ranks; the model axis must be 1")
+                    help="data x model ranks; a model axis above 1 is "
+                         "tensor parallelism")
     ap.add_argument("--world-size", type=int, default=1)
     args = ap.parse_args(argv)
     kwargs = dict(arch=args.arch, batch=args.batch,

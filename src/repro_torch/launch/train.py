@@ -37,15 +37,23 @@ Examples:
       --fused-optimizer --steps 5 --batch 4 --seq 448
 
 ``--mesh DxM`` lays the ranks out as the reference's ("data", "model")
-mesh (``PxDxM``: ("pod", "data", "model")): the data axes' product must
-be the world size, and a model axis larger than 1 (tensor parallelism)
-raises ``NotImplementedError``.  ``--fsdp`` shards the block leaves and
-their AdamW moments over the data axes (``core.train_step``):
+mesh (``PxDxM``: ("pod", "data", "model")): the axes' product must be the
+world size.  A model axis larger than 1 is tensor parallelism
+(``models.tp``; the dense LMs, the other families raise
+``NotImplementedError``): each rank holds its slice of the model-sharded
+leaves and trains on its data coordinate's shard of the batch.
+``--fsdp`` shards the block leaves and their AdamW moments over the data
+axes (``core.train_step``):
 
   # reduced SmolLM, FSDP over 4 CPU ranks
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
       --reduced --device cpu --world-size 4 --mesh 4x1 --fsdp --steps 3 \
       --batch 8 --seq 64
+
+  # full-width SmolLM, 2-way data x 2-way tensor parallel, 4 ranks
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+      --world-size 4 --mesh 2x2 --fused-optimizer --steps 3 --batch 8 \
+      --seq 512 --lr 1e-3
 
 A VLM's batches carry stub patch embeddings (``patch_emb``, so ``--seq``
 is at least ``n_patches``) and an encoder-decoder's stub frames
@@ -77,6 +85,7 @@ from repro_torch import checkpoint as ckpt
 from repro_torch import optim
 from repro_torch.configs.base import get_config
 from repro_torch.core import build_train_step, get_strategy
+from repro_torch.core.sharding import data_index
 from repro_torch.core.strategies import STRATEGIES
 from repro_torch.data import cifar_like, lm_batches, token_stream
 from repro_torch.device import resolve_device
@@ -143,16 +152,17 @@ def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
     start from (for instance ``params_from_reference`` of a reference
     tree) instead of the seeded draw.  ``checkpoint`` is a path where rank 0
     saves the trained parameter tree in the reference's format (whole,
-    under FSDP too).  ``mesh`` is ``"DxM"`` or ``"PxDxM"`` (see the module
-    docstring), ``fsdp`` shards the model over its data axes.  Joins the
+    under FSDP and TP too).  ``mesh`` is ``"DxM"`` or ``"PxDxM"`` (see the
+    module docstring), ``fsdp`` shards the model over its data axes.  Joins the
     default process group when it is already initialised; otherwise
     creates it from ``init_method`` (with one rank, a fresh ``file://``
     path when None) and destroys it after.
     """
-    if batch % world_size:
-        raise ValueError(f"global batch {batch} is not divisible by "
-                         f"world size {world_size}")
     mesh = parse_mesh(mesh, world_size)
+    width = world_size if mesh is None else world_size // mesh.shape["model"]
+    if batch % width:
+        raise ValueError(f"global batch {batch} is not divisible by the "
+                         f"{width} data-parallel ranks")
     if fsdp and mesh is None:
         raise ValueError("fsdp needs a mesh (--mesh Wx1)")
     dev = _rank_device(device, rank)
@@ -164,17 +174,13 @@ def train(*, arch: str, strategy: str = "allreduce", steps: int = 50,
 
 def parse_mesh(spec, world_size: int):
     """``"DxM"`` -> a ("data", "model") mesh, ``"PxDxM"`` -> ("pod",
-    "data", "model") (None stays None).  The data axes must span the
-    ranks; a model axis above 1 raises ``NotImplementedError``."""
+    "data", "model") (None stays None).  The axes must span the ranks; a
+    model axis above 1 is tensor parallelism."""
     if spec is None:
         return None
     dims = tuple(int(x) for x in spec.split("x"))
     if len(dims) not in (2, 3):
         raise ValueError(f"mesh {spec!r}: expected DxM or PxDxM")
-    if dims[-1] > 1:
-        raise NotImplementedError(
-            f"mesh {spec!r}: a model axis of {dims[-1]} (tensor "
-            "parallelism) is not ported yet (the TP slice, ROADMAP §1)")
     if int(np.prod(dims)) != world_size:
         raise ValueError(f"mesh {spec!r} has {int(np.prod(dims))} ranks, "
                          f"the world {world_size}")
@@ -230,6 +236,12 @@ def _train(arch, strategy, steps, batch, seq, lr, fused_optimizer, dev,
            reduced, n_layers, seed, init_params, checkpoint, log_every,
            log, mesh=None, fsdp=False):
     rank, W = dist.get_rank(), dist.get_world_size()
+    # this rank's shard of the global batch, one of ``Wd``
+    shard, Wd = rank, W
+    if mesh is not None:
+        data_axes = tuple(a for a in mesh.axis_names if a != "model")
+        Wd = int(np.prod([mesh.shape[a] for a in data_axes]))
+        shard = data_index(mesh, data_axes, rank)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -237,13 +249,13 @@ def _train(arch, strategy, steps, batch, seq, lr, fused_optimizer, dev,
         if cfg.family == "cnn":
             raise ValueError(f"{arch}: the depth of a CNN cannot be cut")
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    B_local = batch // W
+    B_local = batch // Wd
     if cfg.family == "cnn":
-        model, opt, next_batch = _cnn_setup(cfg, batch, lr, dev, seed, rank,
+        model, opt, next_batch = _cnn_setup(cfg, batch, lr, dev, seed, shard,
                                             B_local)
     else:
         model, opt, next_batch = _lm_setup(cfg, batch, seq, lr,
-                                           fused_optimizer, dev, seed, rank,
+                                           fused_optimizer, dev, seed, shard,
                                            B_local)
     if init_params is not None:
         model.load_state_dict(init_params)
@@ -251,9 +263,8 @@ def _train(arch, strategy, steps, batch, seq, lr, fused_optimizer, dev,
         ts = build_train_step(model, opt, get_strategy(strategy))
     else:
         ts = build_train_step(model, opt, get_strategy(strategy), mesh,
-                              data_axes=tuple(a for a in mesh.axis_names
-                                              if a != "model"),
-                              model_axis="model", fsdp=fsdp)
+                              data_axes=data_axes, model_axis="model",
+                              fsdp=fsdp)
     n_params = sum(p.numel() for p in model.parameters())
     state = ts.init_state()
     if log:
@@ -298,7 +309,8 @@ def _train(arch, strategy, steps, batch, seq, lr, fused_optimizer, dev,
     if ts.layout is not None:
         out["local_params"] = sum(p.numel() for p in state["params"])
     if checkpoint:
-        # the whole tree (FSDP shards gathered: every rank takes part)
+        # the whole tree (FSDP and TP slices gathered: every rank takes
+        # part)
         tree = ckpt.unflatten(param_tree(model), full_leaves(model))
         if rank == 0:
             ckpt.save(checkpoint, tree)
@@ -333,8 +345,8 @@ def main(argv=None):
                     help="save the trained parameters here, in the "
                          "reference's checkpoint format")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="data x model ranks (PxDxM with pods); the model "
-                         "axis must be 1")
+                    help="data x model ranks (PxDxM with pods); a model "
+                         "axis above 1 is tensor parallelism")
     ap.add_argument("--fsdp", action="store_true",
                     help="shard the block leaves over the data axes")
     args = ap.parse_args(argv)

@@ -25,6 +25,17 @@ products run one kv head at a time (``torch.bmm`` on strided views of the
 the card accumulates in fp32 through ``out_dtype``.  ``cache_update``
 writes the new entries into the cache in place (the reference donates the
 cache to its decode step, so XLA writes one slot in place too).
+
+Under tensor parallelism (``tp``, ``models.tp``) the projections read
+this rank's slices of wq, wk and wv (row-parallel over d: one collective
+for the three): where M divides the query heads each rank keeps its H/M
+heads (a reduce-scatter over the heads; k and v too where M divides the
+kv heads, else whole, and ``heads_for`` narrows them to the kv heads
+those queries read),
+otherwise every rank holds every head (an all-reduce).  ``attention_out``
+applies wo to either.  The decode functions take the global ``head_dim``
+and a ``partial`` hook for a cache sharded on head_dim: the scores are
+then partial dot products, summed over the model group by ``partial``.
 """
 from __future__ import annotations
 
@@ -53,8 +64,13 @@ def attention_init(gen, cfg, dtype, lead=()):
     return p
 
 
-def project_qkv(p, x, cfg):
-    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
+def project_qkv(p, x, cfg, tp=None, head_local=True):
+    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd); under ``tp`` (see
+    the module docstring) q may hold this rank's H/M heads and k/v this
+    rank's KV/M heads, or every kv head (``heads_for`` gives those q
+    reads); ``head_local=False`` keeps every head."""
+    if tp is not None:
+        return _project_qkv_tp(p, x, cfg, tp, head_local)
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -66,6 +82,109 @@ def project_qkv(p, x, cfg):
         v = v + p["bv"].to(v.dtype)
     return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
             v.reshape(B, S, KV, hd))
+
+
+def _qkv_shapes(cfg, d):
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
+            "bq": (H * hd,), "bk": (KV * hd,), "bv": (KV * hd,)}
+
+
+def kv_for_heads(k, H, M, index):
+    """The kv heads of whole k (B, S, KV, hd) that query heads [index *
+    H/M, (index + 1) * H/M) read (head h reads kv head h // G): a range
+    that keeps the grouping where it can, else one kv head a query
+    head."""
+    KV = k.shape[2]
+    G, Hl = H // KV, H // M
+    a = index * Hl
+    if Hl % G == 0:
+        return k.narrow(2, a // G, Hl // G)
+    if G % Hl == 0:
+        return k.narrow(2, a // G, 1)
+    return k.index_select(2, torch.arange(a, a + Hl, device=k.device) // G)
+
+
+def _project_qkv_tp(p, x, cfg, tp, head_local):
+    B, S, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    M = tp.size
+    shapes = _qkv_shapes(cfg, d)
+    names = ("wq", "wk", "wv")
+    bias = {n: p["b" + n[1]] for n in names} if cfg.qkv_bias else {}
+    if any(tp.dim_of(p[n], shapes[n]) != 0 for n in names):
+        # a weight not sharded on d: each projection on its own, whole
+        out = [tp.linear(x, p[n], shapes[n]) for n in names]
+        if bias:
+            out = [t + tp.whole(bias[n], shapes["b" + n[1]]).to(t.dtype)
+                   for t, n in zip(out, names)]
+        q, k, v = out
+        return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
+                v.reshape(B, S, KV, hd))
+    xl = tp.split(x, -1)
+    parts = [xl @ p[n] for n in names]
+    if not (head_local and H % M == 0):
+        # every head on every rank: one all-reduce for q, k and v
+        q, k, v = tp.reduce(torch.cat(parts, dim=-1)).split(
+            [H * hd, KV * hd, KV * hd], dim=-1)
+        if bias:
+            q, k, v = [t + tp.whole(bias[n], shapes["b" + n[1]]).to(t.dtype)
+                       for t, n in zip((q, k, v), names)]
+        return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
+                v.reshape(B, S, KV, hd))
+    # head-local: this rank's H/M query heads by one reduce-scatter over
+    # the heads, which carries k and v too where M divides their heads
+    kv_local = KV % M == 0
+    rs = names if kv_local else names[:1]
+    widths = [parts[i].shape[-1] // M for i in range(len(rs))]
+    packed = torch.cat([parts[i].reshape(B, S, M, -1)
+                        for i in range(len(rs))], dim=-1)
+    out = list(tp.reduce_scatter(packed, 2)[:, :, 0].split(widths, dim=-1))
+    if bias:
+        for i, n in enumerate(rs):
+            b = bias[n]
+            if tp.dim_of(b, shapes["b" + n[1]]) is None:
+                b = tp.split(b, 0)
+            out[i] = out[i] + b.to(out[i].dtype)
+    q = out[0].reshape(B, S, H // M, hd)
+    if kv_local:
+        return (q, out[1].reshape(B, S, KV // M, hd),
+                out[2].reshape(B, S, KV // M, hd))
+    k, v = tp.reduce(torch.cat(parts[1:], dim=-1)).split(KV * hd, dim=-1)
+    if bias:
+        k = k + tp.whole(bias["wk"], shapes["bk"]).to(k.dtype)
+        v = v + tp.whole(bias["wv"], shapes["bv"]).to(v.dtype)
+    # whole k and v, which every rank reads at its own kv heads
+    # (``heads_for``): backward, their gradients are summed over the group
+    return q, tp.copy(k.reshape(B, S, KV, hd)), \
+        tp.copy(v.reshape(B, S, KV, hd))
+
+
+def heads_for(q, k, v, cfg, tp=None):
+    """The k and v that ``q``'s heads read: where ``project_qkv`` gave
+    this rank's query heads beside whole k and v, their kv heads
+    (``kv_for_heads``); else k and v as they are."""
+    if tp is None or q.shape[2] == cfg.n_heads or \
+            k.shape[2] < cfg.n_kv_heads:
+        return k, v
+    return (kv_for_heads(k, cfg.n_heads, tp.size, tp.index),
+            kv_for_heads(v, cfg.n_heads, tp.size, tp.index))
+
+
+def attention_out(p, o, cfg, tp=None):
+    """o (B, S, Hq, hd) @ wo -> (B, S, d), replicated; under ``tp`` o
+    holds every head or this rank's H/M (``project_qkv``)."""
+    B, S = o.shape[:2]
+    flat = o.reshape(B, S, -1)
+    if tp is None:
+        return flat @ p["wo"]
+    shape = (cfg.n_heads * cfg.head_dim, cfg.d_model)
+    if o.shape[2] < cfg.n_heads:
+        if tp.dim_of(p["wo"], shape) == 0:
+            # wo's rows of this rank's heads
+            return tp.reduce(flat @ p["wo"])
+        flat = tp.gather(flat, -1)
+    return tp.linear(flat, p["wo"], shape)
 
 
 # ---------------------------------------------------------------------------
@@ -275,12 +394,16 @@ def ring_valid(pos, B, slots, L, window=None):
     return valid
 
 
-def decode_attention(q, k_cache, v_cache, pos, *, window=None):
+def decode_attention(q, k_cache, v_cache, pos, *, window=None,
+                     head_dim=None, partial=None):
     """q: (B, 1, H, hd); caches: (B, L, KV, hd) ring buffers.
 
     ``pos`` is the position (an int, a 0-dim or a (B,) tensor) of the new
     token.  Slot ``s`` of a ring buffer of length L holds sequence position
     ``pos - ((pos - s) mod L)``; slots with negative positions are invalid.
+    ``head_dim`` scales the scores (default the caches' hd); ``partial``
+    maps the scaled scores before the mask (a head_dim-sharded cache: the
+    sum of the ranks' partial scores).
     """
     B, L, KV, hd = k_cache.shape
     H = q.shape[2]
@@ -288,7 +411,9 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None):
     valid = ring_valid(pos, B, torch.arange(L, device=q.device), L, window)
     qg = q.reshape(B, KV, G, hd)
     s = torch.stack([bmm_f32(qg[:, j], k_cache[:, :, j].transpose(1, 2))
-                     for j in range(KV)], dim=2) / (hd ** 0.5)  # (B,G,KV,L)
+                     for j in range(KV)], dim=2) / ((head_dim or hd) ** 0.5)
+    if partial is not None:
+        s = partial(s)                                          # (B,G,KV,L)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.stack([bmm_f32(p[:, :, j], v_cache[:, :, j])
@@ -296,7 +421,8 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def decode_attention_quant(q, k_cache, v_cache, pos, *, window=None):
+def decode_attention_quant(q, k_cache, v_cache, pos, *, window=None,
+                           head_dim=None, partial=None):
     """``decode_attention`` against int8-quantized caches
     (``{"q": int8, "scale": fp16}`` per k and v, ``models.kvquant``).  The
     scales are folded into the fp32 scores and the softmax weights, as in
@@ -308,7 +434,10 @@ def decode_attention_quant(q, k_cache, v_cache, pos, *, window=None):
     G = H // KV
     valid = ring_valid(pos, B, torch.arange(L, device=q.device), L, window)
     qg = q.reshape(B, KV, G, hd).float()
-    s = torch.einsum("bkgh,blkh->bgkl", qg, kq.float()) / (hd ** 0.5)
+    s = torch.einsum("bkgh,blkh->bgkl", qg, kq.float()) / \
+        ((head_dim or hd) ** 0.5)
+    if partial is not None:
+        s = partial(s)
     s = s * ks[..., 0].float().transpose(1, 2)[:, None]        # (B,1,KV,L)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)

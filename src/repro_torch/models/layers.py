@@ -11,6 +11,11 @@ Functions over tensors, with the reference's layouts and numerics:
 * the GELU MLP uses the tanh approximation (``jax.nn.gelu``'s default);
 * sinusoidal positions (the encoder-decoder's, in place of RoPE) are
   fp32, ``sin`` halves then ``cos`` halves.
+
+Under tensor parallelism (``tp``, a ``models.tp.TensorParallel``) the
+norm, MLP, embedding and unembedding take this rank's slices of their
+leaves and replicated activations (``models.tp``); with ``tp=None`` they
+are the plain functions.
 """
 from __future__ import annotations
 
@@ -45,7 +50,9 @@ def rmsnorm_init(*shape):
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
-def rmsnorm(x, w, eps=1e-6):
+def rmsnorm(x, w, eps=1e-6, tp=None):
+    if tp is not None:
+        w = tp.whole(w, (x.shape[-1],))
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
@@ -110,7 +117,24 @@ def mlp_init(gen, d_model, d_ff, kind, dtype, lead=()):
             "w_down": dense_init(gen, (*lead, d_ff, d_model), dtype)}
 
 
-def mlp_apply(p, x, kind):
+def mlp_apply(p, x, kind, tp=None, d_ff=None):
+    """The MLP of replicated x; under ``tp`` (``d_ff`` the global width)
+    column-parallel up (and gate) projections, the activation on this
+    rank's ``d_ff`` slice and a row-parallel down projection, one
+    all-reduce; a weight laid out otherwise is used whole."""
+    if tp is not None:
+        d = x.shape[-1]
+        shapes = {"w_gate": (d, d_ff), "w_up": (d, d_ff),
+                  "w_down": (d_ff, d)}
+        dims = {k: tp.dim_of(w, shapes[k]) for k, w in p.items()}
+        if dims == {**{k: 1 for k in p}, "w_down": 0}:
+            xc = tp.copy(x)
+            if kind == "swiglu":
+                h = F.silu(xc @ p["w_gate"]) * (xc @ p["w_up"])
+            else:
+                h = F.gelu(xc @ p["w_up"], approximate="tanh")
+            return tp.reduce(h @ p["w_down"])
+        p = {k: tp.whole(w, shapes[k]) for k, w in p.items()}
     if kind == "swiglu":
         gate = F.silu(x @ p["w_gate"])
         return (gate * (x @ p["w_up"])) @ p["w_down"]
@@ -120,11 +144,18 @@ def mlp_apply(p, x, kind):
 # ---------------------------------------------------------------------------
 # embedding / unembedding
 # ---------------------------------------------------------------------------
-def embed(table, tokens):
-    """tokens: int32 or int64 ids -> rows of ``table``."""
+def embed(table, tokens, tp=None, shape=None):
+    """tokens: int32 or int64 ids -> rows of ``table`` (of global
+    ``shape`` under ``tp``: vocab-parallel where its rows are sharded)."""
+    if tp is not None:
+        return tp.embed(table, tokens, shape)
     return F.embedding(tokens, table)
 
 
-def unembed(table, x):
-    """A separate (d_model, vocab) head: ``x @ table``."""
+def unembed(table, x, tp=None, shape=None):
+    """A separate (d_model, vocab) head: ``x @ table``; under ``tp``, this
+    rank's vocab columns of the logits where the head's columns are
+    sharded (``TensorParallel.unembed``)."""
+    if tp is not None:
+        return tp.unembed(table, x, shape)
     return x @ table

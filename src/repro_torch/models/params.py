@@ -38,23 +38,22 @@ def _walk(tree, prefix=()):
 
 
 def params_from_reference(tree, mesh=None, rank=None, *, data_axes=None,
-                          model_axis="auto") -> dict:
+                          model_axis="auto", fsdp: bool = True) -> dict:
     """State dict for ``load_state_dict`` from the reference's parameter
-    tree of numpy arrays.  With ``mesh``, each FSDP leaf (``param_pspecs``
-    at ``fsdp=True`` over ``data_axes``, by default the mesh's
-    ``pod``/``data`` axes) keeps only global ``rank``'s slice: the state
-    of a model that ``build_train_step(..., fsdp=True)`` has sharded.
-    ``model_axis`` defaults to ``"model"`` where the mesh has that axis
-    (the reference's default), else None."""
+    tree of numpy arrays.  With ``mesh``, each leaf keeps only global
+    ``rank``'s slice under ``param_pspecs`` (at ``fsdp`` over
+    ``data_axes``, by default the mesh's ``pod``/``data`` axes, and over
+    ``model_axis``): the state of a model that ``build_train_step(...,
+    fsdp=fsdp)`` has sharded.  ``model_axis`` defaults to ``"model"`` where
+    the mesh has that axis (the reference's default), else None."""
     flat = {".".join(path): arr for path, arr in _walk(tree)}
     if mesh is not None:
         from repro_torch.core import sharding
         from repro_torch.launch.mesh import data_axes_of
         if model_axis == "auto":
             model_axis = "model" if "model" in mesh.axis_names else None
-        sharding.require_no_tp(mesh, model_axis)
         specs = sharding.param_pspecs(
-            _map_tree(np.asarray, tree), mesh, fsdp=True,
+            _map_tree(np.asarray, tree), mesh, fsdp=fsdp,
             data_axes=data_axes or data_axes_of(mesh),
             model_axis=model_axis)
         for path, spec in _walk_specs(specs):
@@ -105,9 +104,9 @@ def param_tree(model: nn.Module):
 
 def params_to_reference(model: nn.Module):
     """The reference's parameter tree of numpy arrays for ``model``; the
-    inverse of ``params_from_reference``.  A model sharded by FSDP
-    (``model.fsdp_layout``) gathers its shards first: collective over the
-    layout's group."""
+    inverse of ``params_from_reference``.  A sharded model
+    (``model.param_layout``) gathers its shards first: collective over the
+    layout's groups."""
     full = {id(p): t for p, t in zip(reference_leaves(model),
                                      full_leaves(model))}
     return _map_tree(lambda p: np.ascontiguousarray(
@@ -115,12 +114,12 @@ def params_to_reference(model: nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# FSDP: a module holding shards of its parameters
+# FSDP and TP: a module holding slices of its parameters
 # ---------------------------------------------------------------------------
 def layout_of(model: nn.Module):
-    """The module's FSDP layout (``core.sharding.FsdpLayout``), None
-    where it holds every parameter whole."""
-    return getattr(model, "fsdp_layout", None)
+    """The module's layout (``core.sharding.ShardLayout``), None where it
+    holds every parameter whole."""
+    return getattr(model, "param_layout", None)
 
 
 def global_shapes(model: nn.Module):
@@ -141,8 +140,8 @@ def global_tree(model: nn.Module):
 
 
 def full_leaves(model: nn.Module):
-    """The parameters whole, in the reference's leaf order (the shards
-    of an FSDP leaf gathered: collective over the layout's group)."""
+    """The parameters whole, in the reference's leaf order (the slices of
+    a sharded leaf gathered: collective over the layout's groups)."""
     params = reference_leaves(model)
     layout = layout_of(model)
     if layout is None:
@@ -163,16 +162,18 @@ def set_leaves(model: nn.Module, leaves, layout=None):
             p.copy_(t)
         else:
             p.data = t.clone()
-    model.fsdp_layout = layout
+    model.param_layout = layout
 
 
 def shard_model(model: nn.Module, layout):
     """Lay the module's parameters out by ``layout`` (a no-op where they
-    already are); from another layout the shards are gathered first,
-    collectively over the old layout's group."""
+    already are); from another layout the slices are gathered first,
+    collectively over the old layout's groups."""
     old = layout_of(model)
+    if old is None and layout is None:
+        return
     if old is not None and layout is not None and old.key() == layout.key():
-        model.fsdp_layout = layout
+        model.param_layout = layout
         return
     set_leaves(model, full_leaves(model), layout)
 

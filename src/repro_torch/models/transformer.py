@@ -76,6 +76,20 @@ tail layer; the encoder calls no hook, as in the reference.
 sequence-sharded cache (``core.serve_step.SeqShard``); the cache held
 whole goes through ``WHOLE_CACHE``, the same interface.
 ``build_model(..., device="meta")`` gives shapes only (the dry-run).
+
+Tensor parallelism (``tp``, a ``models.tp.TensorParallel`` set by the
+train and serve steps; dense attention LMs only): the module holds this
+rank's slice of each leaf that ``core.sharding.param_pspecs`` puts on the
+model axis, and the layers read them through ``models.tp`` with
+activations replicated over the model group.  ``forward`` then returns
+this rank's vocab columns of the logits where the unembedding's columns
+are sharded (``logits_sharded``; the loss is vocab-parallel), and
+attention runs kernel 8 on this rank's H/M heads where M divides them,
+else on every head.  ``prefill`` and ``decode_step`` return whole logits;
+``prefill`` fills the rank's cache given to it, laid out by
+``core.sharding.cache_pspecs`` (kv heads or head_dim on the model axis),
+and ``decode_step`` reaches that cache through the serve step's cache
+operations (``core.serve_step.TpCache``).
 """
 from __future__ import annotations
 
@@ -156,11 +170,6 @@ class _Table(nn.Module):
         self.table = nn.Parameter(table)
 
 
-def _residual_attention(x, p, o):
-    """x + the attention output o (B, S, H, hd) through ``p["wo"]``."""
-    return x + o.reshape(*o.shape[:2], -1) @ p["wo"]
-
-
 class Model(nn.Module):
     # the reference tree's top-level lists, kept by ``param_tree`` when
     # empty (``'tail': []`` where the depth is whole pattern blocks)
@@ -183,6 +192,9 @@ class Model(nn.Module):
         # gathered subtree, called inside each (recomputed) layer; set by
         # ``core.train_step.build_train_step``, identity when None
         self.param_hook = None
+        # tensor parallelism (``models.tp.TensorParallel``), set by the
+        # train and serve steps; None: every leaf whole
+        self.tp = None
         # a stand-in for kernel 8 in the causal self-attention (the
         # dry-run's shape-only one on ``meta`` tensors); None: as
         # ``use_kernel`` says
@@ -223,6 +235,29 @@ class Model(nn.Module):
                 p.copy_(q)
         return self
 
+    @property
+    def logits_sharded(self) -> bool:
+        """Whether ``forward`` returns this rank's vocab columns of the
+        logits (tensor parallelism over the unembedding's columns)."""
+        return self.tp is not None and self.tp.dim_of(
+            self.unembed.table, (self.cfg.d_model, self.padded_vocab)) == 1
+
+    def _norm(self, x, w):
+        return layers.rmsnorm(x, w, tp=self.tp)
+
+    def _attn_out(self, x, p, o):
+        """x + the attention output o (B, S, H, hd) through ``p["wo"]``."""
+        return x + attention.attention_out(p, o, self.cfg, self.tp)
+
+    def _logits(self, x, whole=False):
+        """The unembedding of x; ``whole`` gathers vocab-sharded logits."""
+        shape = (self.cfg.d_model, self.padded_vocab)
+        logits = layers.unembed(self.unembed.table, x, tp=self.tp,
+                                shape=shape)
+        if whole and logits.shape[-1] < self.padded_vocab:
+            logits = self.tp.gather(logits, -1)
+        return logits
+
     # ------------------------------------------------------------------
     def _attention_fn(self):
         if self.attention_fn is not None:
@@ -233,7 +268,8 @@ class Model(nn.Module):
         """Token embeddings; a VLM's patch embeddings in place of the first
         ``n_patches`` tokens; an encoder-decoder's sinusoidal positions."""
         cfg = self.cfg
-        x = layers.embed(self.embed.table, batch["tokens"])
+        x = layers.embed(self.embed.table, batch["tokens"], tp=self.tp,
+                         shape=(self.padded_vocab, cfg.d_model))
         S = x.shape[1]
         if cfg.family == "vlm" and "patch_emb" in batch:
             n = batch["patch_emb"].shape[1]
@@ -253,7 +289,7 @@ class Model(nn.Module):
         h = layers.rmsnorm(x, p["norm1"])
         q, k, v = attention.project_qkv(p["attn"], h, cfg)
         o = attention.chunked_attention(q, k, v, causal=False)
-        x = _residual_attention(x, p["attn"], o)
+        x = self._attn_out(x, p["attn"], o)
         h = layers.rmsnorm(x, p["norm2"])
         return x + layers.mlp_apply(p["mlp"], h, cfg.mlp)
 
@@ -282,15 +318,16 @@ class Model(nn.Module):
         q, _, _ = attention.project_qkv(p["xattn"], h, cfg)
         _, k, v = attention.project_qkv(p["xattn"], enc_out, cfg)
         o = attention.chunked_attention(q, k, v, causal=False)
-        return _residual_attention(x, p["xattn"], o), k, v
+        return self._attn_out(x, p["xattn"], o), k, v
 
     def _ffn(self, x, p):
         """x + the FFN (MLP or MoE) of x; the MoE's aux loss (else 0)."""
-        h = layers.rmsnorm(x, p["norm2"])
+        h = self._norm(x, p["norm2"])
         if "moe" in p:
             y, aux = moe.moe_apply(p["moe"], h, self.cfg)
             return x + y, aux
-        return x + layers.mlp_apply(p["mlp"], h, self.cfg.mlp), 0.0
+        return x + layers.mlp_apply(p["mlp"], h, self.cfg.mlp, tp=self.tp,
+                                    d_ff=self.cfg.d_ff), 0.0
 
     def _rope(self, t, positions):
         if not self.use_rope:
@@ -302,7 +339,7 @@ class Model(nn.Module):
         RWKV6 time-mix), the cross-attention of an encoder-decoder, then
         the FFN; returns (x, aux)."""
         cfg = self.cfg
-        h = layers.rmsnorm(x, p["norm1"])
+        h = self._norm(x, p["norm1"])
         if kind == RWKV:
             y, _ = rwkv6.rwkv_apply(p["rwkv"], h, cfg,
                                     use_kernel=self.use_kernel,
@@ -312,13 +349,14 @@ class Model(nn.Module):
             y, _ = rglru.rglru_apply(p["rglru"], h, cfg)
             x = x + y
         else:
-            q, k, v = attention.project_qkv(p["attn"], h, cfg)
+            q, k, v = attention.project_qkv(p["attn"], h, cfg, self.tp)
+            k, v = attention.heads_for(q, k, v, cfg, self.tp)
             q, k = self._rope(q, positions), self._rope(k, positions)
             o = attention.chunked_attention(
                 q, k, v, causal=True,
                 window=cfg.window if kind == LOCAL else None,
                 pallas_fn=self._attention_fn())
-            x = _residual_attention(x, p["attn"], o)
+            x = self._attn_out(x, p["attn"], o)
         if enc_out is not None:
             x, _, _ = self._cross(x, p, enc_out)
         return self._ffn(x, p)
@@ -340,7 +378,9 @@ class Model(nn.Module):
         """batch["tokens"]: (B, S) int (and ``frames`` (B, encoder_seq, d)
         for an encoder-decoder, ``patch_emb`` (B, n_patches, d) for a VLM)
         -> (logits (B, S, padded vocab) in the model dtype, aux 0-dim fp32:
-        the MoE layers' load-balance loss summed, 0 without MoE)."""
+        the MoE layers' load-balance loss summed, 0 without MoE); under
+        tensor parallelism with ``logits_sharded``, this rank's
+        (B, S, padded vocab / M) columns."""
         x = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         enc_out = None
@@ -361,8 +401,8 @@ class Model(nn.Module):
             x, a = self._layer(self._hook(_module_tree(m), "tail", i), kind,
                                x, positions, enc_out)
             aux = aux + a
-        x = layers.rmsnorm(x, self.final_norm)
-        return layers.unembed(self.unembed.table, x), aux
+        x = self._norm(x, self.final_norm)
+        return self._logits(x), aux
 
     # ------------------------------------------------------------------
     # serving: the decode cache, prefill and single-token decode
@@ -438,12 +478,14 @@ class Model(nn.Module):
                                   _map(lambda t: t[li], enc))
 
     @torch.no_grad()
-    def prefill(self, batch, cache_len=None, swa_variant: bool = False):
+    def prefill(self, batch, cache_len=None, swa_variant: bool = False,
+                cache=None):
         """Forward over a prompt: (last-token logits (B, 1, padded vocab),
         the filled cache).  Each attention layer keeps the trailing
         ``min(L, S)`` positions at ring slots ``(S - take .. S - 1) mod
         L``; an encoder-decoder's cache also takes each layer's encoder k
-        and v."""
+        and v.  ``cache`` (required under tensor parallelism: this rank's
+        slice, zeros) is filled in place of a fresh one."""
         cfg = self.cfg
         x = self._embed_inputs(batch)
         B, S, _ = x.shape
@@ -452,9 +494,14 @@ class Model(nn.Module):
         enc_out = None
         if cfg.is_encoder_decoder:
             enc_out = self._encode(batch["frames"])
-        cache = self.init_cache(B, cache_len, swa_variant, x.device)
+        if cache is None:
+            if self.tp is not None:
+                raise ValueError("under tensor parallelism prefill fills "
+                                 "the rank's cache it is given "
+                                 "(core.serve_step lays it out)")
+            cache = self.init_cache(B, cache_len, swa_variant, x.device)
         for kind, p, leaf, enc in self._serve_layers(cache, swa_variant):
-            h = layers.rmsnorm(x, p["norm1"])
+            h = self._norm(x, p["norm1"])
             if kind in (RWKV, RGLRU):
                 if kind == RWKV:
                     y, state = rwkv6.rwkv_apply(p["rwkv"], h, cfg,
@@ -466,31 +513,61 @@ class Model(nn.Module):
                     leaf[name].copy_(val)
                 x = x + y
             else:
-                q, k, v = attention.project_qkv(p["attn"], h, cfg)
-                q, k = self._rope(q, positions), self._rope(k, positions)
+                q, k, v = attention.project_qkv(p["attn"], h, cfg, self.tp)
+                ka, va = attention.heads_for(q, k, v, cfg, self.tp)
+                q = self._rope(q, positions)
+                ka = self._rope(ka, positions)
                 o = attention.chunked_attention(
-                    q, k, v, causal=True,
+                    q, ka, va, causal=True,
                     window=cfg.window if kind == LOCAL else None,
                     pallas_fn=self._attention_fn())
-                x = _residual_attention(x, p["attn"], o)
-                L = (leaf["k"]["q"] if self.kv_quant else leaf["k"]).shape[1]
-                take = min(L, S)
-                slots = torch.remainder(
-                    torch.arange(S - take, S, device=x.device), L)
-                for name, val in (("k", k), ("v", v)):
-                    if self.kv_quant:
-                        qv, sv = kvquant.quantize_kv(val[:, S - take:])
-                        leaf[name]["q"].index_copy_(1, slots, qv)
-                        leaf[name]["scale"].index_copy_(1, slots, sv)
-                    else:
-                        leaf[name].index_copy_(1, slots, val[:, S - take:])
+                x = self._attn_out(x, p["attn"], o)
+                if ka is not k:
+                    k = self._rope(k, positions)
+                else:
+                    k = ka
+                self._fill_ring(leaf, k, v, S)
             if enc is not None:
                 x, ek, ev = self._cross(x, p, enc_out)
                 enc["k"].copy_(ek)
                 enc["v"].copy_(ev)
             x, _ = self._ffn(x, p)
-        x = layers.rmsnorm(x[:, -1:], self.final_norm)
-        return layers.unembed(self.unembed.table, x), cache
+        x = self._norm(x[:, -1:], self.final_norm)
+        return self._logits(x, whole=True), cache
+
+    def _fill_ring(self, leaf, k, v, S):
+        """Write the trailing ``min(L, S)`` positions of k and v (B, S, *,
+        hd) at ring slots ``(S - take .. S - 1) mod L`` of a cache leaf;
+        under tensor parallelism, the leaf's slice of them (its kv heads,
+        its head_dim slice, and an int8 scale's slots)."""
+        payload = leaf["k"]["q"] if self.kv_quant else leaf["k"]
+        L = payload.shape[1]
+        take = min(L, S)
+        slots = torch.remainder(torch.arange(S - take, S, device=k.device),
+                                L)
+        tp = self.tp
+        for name, val in (("k", k), ("v", v)):
+            val = val[:, S - take:]
+            if tp is not None and val.shape[2] > payload.shape[2]:
+                val = tp.slice(val, 2)
+            if self.kv_quant:
+                qv, sv = kvquant.quantize_kv(val)
+                if tp is not None and qv.shape[3] > payload.shape[3]:
+                    qv = tp.slice(qv, 3)
+                leaf[name]["q"].index_copy_(1, slots, qv)
+                scale = leaf[name]["scale"]
+                if scale.shape[1] < L:
+                    # the scale's slots over the model axis
+                    whole = scale.new_zeros((scale.shape[0], L)
+                                            + tuple(scale.shape[2:]))
+                    whole.index_copy_(1, slots, sv)
+                    scale.copy_(tp.slice(whole, 1))
+                else:
+                    scale.index_copy_(1, slots, sv)
+            else:
+                if tp is not None and val.shape[3] > payload.shape[3]:
+                    val = tp.slice(val, 3)
+                leaf[name].index_copy_(1, slots, val)
 
     @torch.no_grad()
     def decode_step(self, token, cache, pos, swa_variant: bool = False,
@@ -505,11 +582,15 @@ class Model(nn.Module):
         (the sequence of a ring buffer, a width of a recurrent state, the
         encoder positions of ``enc_kv``); a sharded ring buffer is written
         by its owner and attended through flash-decode, a sharded state is
-        gathered for the step and its slice kept."""
+        gathered for the step and its slice kept.  Under tensor
+        parallelism ``shard`` is a ``core.serve_step.TpCache`` (around
+        either): every rank computes every head of q, k and v and it hands
+        the cache its slice."""
         cfg = self.cfg
-        whole = shard is None
-        shard = WHOLE_CACHE if whole else shard
-        x = layers.embed(self.embed.table, token)
+        shard = WHOLE_CACHE if shard is None else shard
+        gcache = getattr(shard, "cache", None)
+        x = layers.embed(self.embed.table, token, tp=self.tp,
+                         shape=(self.padded_vocab, cfg.d_model))
         B = x.shape[0]
         pos = torch.as_tensor(pos, device=x.device)
         if cfg.is_encoder_decoder:
@@ -517,11 +598,11 @@ class Model(nn.Module):
             x = x + (pe[:, None, :] if pos.dim() == 1 else pe).to(x.dtype)
         positions = pos.reshape(B, 1) if pos.dim() == 1 \
             else pos.expand(B, 1)
-        glob = itertools.repeat((None,) * 4) if whole else \
-            self._serve_layers(shard.cache, swa_variant)
+        glob = itertools.repeat((None,) * 4) if gcache is None else \
+            self._serve_layers(gcache, swa_variant)
         for (kind, p, leaf, enc), (_, _, gleaf, genc) in zip(
                 self._serve_layers(cache, swa_variant), glob):
-            h = layers.rmsnorm(x, p["norm1"])
+            h = self._norm(x, p["norm1"])
             if kind in (RWKV, RGLRU):
                 step = rwkv6.rwkv_decode_step if kind == RWKV \
                     else rglru.rglru_decode_step
@@ -530,20 +611,22 @@ class Model(nn.Module):
                     leaf[name].copy_(shard.keep(val, leaf[name]))
                 x = x + y
             else:
-                q, k, v = attention.project_qkv(p["attn"], h, cfg)
+                # every head on every rank (a cache op slices its own)
+                q, k, v = attention.project_qkv(p["attn"], h, cfg, self.tp,
+                                                head_local=False)
                 q, k = self._rope(q, positions), self._rope(k, positions)
                 window = cfg.window if kind == LOCAL else None
                 o = shard.attend(q, k, v, leaf, gleaf, pos, window,
                                  self.kv_quant)
-                x = _residual_attention(x, p["attn"], o)
+                x = self._attn_out(x, p["attn"], o)
             if enc is not None:
                 h = layers.rmsnorm(x, p["norm_x"])
                 q, _, _ = attention.project_qkv(p["xattn"], h, cfg)
                 o = shard.attend_all(q, enc, genc)
-                x = _residual_attention(x, p["xattn"], o)
+                x = self._attn_out(x, p["xattn"], o)
             x, _ = self._ffn(x, p)
-        x = layers.rmsnorm(x, self.final_norm)
-        return layers.unembed(self.unembed.table, x), cache
+        x = self._norm(x, self.final_norm)
+        return self._logits(x, whole=True), cache
 
 
 class WholeCache:
@@ -559,16 +642,27 @@ class WholeCache:
         return val
 
     @staticmethod
-    def attend(q, k, v, leaf, _, pos, window, kv_quant):
-        """Write the token's k and v at ring slot ``pos % L`` and attend."""
+    def attend(q, k, v, leaf, _, pos, window, kv_quant, *, head_dim=None,
+               partial=None, quantized=None):
+        """Write the token's k and v at ring slot ``pos % L`` and attend.
+        ``quantized`` gives the int8 entries (k's payload and scale, v's)
+        where they were quantized elsewhere (over a whole head_dim);
+        ``head_dim`` and ``partial`` go to the attention
+        (``attention.decode_attention``)."""
+        kw = dict(window=window, head_dim=head_dim, partial=partial)
         if kv_quant:
-            kvquant.quant_cache_update(leaf["k"], k, pos)
-            kvquant.quant_cache_update(leaf["v"], v, pos)
+            if quantized is None:
+                kvquant.quant_cache_update(leaf["k"], k, pos)
+                kvquant.quant_cache_update(leaf["v"], v, pos)
+            else:
+                for name, (qv, sv) in zip("kv", (quantized[:2],
+                                                 quantized[2:])):
+                    attention.write_slots(leaf[name]["q"], qv, pos)
+                    attention.write_slots(leaf[name]["scale"], sv, pos)
             return attention.decode_attention_quant(
-                q, leaf["k"], leaf["v"], pos, window=window)
+                q, leaf["k"], leaf["v"], pos, **kw)
         attention.cache_update(leaf["k"], leaf["v"], k, v, pos)
-        return attention.decode_attention(q, leaf["k"], leaf["v"], pos,
-                                          window=window)
+        return attention.decode_attention(q, leaf["k"], leaf["v"], pos, **kw)
 
     @staticmethod
     def attend_all(q, enc, _):

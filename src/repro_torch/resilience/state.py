@@ -11,7 +11,7 @@ builds that tree (gathering every rank's strategy rows), ``template``
 describes it on the ``meta`` device, and ``from_reference`` writes a
 restored tree back into a rank's state in place.
 
-Under FSDP (a ``core.sharding.FsdpLayout``) a rank holds shards of the
+Under FSDP (a ``core.sharding.ShardLayout``) a rank holds shards of the
 sharded leaves and of their moments: ``to_reference`` gathers them, so
 the tree (and the checkpoint) is the whole one, ``template`` describes
 the whole shapes, and ``from_reference`` keeps the rank's shards, in the

@@ -82,9 +82,19 @@ def test_long_500k_fits_one_card_at_zero3():
 
 
 def test_baseline_profile_waits_for_tp():
-    with pytest.raises(NotImplementedError, match="TP slice"):
-        dryrun.dryrun_one("smollm-135m", "train_4k", profile="baseline",
-                          save=False)
+    """``baseline``, the default profile as in the reference, runs the
+    dense LMs with tensor parallelism over the 16-way model axis (the
+    strategy over the 16 data ranks, no FSDP for SmolLM) and refuses the
+    families whose tensor parallelism is the next slice."""
+    res = dryrun.dryrun_one("smollm-135m", "train_4k", save=False)
+    assert res["profile"] == "baseline" and res["fsdp"] is False
+    assert res["chips"] == 256 and 0 < res["memory"]["peak_estimate_gb"] < 80
+    counts = res["collectives"]["counts"]
+    assert counts["all-reduce"] > 0 and counts["all-gather"] > 0
+    for arch in ("mixtral-8x7b", "rwkv6-7b"):
+        with pytest.raises(NotImplementedError, match="TP slice"):
+            dryrun.dryrun_one(arch, "train_4k", profile="baseline",
+                              save=False)
 
 
 def test_fsdp_required_recomputed_for_80gb():

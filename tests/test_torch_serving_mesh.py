@@ -230,11 +230,25 @@ def test_gathered_cache_equals_the_reference(results, case):
 
 
 def test_model_axis_is_refused():
+    """A model axis of 2 (on a fake process group of 2 ranks, meta
+    tensors): the dense LM serves with its leaves and its ring halved
+    (one kv head: head_dim 64 -> 32); the families of the next slice
+    refuse it."""
     from repro_torch.configs.base import get_config
     from repro_torch.core import build_serve_step
+    from repro_torch.launch.dryrun import fake_group
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.transformer import Model
-    model = Model(get_config("smollm-135m").reduced(), device="meta")
-    with pytest.raises(NotImplementedError, match="TP slice"):
-        build_serve_step(model, make_mesh((1, 2), ("data", "model")),
-                         model_axis="model", batch_size=1, cache_len=8)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    with fake_group(2):
+        model = Model(get_config("smollm-135m").reduced(), device="meta")
+        ss = build_serve_step(model, mesh, model_axis="model", batch_size=1,
+                              cache_len=8)
+        assert model.embed.table.shape == (256, 256)
+        token, cache, _ = ss.make_inputs("decode", 8)
+        assert cache["blocks"][0]["k"].shape == (2, 1, 8, 1, 32)
+    for arch in ("mixtral-8x7b", "rwkv6-7b"):
+        model = Model(get_config(arch).reduced(), device="meta")
+        with pytest.raises(NotImplementedError, match="TP slice"):
+            build_serve_step(model, mesh, model_axis="model", batch_size=1,
+                             cache_len=8)

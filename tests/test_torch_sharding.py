@@ -246,10 +246,21 @@ def test_sharding_shards_and_shapes():
 
 
 def test_tp_is_refused():
-    with pytest.raises(NotImplementedError, match="TP slice"):
-        shard.require_no_tp(make_production_mesh(), "model")
-    shard.require_no_tp(make_debug_mesh((4, 1)), "model")
-    shard.require_no_tp(make_production_mesh(), None)
+    """A model axis above 1 is refused for the families of the next slice
+    and the CNNs, run for the dense LMs; of size 1, or None, it refuses
+    nothing."""
+    for arch in ("mixtral-8x7b", "rwkv6-7b", "mobilenet-cifar"):
+        with pytest.raises(NotImplementedError, match="TP slice"):
+            shard.require_tp_family(get_config(arch),
+                                    make_production_mesh(), "model")
+        shard.require_tp_family(get_config(arch), make_debug_mesh((4, 1)),
+                                "model")
+        shard.require_tp_family(get_config(arch), make_production_mesh(),
+                                None)
+    for arch in ("smollm-135m", "gemma3-4b", "qwen1.5-4b",
+                 "phi3-mini-3.8b"):
+        shard.require_tp_family(get_config(arch), make_production_mesh(),
+                                "model")
 
 
 def test_mesh_slices_and_data_index():
