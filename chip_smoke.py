@@ -21,8 +21,10 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    segmented kernel must launch once a step (no per-leaf launch).  One
    step through the kernels is held against the same step through the
    twins, a reduced model's logits against the same model on the CPU;
-   profiler windows over the MLLess step of MobileNet and ResNet-18; the
-   other four strategies and ResNet-18 take a few steps each.
+   the other four strategies and ResNet-18 take a few steps each (the
+   profiler windows over the MLLess step of MobileNet and ResNet-18 are
+   cut for the time limit: PERF.md keeps their earlier readings, and
+   ``--compare-mlless`` still runs them).
 4. robust kernels: the four robust-aggregation kernels against their
    plain versions at W = 4 stacks of the full-width MobileNet and
    ResNet-18 gradients and at W = 3..16 over a ragged D, with tie and
@@ -37,8 +39,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    microbatches of 6 a rank), rank 0 under a -8x attack.  The trimmed mean
    must train (30 steps) where plain all-reduce diverges (15 steps); the
    other robust inners and attacks take 4 steps each; a same-seed replay
-   must repeat its losses; each kernel's launches are counted per rank;
-   a profiler window covers rank 0's steps.
+   must repeat its losses; each kernel's launches are counted per rank
+   (the profiler window over rank 0's steps is cut for the time limit:
+   PERF.md keeps its earlier reading).
 6. table3: the paper's experiment through the ArchSpec registry.  Each
    paper arch (spirt, mlless, scatterreduce, allreduce, gpu) trains
    full-width MobileNet through ``get_arch(name).make_strategy()`` on a
@@ -79,8 +82,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    full-width gemma3-4b cut to 6 layers (one 5:1 local/global group;
    bf16, batch 1 x seq 2048, fused AdamW lr 3e-4, 10 steps) with 12
    tensor-core attention launches a step, peak memory, two steps against
-   the kernel-free path, a profiler window over the step and a record of
-   lr 3e-3 and 1e-3.
+   the kernel-free path and a record of lr 3e-3 and 1e-3 (the profiler
+   window over the step is cut for the time limit: PERF.md keeps its
+   earlier reading).
 9. rwkv: the WKV recurrence's two routes (the tensor-core kernel at N
    32/64 with chunks 16/32/64, the CUDA-core kernel elsewhere and, through
    its C entry point, at those shapes too) against the plain chunked twin
@@ -97,8 +101,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    fused-AdamW launches a step, two steps against the kernel-free path, a
    record of the default lr 3e-3 on both paths (every WKV call of the
    kernel path watched, every form of WKV run on the first call with an
-   input or output that is not finite), MLLess for 2 steps and a
-   profiler window; the full 32-layer model's forward at batch 4 x seq
+   input or output that is not finite) and MLLess for 2 steps (the
+   profiler window is cut for the time limit: PERF.md keeps its earlier
+   reading); the full 32-layer model's forward at batch 4 x seq
    2048 through the kernel (32 launches) against the kernel-free forward,
    with the kernel-free forward at another chunk as the witness of what
    rounding alone does, in bf16 and in fp32; reduced logits on the card
@@ -111,8 +116,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    prefill, all on the tensor-core route; the decode logits against the
    teacher-forced forward over the prompt and the generated tokens,
    within twice what the kernel-free path's own comparison gives; the
-   decode step's bytes (``costmodel.flops.step_bytes_hbm``) and bound;
-   a profiler window over 8 decode steps.  A prompt of prefill_32k's
+   decode step's bytes (``costmodel.flops.step_bytes_hbm``) and bound
+   (the profiler window over 8 decode steps is cut for the time limit:
+   PERF.md keeps its earlier reading).  A prompt of prefill_32k's
    32,768 tokens (batch 1), its layer-0 launch held against the plain
    chunked attention.  Gemma-3 cut to 6 layers (batch 4, prompt 1,536
    past its window of 1,024, cache 2,048, 64 tokens; 6 hd-320 tensor-core
@@ -205,9 +211,23 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    greedy tokens, fp32 token for token against one rank's and timed in
    bf16.  Then ranks 0-2 on (1, 3), where 9 / 3 heads and d 576 divide:
    prefill through kernel 8 on 3 heads a rank (fp32 and bf16, the cache
-   on the kv heads), 8 fp32 tokens against one rank's.  Its record is
-   the line ``{"tp": {...}}``; the kernels line's fused-AdamW, attention
-   and segmented entries gain its launches.
+   on the kv heads), 8 fp32 tokens against one rank's.  Then the other
+   families on the (2, 2) mesh in the same spawn, at full width, depth
+   cut (mixtral-8x7b 1 layer, rwkv6-7b 2, recurrentgemma-2b 3, pixtral-12b
+   1, whisper-small whole; bf16, fused AdamW lr 3e-4): 2 allreduce steps
+   each (and 2 under FSDP for Mixtral), the losses within 2^-9 of a
+   replicated run on rank 0 (the same rows, each data rank's gradient
+   taken in turn and averaged), the first step's collective bytes and
+   counts equal to the ``baseline`` dry-run's, peak memory a rank beside
+   the dry-run's estimate and below the replicated run's, launches as
+   counted (fused AdamW once a leaf, kernel 8 twice a causal attention
+   layer, kernel 9 twice an RWKV layer, on 32 of 64 heads a rank), the
+   first call of kernels 8 and 9 on the TP path held against their plain
+   versions at those sharded shapes and timed; fp32 serving, batch 4, 8
+   greedy tokens token for token against one rank's, gloo calls a
+   prefill and a token, kernel 8 once a causal attention layer a
+   prefill.  Its record is the line ``{"tp": {...}}``; the kernels line's
+   fused-AdamW, attention, WKV and segmented entries gain its launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  The table3, serve, resilience,
@@ -608,9 +628,6 @@ def train_phase(init_method):
             f"significant_fraction {res['metrics']['significant_fraction']:.4f}")
         kernels_vs_twins()
         cuda_vs_cpu()
-        profiles = {arch: profile_step("mlless", arch)
-                    for arch in ("mobilenet-cifar", "resnet18-cifar")}
-        profile_step("allreduce")
         for strategy in ("allreduce", "parameter_server", "scatterreduce",
                          "spirt"):
             other = train(arch="mobilenet-cifar", strategy=strategy,
@@ -635,7 +652,7 @@ def train_phase(init_method):
         check(bs.LAUNCHES == mlless_launches(4),
               f"resnet18 mlless launches {bs.LAUNCHES}, expected "
               f"{mlless_launches(4)} (62 leaves, {MLLESS_STEP} a step)")
-        return launches, profiles
+        return launches
     finally:
         dist.destroy_process_group()
 
@@ -1079,72 +1096,9 @@ def byz_rank(rank, init, out_dir):
                  backend=dist.get_backend())
         results.append(r)
     torch.backends.cudnn.deterministic = False
-    prof = byz_profile(rank)
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(
-        {"runs": results, "profile": prof}))
+        {"runs": results}))
     dist.destroy_process_group()
-
-
-def byz_profile(rank, steps=3):
-    """``torch.profiler`` over a few trimmed-mean byzantine steps of
-    rank 0 (full-width MobileNet, 24 images a rank in 4 microbatches,
-    after warm-up); the other ranks step alongside.  Only rank 0's own
-    kernels are traced, though all four ranks share the card."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch import optim
-    from repro_torch.configs.base import get_config
-    from repro_torch.core import build_train_step, get_strategy
-    from repro_torch.data import cifar_like
-    from repro_torch.models import build_cnn
-
-    imgs, labels = cifar_like(96, seed=9)
-    sl = slice(rank * 24, (rank + 1) * 24)
-    batch = {"images": torch.from_numpy(imgs[sl]).cuda(),
-             "labels": torch.from_numpy(labels[sl]).cuda()}
-    strat = get_strategy("byzantine", inner=get_strategy(
-        "trimmed_mean", microbatches=4), workers=(0,), scale=-8.0,
-        n_workers=BYZ_RANKS)
-    ts = build_train_step(build_cnn(get_config("mobilenet-cifar"),
-                                    device="cuda"),
-                          optim.sgd(BYZ_LR, momentum=0.9), strat)
-    state = ts.init_state()
-    for _ in range(2):
-        ts.step_fn(state, batch)
-    torch.cuda.synchronize()
-    if rank != 0:
-        for _ in range(steps):
-            ts.step_fn(state, batch)
-        torch.cuda.synchronize()
-        return None
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            ts.step_fn(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    robust = [e for e in kernels if "trimmed_mean1_kernel" in e.key]
-    gathers = [e for e in events if e.device_type == DeviceType.CPU
-               and "all_gather" in e.key.lower()]
-    return {
-        "wall_ms": wall_ms, "busy_ms": busy_ms,
-        "kernels_per_step": sum(e.count for e in kernels) / steps,
-        "top": [(e.key[:90], e.self_device_time_total / 1e3 / steps,
-                 e.count / steps) for e in sorted(
-                     kernels, key=lambda e: -e.self_device_time_total)[:8]],
-        "trimmed_mean_us_per_launch": sum(
-            e.self_device_time_total for e in robust) / max(
-                sum(e.count for e in robust), 1),
-        "trimmed_mean_launches_per_step": sum(
-            e.count for e in robust) / steps,
-        "all_gather": [(e.key[:60], e.cpu_time_total / 1e3 / steps)
-                       for e in gathers],
-    }
 
 
 def byzantine_phase():
@@ -1202,22 +1156,6 @@ def byzantine_phase():
         f"head {robust['head_loss']:.4f}; allreduce final "
         f"{plain['final_loss']:.4f} > 10 x {robust['final_loss']:.4f}; "
         f"replay of 5 steps identical")
-    p = ranks[0]["profile"]
-    if p["busy_ms"] == 0:
-        log("[profile] the profiler recorded no device time: not measured")
-    else:
-        log(f"[profile] trimmed-mean byzantine step, rank 0 of 4 sharing "
-            f"the card: {p['wall_ms']:.3f} ms/step on the host clock, rank "
-            f"0's device busy {p['busy_ms']:.3f} ms/step, idle share "
-            f"{1 - p['busy_ms'] / p['wall_ms']:.3f}, "
-            f"{p['kernels_per_step']:.0f} kernels/step")
-        for key, ms, n in p["top"]:
-            log(f"[profile]   {ms:8.3f} ms/step {n:6.0f}/step  {key}")
-        log(f"[profile]   trimmed_mean1_kernel: "
-            f"{p['trimmed_mean_us_per_launch']:.2f} us a launch, "
-            f"{p['trimmed_mean_launches_per_step']:.0f} a step")
-        for key, ms in p["all_gather"]:
-            log(f"[profile]   host time in {key}: {ms:.3f} ms/step")
     return runs
 
 
@@ -2065,80 +2003,6 @@ def profile_report(prof, steps, wall_ms, label, names=(), top=10):
     return out
 
 
-def lm_profile(batch=LM_BATCH, seq=LM_SEQ, steps=3, split_attention=False,
-               cfg=None, lr=LM_LR):
-    """``torch.profiler`` over a few full-width SmolLM-135M steps (or of
-    the model ``cfg`` at ``lr``, with the stub inputs a VLM or an
-    encoder-decoder takes; fused AdamW, after warm-up): device time by
-    kernel against the host clock.
-    With ``split_attention``, attention's device time a step split into the
-    forward kernel (its launches in the forward and in the remat
-    recompute), the backward's plain recompute of the forward (the chunked
-    ``_Flash`` forward inside ``_SwaAttentionBackward``) and the plain
-    backward itself (``_FlashBackward``)."""
-    import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch import optim
-    from repro_torch.configs.base import get_config
-    from repro_torch.core import build_train_step, get_strategy
-    from repro_torch.data import lm_batches, token_stream
-    from repro_torch.launch.train import stub_inputs
-    from repro_torch.models import build_model
-    cfg = cfg or get_config(LM_ARCH)
-    it = lm_batches(token_stream(batch * seq * 8, cfg.vocab_size), batch,
-                    seq)
-    data = {k: torch.from_numpy(v).cuda() for k, v in {
-        **next(it), **stub_inputs(cfg, batch, np.random.RandomState(0))}
-        .items()}
-    ts = build_train_step(build_model(cfg, use_kernel=True, device="cuda"),
-                          optim.adamw(lr, use_fused=True),
-                          get_strategy("allreduce"))
-    state = ts.init_state()
-    for _ in range(2):
-        ts.step_fn(state, data)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            ts.step_fn(state, data)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    del ts, state
-    torch.cuda.empty_cache()
-    out = profile_report(prof, steps, wall_ms, f"{cfg.name} step (batch "
-                         f"{batch} x seq {seq}, fused AdamW)",
-                         ("swa_wgmma_kernel", "fused_adamw_kernel"))
-    out.update(batch=batch, seq=seq)
-    if out["busy_ms"] == 0:
-        return out
-    busy_ms = out["busy_ms"]
-    if split_attention:
-        events = prof.events()
-
-        def under(fn):   # device ms a step under one autograd node's calls
-            key = f"autograd::engine::evaluate_function: {fn}"
-            return sum(e.device_time_total for e in events
-                       if e.name == key) / 1e3 / steps
-        backward_all = under("_SwaAttentionBackward")
-        backward = under("_FlashBackward")
-        kernel = out["swa_wgmma_kernel"]["us_per_step"] / 1e3
-        att = {"kernel_ms": kernel, "recompute_ms": backward_all - backward,
-               "backward_ms": backward, "total_ms": kernel + backward_all}
-        att["share_of_busy"] = att["total_ms"] / busy_ms
-        out["attention"] = att
-        if backward_all == 0:
-            log("[profile]   attention's backward: no device time under "
-                "_SwaAttentionBackward, its split is not measured")
-        else:
-            log(f"[profile]   attention: {att['total_ms']:.3f} ms/step of "
-                f"device time ({att['share_of_busy']:.3f} of busy): forward "
-                f"kernel {kernel:.3f}, plain recompute "
-                f"{att['recompute_ms']:.3f}, plain backward {backward:.3f}")
-    return out
-
-
 def lm_phase():
     """The LM slice; returns its entries of the kernels line."""
     import torch
@@ -2530,8 +2394,6 @@ def gemma_train_phase(init_method):
         log(f"[gemma] 2 steps through the kernels vs the kernel-free path "
             f"(bf16, lr {GEMMA_LR}): losses {lk} vs {lp} (rel diff "
             f"{dloss:.3e}, tol 2^-9 = {LM_STEP_RTOL:.3e})")
-        profile = lm_profile(GEMMA_BATCH, GEMMA_SEQ, split_attention=True,
-                             cfg=gemma_config(), lr=GEMMA_LR)
         # a record, not a gate: the entry point's default lr and SmolLM's
         others = {}
         for lr in (3e-3, 1e-3):
@@ -2539,7 +2401,7 @@ def gemma_train_phase(init_method):
             log(f"[gemma] lr {lr} (kernels), {GEMMA_STEPS} steps: losses "
                 f"{[round(l, 4) for l in others[lr]]}")
         return launches, {"train": res, "kernel_vs_plain_rel": dloss,
-                          "other_lr_losses": others, "profile": profile}
+                          "other_lr_losses": others}
     finally:
         dist.destroy_process_group()
 
@@ -2569,8 +2431,7 @@ def gemma_phase():
             "peak_mem_bytes": res["peak_mem_bytes"],
             "losses": res["losses"],
             "kernel_vs_plain_rel": runs["kernel_vs_plain_rel"],
-            "other_lr_losses": runs["other_lr_losses"],
-            "profile": runs["profile"]}
+            "other_lr_losses": runs["other_lr_losses"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2930,9 +2791,7 @@ def rwkv_train_phase(init_method):
             f"{[round(l, 4) for l in r['losses']]}, {r['ms_per_step']:.3f} "
             f"ms/step; launches {got}; significant_fraction "
             f"{r['metrics']['significant_fraction']:.4f}")
-        torch.cuda.empty_cache()
-        profile = rwkv_profile()
-        return launches, {"allreduce": res, "mlless": r, "profile": profile,
+        return launches, {"allreduce": res, "mlless": r,
                           "default_lr": default_lr}
     finally:
         dist.destroy_process_group()
@@ -3221,39 +3080,6 @@ def rwkv_cuda_vs_cpu():
     return err
 
 
-def rwkv_profile(steps=3):
-    """``torch.profiler`` over a few steps of the 4-layer model (batch 4 x
-    seq 512, fused AdamW, after warm-up): device time by kernel against
-    the host clock."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch import optim
-    from repro_torch.core import build_train_step, get_strategy
-    from repro_torch.models import build_model
-    batch = next(_rwkv_batches(1, seed=2)())
-    ts = build_train_step(build_model(rwkv_config(), use_kernel=True,
-                                      device="cuda"),
-                          optim.adamw(RWKV_LR, use_fused=True),
-                          get_strategy("allreduce"))
-    state = ts.init_state()
-    for _ in range(2):
-        ts.step_fn(state, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            ts.step_fn(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    del ts, state
-    torch.cuda.empty_cache()
-    return profile_report(
-        prof, steps, wall_ms, f"{RWKV_ARCH} {RWKV_LAYERS}-layer step (batch "
-        f"{RWKV_BATCH} x seq {RWKV_SEQ}, fused AdamW)",
-        ("wkv6_tc_kernel", "wkv6_kernel", "fused_adamw_kernel"), 12)
-
-
 def rwkv_phase():
     """The RWKV slice; returns its entry of the kernels line."""
     import torch
@@ -3287,8 +3113,6 @@ def rwkv_phase():
          "grad_max_abs_err": err["grad"], "cuda_vs_cpu_logits": cpu_err,
          **times["long"], "train_shape": times["train"],
          "full_depth_forward": full, "sass_hmma": sass,
-         "profile": runs["profile"].get("wkv6_tc_kernel"),
-         "profile_cuda_core": runs["profile"].get("wkv6_kernel"),
          "default_lr_record": runs["default_lr"]},
     ]
 
@@ -3302,7 +3126,6 @@ SERVE_ARCH = "smollm-135m"
 # 3 heads x 64 x 2 B), 755 MB a sequence, so 128 sequences would need
 # 96.6 GB of the card's 80
 SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_TOKENS = 16, 512, 32768, 32
-SERVE_PROFILE_STEPS = 8
 # prefill_32k's length; its global batch of 32 is cut to 1 for time
 PREFILL_LEN = 32768
 # Gemma-3 cut to one 5:1 group (the gemma phase's cut): its prompt is
@@ -3335,8 +3158,7 @@ def serve_tokens(vocab, batch, n, seed):
                             .astype(np.int32)).cuda()
 
 
-def serve_run(model, prompt, cache_len, n_tokens, label, profile_steps=0,
-              extras=None):
+def serve_run(model, prompt, cache_len, n_tokens, label, extras=None):
     """Prefill ``prompt`` (with ``extras``, a VLM's patch embeddings or an
     encoder-decoder's frames) through ``build_serve_step``, then
     ``n_tokens`` greedy decode steps; the kernel-8 launches of the prefill
@@ -3373,18 +3195,6 @@ def serve_run(model, prompt, cache_len, n_tokens, label, profile_steps=0,
     out = {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
            "tokens_per_s": B / decode_ms * 1e3, "peak_mem_bytes": peak,
            "launches": launches}
-    if profile_steps:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(profile_steps):
-                logits, cache = ss.decode_fn(tok, cache, P + n_tokens + i)
-                tok = torch.argmax(logits[:, 0, :V], dim=-1)[:, None].int()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / profile_steps
-        out["profile"] = profile_report(prof, profile_steps, wall,
-                                        f"{label} decode step")
     del cache
     return out, torch.stack(outs, 1), torch.cat(fed, 1)
 
@@ -3425,8 +3235,8 @@ class RouteWatch:
         from repro_torch.models import moe
         self.moe, self.route, self.calls = moe, moe._route, []
 
-        def watch(p, xf, cfg):
-            out = self.route(p, xf, cfg)
+        def watch(p, xf, cfg, **kw):
+            out = self.route(p, xf, cfg, **kw)
             dest, C = out[1], out[4]
             self.calls.append((dest // C).reshape(
                 -1, cfg.experts_per_token).sort(dim=-1).values)
@@ -3457,8 +3267,7 @@ def route_flips(calls, B, P, n):
 
 
 def serve_model(cfg, prompt, cache_len, n_tokens, label, expect_launches,
-                seed=0, profile_steps=0, witness=None, extras=None,
-                model=None):
+                seed=0, witness=None, extras=None, model=None):
     """One model (``model``, or one drawn from ``seed``) served through
     the kernel and through the kernel-free path (or ``witness``, a context
     manager around the witness's run) on the same weights and prompt (and
@@ -3473,13 +3282,13 @@ def serve_model(cfg, prompt, cache_len, n_tokens, label, expect_launches,
     model.use_kernel = True
     B, P = prompt.shape
 
-    def served(**kw):
+    def served():
         """serve_run and the teacher-forced error; an MoE model's positions
         where rounding flipped an expert choice between the served path
         and the forward are left out, and counted."""
         with RouteWatch() if cfg.is_moe else contextlib.nullcontext() as w:
             res, logits, fed = serve_run(model, prompt, cache_len, n_tokens,
-                                         label, extras=extras, **kw)
+                                         label, extras=extras)
             ref = teacher_forced(model, prompt, fed, extras)
         skip = None
         if w is not None:
@@ -3488,7 +3297,7 @@ def serve_model(cfg, prompt, cache_len, n_tokens, label, expect_launches,
         return (res, logits, fed, logits_err(logits, ref, skip),
                 float(ref.abs().max()))
 
-    res, logits, fed, err, scale = served(profile_steps=profile_steps)
+    res, logits, fed, err, scale = served()
     check(bool(torch.isfinite(logits).all()), f"[serve] {label}: decode "
           "logits not finite")
     got = res["launches"]
@@ -3859,8 +3668,7 @@ def serve_phase():
     prompt = serve_tokens(cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, 0)
     smol = serve_model(cfg, prompt, SERVE_CACHE, SERVE_TOKENS,
                        f"{SERVE_ARCH} batch {SERVE_BATCH}, prompt "
-                       f"{SERVE_PROMPT}, cache {SERVE_CACHE}", attn,
-                       profile_steps=SERVE_PROFILE_STEPS)
+                       f"{SERVE_PROMPT}, cache {SERVE_CACHE}", attn)
     nbytes = flops.step_bytes_hbm(cfg, SERVE_BATCH, SERVE_CACHE, "decode")
     smol.update(step_bytes_hbm=nbytes,
                 bound_ms=nbytes / H100_BYTES_PER_S * 1e3)
@@ -4112,8 +3920,8 @@ def moe_kept_shares(fn):
     from repro_torch.models import moe
     shares, route = [], moe._route
 
-    def watch(p, xf, cfg):
-        out = route(p, xf, cfg)
+    def watch(p, xf, cfg, **kw):
+        out = route(p, xf, cfg, **kw)
         shares.append(float(out[2].float().mean()))
         return out
     moe._route = watch
@@ -4912,7 +4720,8 @@ def tp_dryruns():
         LM_ARCH, shape.name, strategy=s, fsdp=f, profile="baseline",
         save=False, mesh=make_mesh(TP_MESH, ("data", "model")),
         input_shape=shape) for s, f in TP_RUNS}
-    return {"runs": out, "seconds": time.perf_counter() - t0}
+    return {"runs": out, "families": tp_family_dryruns(),
+            "seconds": time.perf_counter() - t0}
 
 
 def tp_gloo_check(dev):
@@ -5062,12 +4871,14 @@ def tp_rank(rank, init, out_dir):
     for strategy, fsdp in TP_RUNS:
         rec["train"][tp_label(strategy, fsdp)] = tp_train(
             dev, strategy, fsdp, batches)
-        torch.cuda.empty_cache()
+        # the run's model and state, held in cycles, go before the next
+        # run's peak is read
+        free_device_memory()
     rec["serve"] = {}
     for dtype in ("float32", "bfloat16"):
         rec["serve"][dtype] = tp_serve(dev, dtype, TP_MESH, *TP_SERVE,
                                        TP_TOKENS)
-        torch.cuda.empty_cache()
+        free_device_memory()
     # the head-local case on ranks 0-2; rank 3 takes part in making the
     # mesh's groups (``dist.new_group`` is collective) and waits
     local = make_mesh(TP_LOCAL_MESH, ("data", "model"))
@@ -5080,9 +4891,516 @@ def tp_rank(rank, init, out_dir):
         for _ in runs:
             for axes in (("data",), ("model",)):
                 mesh_groups(local, axes)
+    free_device_memory()
+    rec["families"] = tp_family_runs(rank, dev)
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
     dist.barrier()
     dist.destroy_process_group()
+
+
+# the other families under tensor parallelism on the same (2, 2) mesh, in
+# the same spawn: full width, depth cut (None: full depth), bf16 training
+# at a global batch x seq (each data rank its half of the rows), then fp32
+# serving at the same depth.  Pixtral is cut to one layer because four
+# ranks' states share the card (two layers' TP step, beside the script's
+# own process, ran out of its 80 GB); 2 steps a run because each step is
+# the gloo all-reduce of 2-4 GB of fp32 gradient (4-6 s) and the script
+# runs under a time limit
+TP_FAMILIES = {
+    "mixtral-8x7b": dict(layers=1, batch=4, seq=512, fsdp=True),
+    "rwkv6-7b": dict(layers=2, batch=4, seq=512),
+    "recurrentgemma-2b": dict(layers=3, batch=4, seq=512),
+    "pixtral-12b": dict(layers=1, batch=2, seq=1280),
+    "whisper-small": dict(layers=None, batch=4, seq=448),
+}
+TP_FAM_STEPS = 2
+TP_FAM_LR = 3e-4
+# fp32 greedy decoding: batch, prompt (Pixtral's holds its 1,024 patches),
+# tokens; the ring holds the prompt and the tokens
+TP_FAM_SERVE = dict(batch=4, prompt=64, tokens=8)
+TP_FAM_PIXTRAL_PROMPT = 1088
+
+
+def tp_family_config(arch, dtype="bfloat16"):
+    import dataclasses
+    return dataclasses.replace(fam_config(arch, TP_FAMILIES[arch]["layers"]),
+                               dtype=dtype)
+
+
+def tp_family_dryruns():
+    """The ``baseline`` dry-run of each family's train runs (allreduce,
+    and allreduce under FSDP where the phase runs it) at the phase's
+    depth, width and shape on its (2, 2) mesh."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    for arch, spec in TP_FAMILIES.items():
+        shape = InputShape("tp_families", spec["seq"], spec["batch"],
+                           "train")
+        for fsdp in (False, True) if spec.get("fsdp") else (False,):
+            out[tp_label("allreduce", fsdp) + "/" + arch] = dryrun.dryrun_one(
+                arch, shape.name, fsdp=fsdp, profile="baseline", save=False,
+                mesh=make_mesh(TP_MESH, ("data", "model")),
+                config=tp_family_config(arch), input_shape=shape)
+    return out
+
+
+class _FirstCall:
+    """Wraps ``fn`` and keeps a copy of the inputs of its first call."""
+
+    def __init__(self, fn):
+        self.fn, self.args, self.kwargs = fn, None, None
+
+    def __call__(self, *args, **kwargs):
+        if self.args is None:
+            self.args = tuple(a.detach().clone() for a in args)
+            self.kwargs = dict(kwargs)
+        return self.fn(*args, **kwargs)
+
+
+def tp_family_batches(arch, dev, rows):
+    """TP_FAM_STEPS global batches of ``arch`` (token stream and stub
+    inputs from fixed seeds), this data coordinate's ``rows``."""
+    import numpy as np
+    import torch
+    from repro_torch.data import lm_batches, token_stream
+    from repro_torch.launch.train import stub_inputs
+    spec, cfg = TP_FAMILIES[arch], tp_family_config(arch)
+    B, S = spec["batch"], spec["seq"]
+    it = lm_batches(token_stream(B * S * 8, cfg.vocab_size, seed=25), B, S,
+                    seed=25)
+    rs = np.random.RandomState(25)
+    out = []
+    for _ in range(TP_FAM_STEPS):
+        b = {**next(it), **stub_inputs(cfg, B, rs)}
+        out.append({k: torch.from_numpy(v[rows]).to(dev)
+                    for k, v in b.items()})
+    return out
+
+
+def tp_family_expected(cfg, leaves, steps):
+    """Launches a rank makes in ``steps`` allreduce steps: fused AdamW once
+    a leaf (its slice), kernel 8 twice a causal attention layer (forward
+    and remat; Whisper's encoder and cross-attention are not causal),
+    kernel 9 twice an RWKV layer (on the tensor-core route)."""
+    pat = cfg.layer_pattern
+    wkv = 2 * steps * sum(pat[i % len(pat)] == "rwkv"
+                          for i in range(cfg.n_layers))
+    att = 2 * steps * attention_layers(cfg)
+    return {"fused_adamw_flat": leaves * steps, "swa_attention_fwd": att,
+            "swa_attention_fwd_wgmma": att, "wkv6_chunked": wkv,
+            "wkv6_chunked_tc": wkv, **mlless_launches(0)}
+
+
+def tp_family_replicated(dev, arch, shards):
+    """The replicated run on one rank, no collective: TP_FAM_STEPS AdamW
+    steps of ``arch`` from seed 0's weights, each on the mean of the
+    gradients of the data ranks' rows (``shards``: per step, each data
+    coordinate's batch, taken one after the other), the loss their mean,
+    as the allreduce strategy over the data ranks computes them.  Losses,
+    ms a step, peak memory."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.core.train_step import default_loss
+    from repro_torch.models import build_model
+    from repro_torch.models.params import reference_leaves
+    from repro_torch.optim.optimizers import apply_updates
+    model = build_model(tp_family_config(arch), use_kernel=True, device=dev)
+    params = reference_leaves(model)
+    opt = optim.adamw(TP_FAM_LR, use_fused=True)
+    state = opt.init(params)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms = [], []
+    for step in shards:
+        t0 = time.perf_counter()
+        gsum, lsum = None, 0.0
+        for b in step:
+            loss = default_loss(model, b)
+            g = torch.autograd.grad(loss, params)
+            gsum = [x.float() for x in g] if gsum is None else \
+                [a.add_(x.float()) for a, x in zip(gsum, g)]
+            lsum += float(loss.detach())
+        grads = [(a / len(step)).to(p.dtype) for a, p in zip(gsum, params)]
+        updates, state = opt.update(grads, state, params)
+        apply_updates(params, updates)
+        losses.append(lsum / len(step))
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"losses": losses, "step_ms": ms,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    del model, params, state, gsum, grads
+    free_device_memory()
+    return out
+
+
+def tp_family_train(dev, arch, mesh, fsdp, batches):
+    """TP_FAM_STEPS allreduce steps of ``arch`` from seed 0's weights over
+    the (2, 2) mesh: losses, the first step's collectives, launches, ms a
+    step, peak memory, parameters a rank, and the first call's inputs of
+    kernels 8 and 9."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.core import build_train_step, get_strategy
+    from repro_torch.costmodel.collectives import record_collectives, stats
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build_model
+    cfg = tp_family_config(arch)
+    model = build_model(cfg, use_kernel=True, device=dev)
+    ts = build_train_step(model, optim.adamw(TP_FAM_LR, use_fused=True),
+                          get_strategy("allreduce"), mesh, model_axis="model",
+                          fsdp=fsdp)
+    state = ts.init_state()
+    k8, k9, wkv = _FirstCall(kops.swa_attention), _FirstCall(kops.wkv6), \
+        kops.wkv6
+    model.attention_fn = k8
+    kops.wkv6 = k9
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_lm_launches()
+    losses, ms, coll = [], [], None
+    try:
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            with record_collectives() as recs:
+                state, m = ts.step_fn(state, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                st = stats(recs)
+                coll = {"bytes_by_kind": st.bytes_by_kind,
+                        "counts": st.counts, "calls": len(recs)}
+    finally:
+        kops.wkv6 = wkv
+    out = {"losses": losses, "step_ms": ms, "collectives": coll,
+           "launches": lm_launches(),
+           "expected": tp_family_expected(cfg, len(state["params"]),
+                                          len(batches)),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+           "local_params": sum(p.numel() for p in state["params"])}
+    del model, state, ts
+    free_device_memory()
+    return out, (k8.args, k8.kwargs), k9.args
+
+
+def tp_family_parity(k8, k9):
+    """Kernels 8 and 9 on the inputs of their first call on the TP path
+    (this rank's heads), each against its plain version; ms of the
+    kernel and of the plain version there.  Their launches here come after
+    the main path's counts were read."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as swa
+    from repro_torch.kernels import wkv6
+    out = {}
+    if k8[0] is not None:
+        (q, k, v), kw = k8
+        window = kw.get("window")
+        got = swa.swa_attention_fwd(q, k, v, window=window)
+        want = ref.swa_attention(q, k, v, window=window)
+        diff = (got.float() - want.float()).abs()
+        ok = bool(torch.isfinite(got).all()) and bool(
+            (diff <= SWA_BF16_ATOL + SWA_BF16_RTOL * want.float().abs())
+            .all())
+        out["swa_attention_fwd"] = {
+            "shapes": [list(q.shape), list(k.shape)], "window": window,
+            "dtype": str(q.dtype), "max_abs_err": float(diff.max()),
+            "ok": ok,
+            "ms": time_ms(lambda: swa.swa_attention_fwd(
+                q, k, v, window=window), reps=10),
+            "plain_ms": time_ms(lambda: ref.swa_attention(
+                q, k, v, window=window), reps=3, warmup=1)}
+    if k9 is not None:
+        r, k, v, lw, u = k9
+        got = wkv6.wkv6_chunked(r, k, v, lw, u)
+        want = ref.wkv6_chunked(r, k, v, lw, u)
+        diff = (got - want).abs()
+        # the model's decays sit near 1 (exp(-exp(-6))), so y sums about
+        # T outer products: WKV_F32_ATOL of the largest output where it
+        # passes 1, the unit-scale cases' bar
+        scale = max(1.0, float(want.abs().max()))
+        out["wkv6_chunked"] = {
+            "shapes": list(r.shape), "max_abs_err": float(diff.max()),
+            "max_abs_out": float(want.abs().max()),
+            "ok": bool(torch.isfinite(got).all())
+            and float(diff.max()) <= WKV_F32_ATOL * scale,
+            "ms": time_ms(lambda: wkv6.wkv6_chunked(r, k, v, lw, u),
+                          reps=10),
+            "plain_ms": time_ms(lambda: ref.wkv6_chunked(r, k, v, lw, u),
+                                reps=3, warmup=1)}
+    return out
+
+
+def tp_family_serve(dev, arch, mesh):
+    """fp32 greedy decoding over the mesh and, on this rank alone, of the
+    same prompts (its rows of both): tokens, gloo calls of the prefill and
+    a decode token, ms a token, kernel 8's launches and the heads it saw
+    in the mesh's prefill, the cache a rank."""
+    import numpy as np
+    import torch
+    from repro_torch.core import build_serve_step
+    from repro_torch.costmodel.collectives import record_collectives
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build_model
+    cfg = tp_family_config(arch, "float32")
+    model = build_model(cfg, use_kernel=True, device=dev)
+    heads = []
+
+    def attention(q, k, v, window=None):
+        heads.append((q.shape[2], k.shape[2]))
+        return kops.swa_attention(q, k, v, window=window)
+    model.attention_fn = attention
+    B, n = TP_FAM_SERVE["batch"], TP_FAM_SERVE["tokens"]
+    P = TP_FAM_PIXTRAL_PROMPT if cfg.family == "vlm" \
+        else TP_FAM_SERVE["prompt"]
+    cache_len = P + n
+    rs = np.random.RandomState(B)
+    prompt = torch.as_tensor(rs.randint(0, cfg.vocab_size, (B, P))
+                             .astype(np.int32), device=dev)
+    extras = fam_stubs(cfg, B, seed=26)
+
+    def greedy(ss, rows):
+        batch = {"tokens": rows(prompt), **{k: rows(v)
+                                            for k, v in extras.items()}}
+        with record_collectives() as pre:
+            logits, cache = ss.prefill_fn(batch)
+        tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)[:, None]
+        out, tok = [tok.int()], tok.int()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with record_collectives() as dec:
+            for i in range(n):
+                logits, cache = ss.decode_fn(tok, cache, P + i)
+                tok = torch.argmax(logits[:, -1, :cfg.vocab_size],
+                                   dim=-1)[:, None].int()
+                out.append(tok)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        shapes = [list(t.shape) for t in
+                  _tree_tensors(cache)][:4]
+        del cache
+        return torch.cat(out, dim=1).cpu(), ms, len(pre), len(dec) / n, \
+            shapes
+
+    reset_lm_launches()
+    ss = build_serve_step(model, mesh, model_axis="model", batch_size=B,
+                          cache_len=cache_len)
+    tokens, ms, pre_calls, tok_calls, cache_shapes = greedy(
+        ss, ss.local_rows)
+    launches = lm_launches()
+    prefill_heads = sorted(set(heads))
+    rows = ss.local_rows
+    del model, ss
+    free_device_memory()
+    # one rank alone: the same seed's weights, drawn again whole
+    one = build_serve_step(build_model(cfg, use_kernel=True, device=dev),
+                           batch_size=B, cache_len=cache_len)
+    whole, ms_one, _, _, _ = greedy(one, lambda x: x)
+    whole = rows(whole)
+    del one
+    free_device_memory()
+    return {"equal": bool(torch.equal(tokens, whole)),
+            "tokens": tokens.tolist(), "one_rank_tokens": whole.tolist(),
+            "ms_per_token": ms, "one_rank_ms_per_token": ms_one,
+            "prefill_calls": pre_calls, "calls_per_token": tok_calls,
+            "launches": launches, "prefill_heads": prefill_heads,
+            "cache_shapes": cache_shapes, "prompt": P}
+
+
+def _tree_tensors(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tree_tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tree_tensors(v)]
+    return [tree]
+
+
+def host_memory():
+    """(this process's resident GiB, the machine's available GiB)."""
+    def field(path, key):
+        for line in Path(path).read_text().splitlines():
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) / 2**20
+        return None
+    return field("/proc/self/status", "VmRSS"), \
+        field("/proc/meminfo", "MemAvailable")
+
+
+def free_host_cache():
+    """Returns the pinned host blocks that gloo's copies of CUDA tensors
+    left in PyTorch's host cache."""
+    import torch
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+
+
+def free_device_memory():
+    """Collects the cyclic garbage a model and its step leave (a step's
+    closures hold the model) before returning the cached blocks, so the
+    next rank's model finds the card free."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_family_runs(rank, dev):
+    """Every family of TP_FAMILIES on this rank: the mesh's train runs;
+    on rank 0 the replicated run and the kernels' parity; then fp32
+    serving."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(TP_MESH, ("data", "model"))
+    D = TP_MESH[0]
+    out = {}
+    for arch, spec in TP_FAMILIES.items():
+        t0 = time.perf_counter()
+        half = spec["batch"] // D
+        shards = [tp_family_batches(arch, dev, slice(i * half,
+                                                     (i + 1) * half))
+                  for i in range(D)]
+        batches = shards[mesh.coords(rank)["data"]]
+        rec = {"train": {}}
+        parity_inputs = None
+        for fsdp in (False, True) if spec.get("fsdp") else (False,):
+            run, k8, k9 = tp_family_train(dev, arch, mesh, fsdp, batches)
+            run["host_memory"] = host_memory()
+            rec["train"][tp_label("allreduce", fsdp)] = run
+            free_host_cache()
+            if not fsdp:
+                parity_inputs = (k8, k9)
+            if rank == 0:
+                log(f"[tp] {arch} {tp_label('allreduce', fsdp)}: losses "
+                    f"{run['losses']}, ms {run['step_ms']}, host GiB (rank "
+                    f"0, available) {run['host_memory']}")
+        if rank == 0:
+            rec["replicated"] = tp_family_replicated(
+                dev, arch, list(zip(*shards)))
+            rec["parity"] = tp_family_parity(*parity_inputs)
+        del parity_inputs, shards, batches
+        dist.barrier()
+        free_device_memory()
+        free_host_cache()
+        rec["serve"] = tp_family_serve(dev, arch, mesh)
+        free_host_cache()
+        rec["seconds"] = time.perf_counter() - t0
+        rec["host_memory"] = host_memory()
+        out[arch] = rec
+        dist.barrier()
+        if rank == 0:
+            log(f"[tp] {arch}: {rec['seconds']:.1f} s, host GiB (rank 0, "
+                f"available) {rec['host_memory']}")
+    return out
+
+
+def tp_family_gates(ranks, dry):
+    """Logs, then gates, each family's record from every rank: launches,
+    losses (the same on every rank, within 2^-9 of the replicated run's),
+    collectives equal to the dry-run's, peak a rank below the replicated
+    run's, kernels 8 and 9 against their plain versions on the TP path,
+    fp32 tokens equal to one rank's.  Returns rank 0's record with the
+    others' launches and peaks."""
+    fams = [r["families"] for r in ranks]
+    out = {}
+    for arch in TP_FAMILIES:
+        spec, cfg = TP_FAMILIES[arch], tp_family_config(arch)
+        recs = [f[arch] for f in fams]
+        r0 = recs[0]
+        rep = r0["replicated"]
+        rep_peak, rep_losses = rep["peak_mem_bytes"], rep["losses"]
+        log(f"[tp] {arch} ({spec['layers'] or 'all'} layers, full width, "
+            f"bf16, global batch {spec['batch']} x seq {spec['seq']}, "
+            f"{TP_FAM_STEPS} steps, lr {TP_FAM_LR}) on {TP_MESH}: "
+            f"{r0['seconds']:.1f} s; the replicated run (one rank, both "
+            f"data ranks' rows): losses {rep_losses}, ms/step "
+            f"{rep['step_ms']}, peak MiB {rep_peak / 2**20:.1f}")
+        gaps = {}
+        for label, run in r0["train"].items():
+            want = dry[label + "/" + arch]
+            log(f"[tp] {arch} {label}: losses {run['losses']}, ms/step "
+                f"{run['step_ms']}, peak MiB a rank "
+                f"{[r['train'][label]['peak_mem_bytes'] / 2**20 for r in recs]}"
+                f" (the dry-run's estimate "
+                f"{want['memory']['peak_estimate_gb'] * 1024:.1f}, argument "
+                f"{want['memory']['argument_bytes'] / 2**20:.1f}), "
+                f"parameters a rank {run['local_params']:,}, first step's "
+                f"collectives {run['collectives']}, launches "
+                f"{run['launches']}")
+            gaps[label] = [abs(a - b) / abs(b)
+                           for a, b in zip(run["losses"], rep_losses)]
+        srv = r0["serve"]
+        log(f"[tp] {arch} serve fp32 batch {TP_FAM_SERVE['batch']} x prompt "
+            f"{srv['prompt']}, {TP_FAM_SERVE['tokens']} tokens: "
+            f"{srv['ms_per_token']:.3f} ms a token over {TP_RANKS} ranks "
+            f"({srv['one_rank_ms_per_token']:.3f} on one), gloo calls "
+            f"{srv['prefill_calls']} a prefill and "
+            f"{srv['calls_per_token']:.1f} a token; kernel 8 heads (q, kv) "
+            f"{srv['prefill_heads']}; cache a rank {srv['cache_shapes']}; "
+            f"launches {srv['launches']}; tokens equal "
+            f"{[r['serve']['equal'] for r in recs]}")
+        for name, par in r0["parity"].items():
+            log(f"[tp] {arch} {name} on the TP path's first call "
+                f"{par['shapes']}: max abs err {par['max_abs_err']:.3e} "
+                f"against the plain version, {par['ms']:.4f} ms (plain "
+                f"{par['plain_ms']:.4f} ms)")
+        for r, rec in enumerate(recs):
+            for label, run in rec["train"].items():
+                check(run["launches"] == run["expected"],
+                      f"[tp] {arch} rank {r} {label}: launches "
+                      f"{run['launches']}, expected {run['expected']}")
+                check(run["losses"] == r0["train"][label]["losses"]
+                      and all(map(math.isfinite, run["losses"])),
+                      f"[tp] {arch} rank {r} {label}: losses "
+                      f"{run['losses']}")
+                want = dry[label + "/" + arch]["collectives"]
+                check(run["collectives"]["bytes_by_kind"]
+                      == want["bytes_by_kind"]
+                      and run["collectives"]["counts"] == want["counts"],
+                      f"[tp] {arch} rank {r} {label}: collectives "
+                      f"{run['collectives']} against the dry-run's {want}")
+                check(run["peak_mem_bytes"] < rep_peak,
+                      f"[tp] {arch} rank {r} {label}: peak "
+                      f"{run['peak_mem_bytes']} B, not below the "
+                      f"replicated run's {rep_peak}")
+            check(rec["serve"]["equal"], f"[tp] {arch} rank {r} serve: "
+                  f"{rec['serve']['tokens']} against one rank's "
+                  f"{rec['serve']['one_rank_tokens']}")
+            check(rec["serve"]["launches"]["swa_attention_fwd"]
+                  == attention_layers(cfg),
+                  f"[tp] {arch} rank {r} prefill launches "
+                  f"{rec['serve']['launches']}")
+        for label, g in gaps.items():
+            check(max(g) <= LM_STEP_RTOL,
+                  f"[tp] {arch} {label} losses against the replicated "
+                  f"run's {rep_losses}: rel gaps {g} > {LM_STEP_RTOL}")
+        for name, par in r0["parity"].items():
+            check(par["ok"], f"[tp] {arch} {name} on the TP path: "
+                  f"max abs err {par['max_abs_err']:.3e}")
+        if "rwkv" in cfg.layer_pattern:
+            B = spec["batch"] // TP_MESH[0]
+            check(r0["parity"]["wkv6_chunked"]["shapes"]
+                  == [B, spec["seq"], cfg.d_model // cfg.rwkv_head_dim
+                      // TP_MESH[1], cfg.rwkv_head_dim],
+                  f"[tp] {arch}: kernel 9 at "
+                  f"{r0['parity']['wkv6_chunked']['shapes']}")
+        if attention_layers(cfg):
+            check("swa_attention_fwd" in r0["parity"],
+                  f"[tp] {arch}: kernel 8 never called on the TP path")
+        out[arch] = {**r0, "loss_gaps": gaps,
+                     "launches": {label: [r["train"][label]["launches"]
+                                          for r in recs]
+                                  for label in r0["train"]},
+                     "peak_mem_bytes": {
+                         label: [r["train"][label]["peak_mem_bytes"]
+                                 for r in recs] for label in r0["train"]},
+                     "replicated_peak_mem_bytes": rep_peak}
+    log("[tp] families: losses within 2^-9 of the replicated runs', "
+        "collectives equal the baseline dry-run's, peaks below the "
+        "replicated runs', kernels 8 and 9 match their plain versions on "
+        "the TP path, fp32 tokens equal one rank's")
+    return out
 
 
 def tp_phase(shard):
@@ -5204,6 +5522,7 @@ def tp_phase(shard):
         "baseline dry-run's; peak memory a rank below the replicated run's; "
         "fp32 tokens equal one rank's on both meshes; kernel 8 on 3 heads a "
         "rank on (1, 3)")
+    families = tp_family_gates(ranks, dry["families"])
     record = {"train": r0["train"],
               "launches": {label: [r["train"][label]["launches"]
                                    for r in ranks] for label in r0["train"]},
@@ -5214,7 +5533,7 @@ def tp_phase(shard):
                              "peak_mem_bytes": base_peak},
               "loss_gaps": gaps, "serve": r0["serve"],
               "head_local": local[0], "dryrun": dry,
-              "gloo_cuda": r0["gloo_cuda"]}
+              "gloo_cuda": r0["gloo_cuda"], "families": families}
     record["seconds"] = time.perf_counter() - t0
     log(f"[tp] phase took {record['seconds']:.1f} s")
     return record
@@ -5266,7 +5585,7 @@ def main(argv):
     seg_times = segment_times(dev)
     init = "file://" + os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"),
                                     "pg")
-    launches, profiles = train_phase(init)
+    launches = train_phase(init)
     sizes = flat_sizes()
     robust_err = robust_parity(sizes, dev)
     robust_err["krum_pairwise"] = max(robust_err["krum_pairwise"],
@@ -5311,8 +5630,7 @@ def main(argv):
                                     f"{TABLE3_STEPS} steps",
              "library": None, "resnet18": seg_times[name]["resnet18-cifar"],
              "shapes": "one MLLess MobileNet step: 83 leaves, fp32 "
-                       "gradients, 12582 rows",
-             "step_profile": profiles})
+                       "gradients, 12582 rows"})
     for name, line_no, run in (("trimmed_mean", 192, "trimmed_mean"),
                                ("coordinate_median", 213,
                                 "coordinate_median"),
@@ -5335,11 +5653,10 @@ def main(argv):
     # bf16 p and g, fp32 m and v: p, g, m, v read, m, v, update written
     adamw_bytes = 22 * GEMMA_PARAMS
     adamw["gemma3"] = {
-        "profile": gemma["profile"].get("fused_adamw_kernel"),
         "bytes": adamw_bytes,
         "bound_ms": adamw_bytes / H100_BYTES_PER_S * 1e3,
-        "run": f"{GEMMA_ARCH} ({GEMMA_LAYERS} layers) step under the "
-               f"profiler, {GEMMA_LEAVES} leaves"}
+        "run": f"{GEMMA_ARCH} ({GEMMA_LAYERS} layers) step, {GEMMA_LEAVES} "
+               "leaves"}
     line["kernels"] += rwkv_phase()
     serve = serve_phase()
     print(json.dumps({"serve": serve}))
@@ -5384,7 +5701,7 @@ def main(argv):
             entry["sharding"] = {"launches": {
                 label: [r[entry["name"]] for r in ranks]
                 for label, ranks in shard["launches"].items()}, "run": run}
-    torch.cuda.empty_cache()
+    free_device_memory()
     tp = tp_phase(shard)
     print(json.dumps({"tp": tp}))
     run = (f"tp phase: {LM_ARCH} full width on a {TP_MESH} (data, model) "
@@ -5401,6 +5718,25 @@ def main(argv):
             entry["tp"] = {"launches": {
                 label: [r[entry["name"]] for r in ranks]
                 for label, ranks in tp["launches"].items()}, "run": run}
+    # the other families on the TP path: each kernel's launches a rank in
+    # each train run, and its first call there against its plain version
+    run = (f"tp phase, families: full width, depth cut, on a {TP_MESH} "
+           f"(data, model) mesh, {TP_RANKS} ranks sharing the card, "
+           f"{TP_FAM_STEPS} steps a run, one list entry a rank")
+    wkv = next(k for k in line["kernels"] if k["name"] == "wkv6_chunked")
+    for entry, keys in ((adamw, ("fused_adamw_flat",)),
+                        (attention, ("swa_attention_fwd",
+                                     "swa_attention_fwd_wgmma")),
+                        (wkv, ("wkv6_chunked", "wkv6_chunked_tc"))):
+        entry["tp_families"] = {
+            "launches": {f"{arch}/{label}": [{k: r[k] for k in keys}
+                                             for r in ranks]
+                         for arch, fam in tp["families"].items()
+                         for label, ranks in fam["launches"].items()},
+            "tp_path": {arch: fam["parity"][entry["name"]]
+                        for arch, fam in tp["families"].items()
+                        if entry["name"] in fam["parity"]},
+            "run": run}
     attention["families"] = {
         "prefill_shapes": fam["attention"],
         "train_launches": {a: {k: r["launches"][k] for k in (

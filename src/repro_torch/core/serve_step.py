@@ -11,7 +11,7 @@ nothing, for the dry-run.
 Over a mesh (``mesh``, one process a rank): the parameters are laid out
 by ``param_shardings`` (``core.sharding.param_pspecs`` at ``fsdp=False``:
 replicated over the data axes, sliced over a model axis larger than 1,
-which is tensor parallelism for the dense LMs, ``models.tp``) and the
+which is tensor parallelism, ``models.tp``) and the
 cache by ``core.sharding.cache_pspecs``, as in the reference:
 
 * batch-sharded, where the batch divides over the W ranks of the data
@@ -128,10 +128,10 @@ class SeqShard:
             q, leaf["k"], leaf["v"], pos, group=self.group, window=window,
             **kw, **extra)
 
-    def attend_all(self, q, enc, genc):
+    def attend_all(self, q, enc, genc, **extra):
         d = _sharded_dim(enc["k"], genc["k"])
         if d is None:
-            return WHOLE_CACHE.attend_all(q, enc, genc)
+            return WHOLE_CACHE.attend_all(q, enc, genc, **extra)
         if d != 1:
             raise NotImplementedError(
                 f"encoder k/v {tuple(genc['k'].shape)} sharded on dim {d}, "
@@ -139,7 +139,7 @@ class SeqShard:
         total = genc["k"].shape[1]
         return flash_decode.flash_decode_attention(
             q, enc["k"], enc["v"], total - 1, group=self.group,
-            total_len=total, shard=self.index)
+            total_len=total, shard=self.index, **extra)
 
 
 class TpCache:
@@ -152,9 +152,11 @@ class TpCache:
     the rank's slice of each, the scores summed over the group
     (``partial``), the output gathered over head_dim; int8 entries are
     quantized over the whole head_dim first, and a scale whose slots are
-    sharded over the group is written by its owner and gathered.  (The
-    recurrent and encoder-decoder families, whose states and encoder k/v
-    it would also pass through, run no tensor parallelism yet.)"""
+    sharded over the group is written by its owner and gathered.  An
+    encoder-decoder's ``enc_kv`` goes the same two ways
+    (``attend_all``).  A recurrent state passes through ``inner`` in the
+    model axis's layout, which the layer's own step reads
+    (``rwkv6.rwkv_decode_step``, ``rglru.rglru_decode_step``)."""
 
     def __init__(self, inner, tp, cfg):
         self.inner, self.tp, self.cfg = inner, tp, cfg
@@ -164,6 +166,27 @@ class TpCache:
         s = s.contiguous()
         dist.all_reduce(s, group=self.tp.group)
         return s
+
+    def gather(self, leaf, gleaf):
+        return self.inner.gather(leaf, gleaf)
+
+    def keep(self, val, local):
+        return self.inner.keep(val, local)
+
+    def attend_all(self, q, enc, genc):
+        """q (every head) against this rank's slice of the encoder's k and
+        v: its kv heads, or its head_dim slice with the scores summed over
+        the group."""
+        tp, cfg = self.tp, self.cfg
+        if enc["k"].shape[2] < cfg.n_kv_heads:
+            o = self.inner.attend_all(tp.slice(q, 2), enc, genc)
+            return sharding.gather_dim(o, 2, tp.group)
+        if enc["k"].shape[3] == cfg.head_dim:
+            return self.inner.attend_all(q, enc, genc)
+        o = self.inner.attend_all(tp.slice(q, 3), enc, genc,
+                                  head_dim=cfg.head_dim,
+                                  partial=self._partial)
+        return sharding.gather_dim(o, 3, tp.group)
 
     def attend(self, q, k, v, leaf, gleaf, pos, window, kv_quant):
         tp, cfg = self.tp, self.cfg
@@ -221,14 +244,18 @@ def _map_tree(fn, *trees):
     return fn(*trees)
 
 
+# the leaves of an RWKV6 or RG-LRU layer's decode state
+RECURRENT_STATE = ("S", "x_last", "h", "conv")
+
+
 def _refuse_slot_payloads(cfg, specs, model_axis):
     """``NotImplementedError`` where ``cache_pspecs`` puts the model axis
     on a ring's slots (neither its kv heads nor head_dim divide over the
     model axis): prefill and decode run on kv heads or head_dim only.  An
     int8 scale's slots are fine."""
     def one(path, spec):
-        if path[-1] != "scale" and len(spec) >= 3 and \
-                model_axis in sharding._entry_axes(spec[-3]):
+        if path[-1] not in ("scale",) + RECURRENT_STATE and len(spec) >= 3 \
+                and model_axis in sharding._entry_axes(spec[-3]):
             raise NotImplementedError(
                 f"{cfg.name}: the model axis falls on the slots of the ring "
                 f"{'.'.join(map(str, path))} ({cfg.n_kv_heads} kv heads and "
@@ -273,6 +300,7 @@ def build_serve_step(model, mesh=None, *, group=None, data_axes=("data",),
     M = 1 if mesh is None else sharding.model_size(mesh, model_axis)
     if M == 1 and layout_of(model) is not None:
         shard_model(model, None)
+    model.batch_group = None
     if mesh is not None:
         sharding.require_tp_family(cfg, mesh, model_axis)
         mgroup = None
@@ -319,6 +347,9 @@ def build_serve_step(model, mesh=None, *, group=None, data_axes=("data",),
         index = sharding.data_index(mesh, data_axes, rank)
         if batch_shardable:
             B_loc = batch_size // W
+            # the reference's MoE routes the whole batch (its capacity
+            # and each expert's places), not a rank's rows
+            model.batch_group = group if W > 1 else None
 
             def local_rows(x):
                 return x[index * B_loc:(index + 1) * B_loc]

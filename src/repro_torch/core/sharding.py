@@ -18,9 +18,9 @@ tree; its leaves may be tensors, meta tensors or anything with a
 spec on a :class:`~repro_torch.launch.mesh.Mesh` and gives the local
 shard of a global shape for one rank.
 
-A model axis larger than 1 is tensor parallelism (``models.tp``): the
-port runs it for the dense LMs, and the families left for the next slice
-raise ``NotImplementedError`` (``require_tp_family``).  A
+A model axis larger than 1 is tensor parallelism (``models.tp``) for
+every transformer family; a CNN there raises ``NotImplementedError``
+(``require_tp_family``), as the reference runs none.  A
 :class:`ShardLayout` says which slice of each parameter a rank holds over
 the model axis and, under FSDP, over the data axes.
 """
@@ -257,20 +257,14 @@ def model_size(mesh, model_axis) -> int:
 
 def require_tp_family(cfg, mesh, model_axis):
     """Raise ``NotImplementedError`` where ``model_axis`` spans more than
-    one rank and ``cfg`` is not a dense attention LM (the families whose
-    tensor parallelism is the next slice, and the CNNs)."""
+    one rank and ``cfg`` is a CNN: the reference runs the CNNs on a model
+    axis of 1 only.  Every transformer family runs tensor parallelism
+    (``models.tp``)."""
     M = model_size(mesh, model_axis)
-    if M == 1:
-        return
-    kinds = set(getattr(cfg, "layer_pattern", ()))
-    dense = getattr(cfg, "family", "cnn") == "dense" and \
-        not cfg.is_moe and kinds <= {"global", "local"}
-    if not dense:
+    if M > 1 and getattr(cfg, "family", "cnn") == "cnn":
         raise NotImplementedError(
-            f"tensor parallelism for {cfg.name} (family "
-            f"{getattr(cfg, 'family', 'cnn')!r}) over a model axis of {M}: "
-            "the TP slice for MoE / RG-LRU / RWKV / encoder-decoder / VLM "
-            "(ROADMAP §1); the dense LMs run it")
+            f"tensor parallelism for {cfg.name} (a CNN) over a model axis "
+            f"of {M}: the reference runs the CNNs on a model axis of 1")
 
 
 # ---------------------------------------------------------------------------

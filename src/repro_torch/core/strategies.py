@@ -50,7 +50,15 @@ def _leaf_bytes(tree) -> int:
 
 
 def _flat32(grads):
-    return torch.cat([g.reshape(-1).float() for g in grads])
+    """The leaves laid end to end in one fp32 buffer (each copied in
+    once: no fp32 copy of a leaf beside it)."""
+    flat = torch.empty(sum(g.numel() for g in grads), dtype=torch.float32,
+                       device=grads[0].device)
+    i = 0
+    for g in grads:
+        flat[i:i + g.numel()].copy_(g.reshape(-1))
+        i += g.numel()
+    return flat
 
 
 def _unflat(flat, like):
@@ -65,7 +73,7 @@ def _unflat(flat, like):
 def _pmean32(grads, group):
     flat = _flat32(grads)
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    return _unflat(flat / dist.get_world_size(group), grads)
+    return _unflat(flat.div_(dist.get_world_size(group)), grads)
 
 
 @dataclasses.dataclass(frozen=True)

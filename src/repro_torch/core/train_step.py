@@ -20,7 +20,7 @@ the strategy and are divided by W, and the strategy syncs, and keeps its
 state for, the other leaves only (the reference's ``fsdp_mask``).  Under
 SPIRT every microbatch gathers and reduce-scatters.
 
-Tensor parallelism (a ``model_axis`` of M > 1 ranks; the dense LMs,
+Tensor parallelism (a ``model_axis`` of M > 1 ranks; every LM family,
 ``models.tp``): each rank holds its slice of every leaf that
 ``param_pspecs`` puts on the model axis, and so do its AdamW moments (the
 reference's ``opt_specs_like``); the step makes its data group (the ranks
@@ -165,7 +165,7 @@ def build_train_step(model, optimizer: Optimizer, strategy: Strategy,
     ``mesh`` (``launch.mesh.Mesh``) names the data axes: their product
     must be the group's size, and the rank's place on the mesh its rank in
     the group.  A ``model_axis`` of size above 1 is tensor parallelism
-    (dense LMs; the module docstring): then ``group`` is None and the
+    (every LM family; the module docstring): then ``group`` is None and the
     step makes its data and model groups from the mesh (every rank builds
     at once).  Of size 1 it only steers the specs, as in the reference.
     ``fsdp=True`` shards the model's block/tail leaves (see the module
@@ -214,15 +214,22 @@ def build_train_step(model, optimizer: Optimizer, strategy: Strategy,
         return loss.detach(), torch.autograd.grad(loss, params)
 
     def sync(grads, strat):
+        """The strategy's sync of the list ``grads``, which a sync of whole
+        leaves empties once it has gathered them: the slices go before
+        the strategy makes its buffers, the whole leaves before the
+        synced ones are sliced."""
         if not whole:
             return strategy.sync(grads, strat, group)
-        synced, strat, info = strategy.sync(
-            _whole_leaves(grads, sub, tp), strat, group)
+        leaves = _whole_leaves(grads, sub, tp)
+        grads.clear()
+        synced, strat, info = strategy.sync(leaves, strat, group)
+        del leaves
         return _slices(synced, sub, tp), strat, info
 
     def step_fn(state, batch):
         model.param_hook = hook
         model.tp = tp
+        model.batch_group = None
         params = state["params"]
         B_local = next(iter(batch.values())).shape[0]
         Ke = math.gcd(K, B_local) if K > 1 else 1
@@ -243,12 +250,13 @@ def build_train_step(model, optimizer: Optimizer, strategy: Strategy,
         if mask is None:
             synced, state["strat"], info = sync(list(grads), state["strat"])
         else:
-            part, state["strat"], info = sync(
-                [g for g, m in zip(grads, mask) if not m], state["strat"])
-            part = iter(part)
             # reduce-scattered leaves: the sum over ranks -> the mean
-            synced = [g / layout.W if m else next(part)
-                      for g, m in zip(grads, mask)]
+            fsdp = [g / layout.W if m else None for g, m in zip(grads, mask)]
+            part = [g for g, m in zip(grads, mask) if not m]
+            del grads
+            part, state["strat"], info = sync(part, state["strat"])
+            part = iter(part)
+            synced = [g if g is not None else next(part) for g in fsdp]
         updates, state["opt"] = optimizer.update(synced, state["opt"],
                                                  params)
         apply_updates(params, updates)

@@ -25,13 +25,11 @@ so nothing is allocated and nothing is computed, only shapes:
 Kernel 8 runs as a shape-only stand-in on ``meta`` tensors (its output;
 its tiles live on chip), the rest of the step as the plain PyTorch path.
 Profiles, as the reference's: ``baseline`` (the default: tensor
-parallelism over the 16-way model axis, ``models.tp``, the strategies
-over the data axes, FSDP where ``FSDP_REQUIRED`` says), ``dp`` (every
-mesh axis data-parallel, no tensor parallelism) and ``zero3`` (the same,
-with FSDP).  Under ``baseline`` the families whose tensor parallelism is
-the next slice (MoE, RG-LRU, RWKV, encoder-decoder, VLM) raise
-``NotImplementedError``; ``--all`` writes a skipped entry with the
-reason for each.  ``cost_analysis_raw`` has no analogue (None);
+parallelism over the 16-way model axis, ``models.tp``, for every
+family, the strategies over the data axes, FSDP where ``FSDP_REQUIRED``
+says), ``dp`` (every mesh axis data-parallel, no tensor parallelism)
+and ``zero3`` (the same, with FSDP).  ``cost_analysis_raw`` has no
+analogue (None);
 ``trace_s`` takes the place of ``lower_s`` and ``compile_s``.
 
 Usage:
@@ -236,8 +234,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     """One dry-run; the result has the reference's keys.  ``profile``:
     ``baseline`` (tensor parallelism over the mesh's ``model`` axis, the
     strategies over its data axes; ``fsdp`` None follows ``FSDP_REQUIRED``,
-    as in the reference; a family whose tensor parallelism is the next
-    slice raises ``NotImplementedError``), ``dp`` (pure data parallelism
+    as in the reference), ``dp`` (pure data parallelism
     over every mesh axis) or ``zero3`` (the same, parameters and optimizer
     state sharded too; ``fsdp`` follows the profile, as in the
     reference).  For small cases (tests), ``mesh`` replaces the production
@@ -389,14 +386,6 @@ def main(argv=None):
                           f"dominant={rf['dominant']} "
                           f"t*={rf['step_time_lower_bound_s']:.4f}s",
                           flush=True)
-                except NotImplementedError as e:
-                    # a family whose tensor parallelism is the next slice
-                    r = {"arch": arch, "shape": shape, "multi_pod": mp,
-                         "profile": args.profile, "skipped": str(e)}
-                    results.append(r)
-                    _save(r, arch, shape, "2x16x16" if mp else "16x16",
-                          args.tag)
-                    print(f"[skip] {label}: {e}", flush=True)
                 except Exception as e:
                     failures.append((label, repr(e)))
                     results.append({"arch": arch, "shape": shape,

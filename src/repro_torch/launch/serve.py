@@ -19,9 +19,10 @@ the depth and nothing else.
 ``--mesh DxM`` serves over D x M ranks (``--world-size``, one process
 each, as ``launch.train`` runs them): the cache is batch-sharded where the
 batch divides over the D data ranks and sequence-sharded otherwise
-(``core.serve_step``); a model axis M above 1 is tensor parallelism (the
-dense LMs): each rank of a model group holds its slice of the
-parameters and of the cache's kv heads or head_dim.
+(``core.serve_step``); a model axis M above 1 is tensor parallelism
+(every family): each rank of a model group holds its slice of the
+parameters and of the cache's kv heads or head_dim, an RWKV6 state's N
+dim, an RG-LRU state's channels.
 
   # reduced SmolLM, batch 1, the cache sequence-sharded over 4 CPU ranks
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
@@ -30,6 +31,10 @@ parameters and of the cache's kv heads or head_dim.
   # full-width SmolLM, 2-way data x 2-way tensor parallel
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --world-size 4 --mesh 2x2 --batch 16 --prompt-len 512
+
+  # reduced RWKV6, its state sharded on an N dim over the model axis
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --reduced --device cpu --world-size 4 --mesh 2x2 --batch 4
 """
 from __future__ import annotations
 

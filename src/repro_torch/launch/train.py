@@ -39,9 +39,9 @@ Examples:
 ``--mesh DxM`` lays the ranks out as the reference's ("data", "model")
 mesh (``PxDxM``: ("pod", "data", "model")): the axes' product must be the
 world size.  A model axis larger than 1 is tensor parallelism
-(``models.tp``; the dense LMs, the other families raise
-``NotImplementedError``): each rank holds its slice of the model-sharded
-leaves and trains on its data coordinate's shard of the batch.
+(``models.tp``; every LM family, the CNNs raise ``NotImplementedError``):
+each rank holds its slice of the model-sharded leaves and trains on its
+data coordinate's shard of the batch.
 ``--fsdp`` shards the block leaves and their AdamW moments over the data
 axes (``core.train_step``):
 
@@ -54,6 +54,11 @@ axes (``core.train_step``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
       --world-size 4 --mesh 2x2 --fused-optimizer --steps 3 --batch 8 \
       --seq 512 --lr 1e-3
+
+  # reduced Mixtral 8x7B, its experts on each rank's d_ff slice
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
+      --reduced --device cpu --world-size 4 --mesh 2x2 --steps 2 \
+      --batch 8 --seq 32
 
 A VLM's batches carry stub patch embeddings (``patch_emb``, so ``--seq``
 is at least ``n_patches``) and an encoder-decoder's stub frames

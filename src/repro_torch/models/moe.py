@@ -71,10 +71,13 @@ def capacity(cfg, T: int) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def _route(p, xf, cfg):
+def _route(p, xf, cfg, tokens=None, group=None):
     """Router, top-k, aux loss and capacity dispatch of xf (T, d):
     (flat gates (T*k,) fp32, destination rows (T*k,), keep mask (T*k,),
-    the (E*C, d) dispatch buffer, C, aux)."""
+    the (E*C, d) dispatch buffer filled from ``tokens`` (xf by default),
+    C, aux).  ``group``: xf is this rank's block of rows of a batch
+    sharded in rank order over the group's ranks, routed as the whole
+    batch is (``moe_apply``)."""
     T, d = xf.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     probs = torch.softmax(xf.float() @ p["router"], dim=-1)       # (T, E)
@@ -87,15 +90,26 @@ def _route(p, xf, cfg):
     ce = F.one_hot(expert_idx, E).float().sum(dim=1).mean(dim=0)
     aux = cfg.router_aux_coef * E * torch.sum(me * ce)
 
-    C = capacity(cfg, T)
     flat_idx = expert_idx.reshape(T * k)
     eh = F.one_hot(flat_idx, E)                                  # (T*k, E)
     pos = ((torch.cumsum(eh, dim=0) - eh) * eh).sum(dim=-1)
+    if group is None:
+        C = capacity(cfg, T)
+    else:
+        # the whole batch's capacity; each expert's places taken by the
+        # rows of the ranks before this one come first
+        W, r = dist.get_world_size(group), dist.get_rank(group)
+        C = capacity(cfg, T * W)
+        counts = eh.sum(dim=0)
+        every = counts.new_empty(W * E)
+        dist.all_gather_into_tensor(every, counts, group=group)
+        pos = pos + every.view(W, E)[:r].sum(dim=0)[flat_idx]
     keep = pos < C
     dest = flat_idx * C + torch.where(keep, pos, torch.full_like(pos, C))
     rows = torch.where(keep, dest, torch.full_like(dest, E * C))
     token_ids = torch.arange(T, device=xf.device).repeat_interleave(k)
-    buf = xf.new_zeros((E * C + 1, d)).index_copy(0, rows, xf[token_ids])
+    tokens = xf if tokens is None else tokens
+    buf = xf.new_zeros((E * C + 1, d)).index_copy(0, rows, tokens[token_ids])
     return gate_vals.reshape(T * k), dest, keep, buf[:E * C], C, aux
 
 
@@ -111,14 +125,45 @@ def _combine(out_flat, flat_gate, dest, keep, T, k, dtype):
     return weighted.reshape(T, k, -1).sum(dim=1).to(dtype)
 
 
-def moe_apply(p, x, cfg):
-    """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux 0-dim fp32)."""
+def moe_apply(p, x, cfg, tp=None, batch_group=None):
+    """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux 0-dim fp32).
+
+    ``batch_group``: x is this rank's rows of a batch sharded over the
+    group (batch-sharded serving, whose reference routes the whole batch
+    in one call): the capacity is the whole batch's and each expert's
+    places go to the rows in batch order, one all-gather of the (E,)
+    counts, so each token is kept or dropped as in the whole batch.
+
+    Under tensor parallelism (``tp``, ``models.tp``; x replicated over the
+    model group) the router is used whole, so every rank routes, drops
+    and weighs exactly as the replicated layer does, and the aux loss,
+    from those replicated probabilities, is not summed.  The experts run
+    on this rank's d_ff slice (column-parallel gate and up, row-parallel
+    down), so the combine, which is linear, gives this rank's partial
+    (T, d) output: one all-reduce.  Backward, the gates' and the
+    dispatched tokens' gradients are partial too (``tp.copy``).  Expert
+    leaves laid out otherwise are used whole."""
     B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.experts_per_token
+    E, k, f = cfg.n_experts, cfg.experts_per_token, cfg.d_ff
     T = B * S
-    flat_gate, dest, keep, buf, C, aux = _route(p, x.reshape(T, d), cfg)
+    xf = x.reshape(T, d)
+    sliced = False
+    if tp is not None:
+        shapes = {"router": (d, E), "w_gate": (E, d, f), "w_up": (E, d, f),
+                  "w_down": (E, f, d)}
+        sliced = {n: tp.dim_of(p[n], shapes[n]) for n in shapes
+                  if n != "router"} == {"w_gate": 2, "w_up": 2, "w_down": 1}
+        p = {n: t if sliced and n != "router" else tp.whole(t, shapes[n])
+             for n, t in p.items()}
+    flat_gate, dest, keep, buf, C, aux = _route(
+        p, xf, cfg, tokens=tp.copy(xf) if sliced else None,
+        group=batch_group)
     out = _expert_ffn_chunked(p, buf.reshape(E, C, d))
+    if sliced:
+        flat_gate = tp.copy(flat_gate)
     y = _combine(out.reshape(E * C, d), flat_gate, dest, keep, T, k, x.dtype)
+    if sliced:
+        y = tp.reduce(y)
     return y.reshape(B, S, d), aux
 
 

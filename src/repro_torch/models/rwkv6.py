@@ -15,6 +15,11 @@ as the reference's ``_wkv_bwd`` does (the reference has no backward
 kernel).  Decode is the exact single-step recurrence on a (B, H, N, N)
 state.
 
+Under tensor parallelism (``tp``, ``models.tp``) the sequence form runs
+the WKV (kernel 9 where the reference takes its kernel) on this rank's
+H/M heads, and decode advances this rank's slice of the state along the
+N dim the cache is sharded on (``_rwkv_apply_tp``, ``_rwkv_decode_tp``).
+
 The reference's mixed-dtype products are kept: the token-shift mixing runs
 in x's dtype (``mix`` is cast to it), logw is fp32, and the fp32 WKV output
 times the gate meets ``w_o`` in an fp32 product (JAX promotes a bf16
@@ -163,11 +168,15 @@ class _WkvKernel(torch.autograd.Function):
 
 
 def rwkv_apply(p, x, cfg, state=None, chunk=128, use_kernel=False,
-               with_state=True):
+               with_state=True, tp=None):
     """Full-sequence (train / prefill) form.  x: (B, T, d); ``state`` a
     dict from an earlier call or None (zeros).  Returns (y in x's dtype,
     new state), the state None when not ``with_state``: the kernel path
-    builds the final state only for a caller that uses it."""
+    builds the final state only for a caller that uses it.  ``tp``: tensor
+    parallelism (the module docstring)."""
+    if tp is not None:
+        return _rwkv_apply_tp(p, x, cfg, state, chunk, use_kernel,
+                              with_state, tp)
     B, T, d = x.shape
     N = cfg.rwkv_head_dim
     H = d // N
@@ -195,8 +204,10 @@ def rwkv_apply(p, x, cfg, state=None, chunk=128, use_kernel=False,
     return out, {"S": S_fin, "x_last": x[:, -1, :]}
 
 
-def rwkv_decode_step(p, x, cfg, state):
+def rwkv_decode_step(p, x, cfg, state, tp=None):
     """The exact single-token recurrence. x: (B, 1, d)."""
+    if tp is not None:
+        return _rwkv_decode_tp(p, x, cfg, state, tp)
     B, _, d = x.shape
     N = cfg.rwkv_head_dim
     H = d // N
@@ -211,3 +222,162 @@ def rwkv_decode_step(p, x, cfg, state):
     y = y.reshape(B, 1, d) * g.float()
     return ((y @ p["w_o"].float()).to(x.dtype),
             {"S": S_new, "x_last": x[:, -1, :]})
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+_PROJ = ("w_r", "w_k", "w_v", "w_g")
+
+
+def _shapes(cfg):
+    d, N, r = cfg.d_model, cfg.rwkv_head_dim, cfg.rwkv_lora_rank
+    return {"w_r": (d, d), "w_k": (d, d), "w_v": (d, d), "w_g": (d, d),
+            "w_o": (d, d), "decay_a": (d, r), "decay_b": (r, d),
+            "decay_base": (d,), "bonus_u": (d // N, N), "mix": (5, d)}
+
+
+def _rows_sharded(p, cfg, tp):
+    """Whether the projections and the decay LoRA's first factor are
+    row-parallel (``param_pspecs`` puts the model axis on the input dim of
+    the square ones, and on d of ``decay_a``)."""
+    shapes = _shapes(cfg)
+    return all(tp.dim_of(p[n], shapes[n]) == 0
+               for n in _PROJ + ("w_o", "decay_a"))
+
+
+def _whole_leaves(p, cfg, tp):
+    shapes = _shapes(cfg)
+    return {n: tp.whole(t, shapes[n]) for n, t in p.items()}
+
+
+def _state_shapes(cfg, B):
+    d, N = cfg.d_model, cfg.rwkv_head_dim
+    return {"S": (B, d // N, N, N), "x_last": (B, d)}
+
+
+def _rwkv_apply_tp(p, x, cfg, state, chunk, use_kernel, with_state, tp):
+    """``rwkv_apply`` over the model group: the WKV on this rank's H/M
+    heads.  The square projections are row-parallel on this rank's slice
+    of the features (the token shift and the mixing run on that slice) and
+    end in one reduce-scatter onto this rank's heads (d = H x N is
+    head-major); the decay LoRA's first product all-reduces its (B, T, r)
+    activations, its second is column-parallel onto the heads; ``w_o`` is
+    row-parallel back, one all-reduce.  A state (prefill) is in the
+    cache's layout (``S`` on an N dim or its heads, ``x_last`` on d, or
+    whole) and comes back in it; without one the state is zeros.  Leaves
+    laid out otherwise, or heads that do not divide over the group, run
+    every head on every rank from whole leaves."""
+    B, T, d = x.shape
+    N = cfg.rwkv_head_dim
+    H, M = d // N, tp.size
+    shapes, sshapes = _shapes(cfg), _state_shapes(cfg, B)
+    if H % M or not _rows_sharded(p, cfg, tp):
+        st = None if state is None else {
+            n: tp.whole(t, sshapes[n]) for n, t in state.items()}
+        y, new = rwkv_apply(_whole_leaves(p, cfg, tp), x, cfg, st, chunk,
+                            use_kernel, with_state)
+        if new is not None and state is not None:
+            new = {n: tp.slice_like(t, state[n]) for n, t in new.items()}
+        return y, new
+    Hl, dl = H // M, d // M
+    fresh = state is None
+    if fresh:
+        x_last = x.new_zeros((B, dl))
+    else:
+        x_last = tp.part(state["x_last"], sshapes["x_last"], 1)
+    xl = tp.split(x, -1)
+    xs = _token_shift(xl, x_last)
+    mix = tp.part(p["mix"], shapes["mix"], 1).to(x.dtype)
+    xr, xk, xv, xg, xw = (xl * mix[i] + xs * (1 - mix[i]) for i in range(5))
+    r, k, v, g = tp.scatter_rows([xr, xk, xv, xg], [p[n] for n in _PROJ])
+    g = F.silu(g)
+    lora = tp.copy(tp.reduce(xw @ p["decay_a"]))
+    dw = lora @ tp.part(p["decay_b"], shapes["decay_b"], 1)
+    logw = -torch.exp(tp.part(p["decay_base"], shapes["decay_base"], 0)
+                      .float() + dw.float())
+    rr, kk, vv = (t.reshape(B, T, Hl, N).float() for t in (r, k, v))
+    lw = logw.reshape(B, T, Hl, N)
+    u = tp.part(p["bonus_u"], shapes["bonus_u"], 0).float()
+    S_fin = None
+    if use_kernel and fresh and T % KERNEL_CHUNK == 0:
+        y = _WkvKernel.apply(rr, kk, vv, lw, u)
+        if with_state:
+            L = torch.cumsum(lw, dim=1)
+            k_dec = kk * torch.exp(L[:, -1:] - L)
+            S_fin = torch.einsum("bthn,bthm->bhnm", k_dec, vv)
+    else:
+        if fresh:
+            S0 = torch.zeros((B, Hl, N, N), dtype=torch.float32,
+                             device=x.device)
+        elif tp.dim_of(state["S"], sshapes["S"]) == 1:
+            S0 = state["S"]
+        else:
+            S0 = tp.slice(tp.whole(state["S"], sshapes["S"]), 1)
+        y, S_fin = wkv_chunked(rr, kk, vv, lw, u, S0, chunk=chunk)
+    y = y.reshape(B, T, dl) * g.float()
+    out = tp.reduce(y @ p["w_o"].float()).to(x.dtype)
+    if not with_state:
+        return out, None
+    S_fin = S_fin.detach()
+    like = {"S": S_fin.new_empty(sshapes["S"]),
+            "x_last": x.new_empty(sshapes["x_last"])} if fresh else state
+    if tp.dim_of(like["S"], sshapes["S"]) != 1:
+        S_fin = tp.slice_like(tp.gather(S_fin, 1), like["S"])
+    return out, {"S": S_fin,
+                 "x_last": tp.slice_like(x[:, -1, :], like["x_last"])}
+
+
+def _rwkv_decode_tp(p, x, cfg, state, tp):
+    """``rwkv_decode_step`` over the model group on the cache's layout:
+    ``S`` (B, H, N, N) on this rank's slice of its first N dim (the dim
+    ``cache_pspecs`` shards) and ``x_last`` on d.  The recurrence is
+    separable over that N dim, so every rank computes r, k, v, g (one
+    all-reduce of the row-parallel products, the LoRA's with them) and
+    the decay (its column-parallel slice, all-gathered), advances its own
+    slice of S, and its partial y is summed over the group (one
+    all-reduce); ``w_o`` is row-parallel (one all-reduce).  A state laid
+    out otherwise is gathered whole for the step and its slice kept."""
+    B, _, d = x.shape
+    N = cfg.rwkv_head_dim
+    H, M = d // N, tp.size
+    shapes, sshapes = _shapes(cfg), _state_shapes(cfg, B)
+    if _rows_sharded(p, cfg, tp):
+        xl = tp.slice(x, -1)
+        xs = tp.part(state["x_last"], sshapes["x_last"], 1)[:, None]
+        mix = tp.part(p["mix"], shapes["mix"], 1).to(x.dtype)
+        xr, xk, xv, xg, xw = (xl * mix[i] + xs * (1 - mix[i])
+                              for i in range(5))
+        parts = [t @ p[n] for t, n in zip((xr, xk, xv, xg, xw),
+                                          _PROJ + ("decay_a",))]
+        r, k, v, g, lora = tp.reduce(torch.cat(parts, dim=-1)).split(
+            [d] * 4 + [cfg.rwkv_lora_rank], dim=-1)
+        g = F.silu(g)
+        b = tp.part(p["decay_b"], shapes["decay_b"], 1)
+        base = tp.part(p["decay_base"], shapes["decay_base"], 0)
+        logw = tp.gather(-torch.exp(base.float() + (lora @ b).float()), -1)
+    else:
+        r, k, v, g, logw = _project(
+            _whole_leaves(p, cfg, tp), x,
+            tp.whole(state["x_last"], sshapes["x_last"]))
+    u = tp.whole(p["bonus_u"], shapes["bonus_u"]).float()
+    rr, kk, vv = (t.reshape(B, H, N).float() for t in (r, k, v))
+    w = torch.exp(logw.reshape(B, H, N))
+    S = state["S"]
+    if tp.dim_of(S, sshapes["S"]) == 2:
+        n = N // M
+        own = slice(tp.index * n, (tp.index + 1) * n)
+        kv = torch.einsum("bhn,bhm->bhnm", kk[..., own], vv)
+        y = torch.einsum("bhn,bhnm->bhm", rr[..., own],
+                         S + u[None, :, own, None] * kv)
+        y = tp.reduce(y)
+        S_new = w[..., own, None] * S + kv
+    else:
+        Sw = tp.whole(S, sshapes["S"])
+        kv = torch.einsum("bhn,bhm->bhnm", kk, vv)
+        y = torch.einsum("bhn,bhnm->bhm", rr, Sw + u[None, :, :, None] * kv)
+        S_new = tp.slice_like(w[..., None] * Sw + kv, S)
+    y = y.reshape(B, 1, d) * g.float()
+    out = tp.linear(y, p["w_o"].float(), shapes["w_o"]).to(x.dtype)
+    return out, {"S": S_new,
+                 "x_last": tp.slice_like(x[:, -1, :], state["x_last"])}

@@ -23,6 +23,13 @@ rank holds the slice ``index`` of each model-sharded leaf (the dim that
   outside them and all-reduces; the vocab-parallel cross-entropy
   all-reduces the max, then the sum of exps and the label's logit.
 
+A recurrent layer (RWKV6's time-mix, the RG-LRU) keeps its channels
+sharded between its projections: row-parallel products of this rank's
+slice of the input features end in a reduce-scatter onto this rank's
+slice of the output channels (``scatter_rows``), the channel-wise work
+runs on that slice, and the row-parallel output projection all-reduces
+once.
+
 The four primitives (Megatron-LM's f, g and their split / gather pair):
 ``copy`` (forward identity, backward all-reduce: a replicated tensor that
 ranks consume differently), ``reduce`` (forward all-reduce, backward
@@ -202,11 +209,39 @@ class TensorParallel:
         autograd: the serving path)."""
         return _chunk(t, dim, self.size, self.index)
 
+    def slice_like(self, full, like):
+        """This rank's slice of ``full`` along the dim where ``like`` (a
+        cache leaf of the rank) is shorter, or ``full`` where it is not
+        (no autograd: the serving path)."""
+        d = self.dim_of(like, full.shape)
+        return full if d is None else self.slice(full, d)
+
     def whole(self, t, shape):
         """A leaf used whole: gathered along its sharded dim; backward, the
         rank's own slice of the gradient."""
         d = self.dim_of(t, shape)
         return t if d is None else self.gather(t, d)
+
+    def part(self, t, shape, dim):
+        """This rank's slice along ``dim`` of a leaf of global ``shape``
+        that a layer uses on this rank's slice of that dim only: the leaf
+        as it is where it is sharded there; else split (from whole),
+        whose backward gathers the slices' gradients."""
+        d = self.dim_of(t, shape)
+        if d == dim % len(shape):
+            return t
+        return self.split(self.whole(t, shape), dim)
+
+    def scatter_rows(self, xls, ws):
+        """This rank's slice of the output columns of each ``xls[i] @
+        ws[i]``, where ``xls[i]`` is this rank's slice of a replicated
+        input's features and ``ws[i]`` the matching rows of a row-parallel
+        weight: the partial products packed into one reduce-scatter."""
+        parts = [xl @ w for xl, w in zip(xls, ws)]
+        lead, M = parts[0].shape[:-1], self.size
+        packed = torch.cat([y.reshape(*lead, M, -1) for y in parts], dim=-1)
+        out = self.reduce_scatter(packed, -2).squeeze(-2)
+        return out.split([y.shape[-1] // M for y in parts], dim=-1)
 
     def linear(self, x, w, shape):
         """``x @ w`` for a replicated x and a weight of global ``shape``

@@ -78,7 +78,7 @@ whole goes through ``WHOLE_CACHE``, the same interface.
 ``build_model(..., device="meta")`` gives shapes only (the dry-run).
 
 Tensor parallelism (``tp``, a ``models.tp.TensorParallel`` set by the
-train and serve steps; dense attention LMs only): the module holds this
+train and serve steps; every family): the module holds this
 rank's slice of each leaf that ``core.sharding.param_pspecs`` puts on the
 model axis, and the layers read them through ``models.tp`` with
 activations replicated over the model group.  ``forward`` then returns
@@ -89,7 +89,13 @@ else on every head.  ``prefill`` and ``decode_step`` return whole logits;
 ``prefill`` fills the rank's cache given to it, laid out by
 ``core.sharding.cache_pspecs`` (kv heads or head_dim on the model axis),
 and ``decode_step`` reaches that cache through the serve step's cache
-operations (``core.serve_step.TpCache``).
+operations (``core.serve_step.TpCache``).  The MoE layer runs its experts
+on this rank's d_ff slice (``moe.moe_apply``), the RWKV6 time-mix its WKV
+on this rank's heads and the RG-LRU its channels (``rwkv6``, ``rglru``);
+an encoder-decoder's encoder layers and cross-attention take the
+attention and MLP routes above, and ``enc_kv`` holds this rank's kv
+heads or head_dim slice; a VLM's patch embeddings are replicated
+inputs.
 """
 from __future__ import annotations
 
@@ -195,6 +201,10 @@ class Model(nn.Module):
         # tensor parallelism (``models.tp.TensorParallel``), set by the
         # train and serve steps; None: every leaf whole
         self.tp = None
+        # the process group whose ranks hold blocks of rows of one batch
+        # that the MoE layers route as a whole (batch-sharded serving, set
+        # by the serve step); None: the rows are the whole batch
+        self.batch_group = None
         # a stand-in for kernel 8 in the causal self-attention (the
         # dry-run's shape-only one on ``meta`` tensors); None: as
         # ``use_kernel`` says
@@ -286,12 +296,14 @@ class Model(nn.Module):
 
     def _encoder_layer(self, x, p):
         cfg = self.cfg
-        h = layers.rmsnorm(x, p["norm1"])
-        q, k, v = attention.project_qkv(p["attn"], h, cfg)
+        h = self._norm(x, p["norm1"])
+        q, k, v = attention.project_qkv(p["attn"], h, cfg, self.tp)
+        k, v = attention.heads_for(q, k, v, cfg, self.tp)
         o = attention.chunked_attention(q, k, v, causal=False)
         x = self._attn_out(x, p["attn"], o)
-        h = layers.rmsnorm(x, p["norm2"])
-        return x + layers.mlp_apply(p["mlp"], h, cfg.mlp)
+        h = self._norm(x, p["norm2"])
+        return x + layers.mlp_apply(p["mlp"], h, cfg.mlp, tp=self.tp,
+                                    d_ff=cfg.d_ff)
 
     def _encode(self, frames):
         """The non-causal encoder over the stub frame embeddings, each
@@ -308,23 +320,27 @@ class Model(nn.Module):
                                use_reentrant=False)
             else:
                 x = self._encoder_layer(x, p)
-        return layers.rmsnorm(x, self.enc_norm)
+        return self._norm(x, self.enc_norm)
 
     def _cross(self, x, p, enc_out):
         """x + the cross-attention of x over ``enc_out``; also the
-        encoder's k and v (B, encoder_seq, KV, hd) of this layer."""
+        encoder's k and v (B, encoder_seq, KV, hd) of this layer (under
+        tensor parallelism this rank's kv heads where they divide, else
+        every one)."""
         cfg = self.cfg
-        h = layers.rmsnorm(x, p["norm_x"])
-        q, _, _ = attention.project_qkv(p["xattn"], h, cfg)
-        _, k, v = attention.project_qkv(p["xattn"], enc_out, cfg)
-        o = attention.chunked_attention(q, k, v, causal=False)
+        h = self._norm(x, p["norm_x"])
+        q, _, _ = attention.project_qkv(p["xattn"], h, cfg, self.tp)
+        _, k, v = attention.project_qkv(p["xattn"], enc_out, cfg, self.tp)
+        ka, va = attention.heads_for(q, k, v, cfg, self.tp)
+        o = attention.chunked_attention(q, ka, va, causal=False)
         return self._attn_out(x, p["xattn"], o), k, v
 
     def _ffn(self, x, p):
         """x + the FFN (MLP or MoE) of x; the MoE's aux loss (else 0)."""
         h = self._norm(x, p["norm2"])
         if "moe" in p:
-            y, aux = moe.moe_apply(p["moe"], h, self.cfg)
+            y, aux = moe.moe_apply(p["moe"], h, self.cfg, tp=self.tp,
+                                   batch_group=self.batch_group)
             return x + y, aux
         return x + layers.mlp_apply(p["mlp"], h, self.cfg.mlp, tp=self.tp,
                                     d_ff=self.cfg.d_ff), 0.0
@@ -343,10 +359,10 @@ class Model(nn.Module):
         if kind == RWKV:
             y, _ = rwkv6.rwkv_apply(p["rwkv"], h, cfg,
                                     use_kernel=self.use_kernel,
-                                    with_state=False)
+                                    with_state=False, tp=self.tp)
             x = x + y
         elif kind == RGLRU:
-            y, _ = rglru.rglru_apply(p["rglru"], h, cfg)
+            y, _ = rglru.rglru_apply(p["rglru"], h, cfg, tp=self.tp)
             x = x + y
         else:
             q, k, v = attention.project_qkv(p["attn"], h, cfg, self.tp)
@@ -505,10 +521,10 @@ class Model(nn.Module):
             if kind in (RWKV, RGLRU):
                 if kind == RWKV:
                     y, state = rwkv6.rwkv_apply(p["rwkv"], h, cfg,
-                                                state=leaf)
+                                                state=leaf, tp=self.tp)
                 else:
                     y, state = rglru.rglru_apply(p["rglru"], h, cfg,
-                                                 state=leaf)
+                                                 state=leaf, tp=self.tp)
                 for name, val in state.items():
                     leaf[name].copy_(val)
                 x = x + y
@@ -529,6 +545,9 @@ class Model(nn.Module):
                 self._fill_ring(leaf, k, v, S)
             if enc is not None:
                 x, ek, ev = self._cross(x, p, enc_out)
+                if self.tp is not None:
+                    ek = self.tp.slice_like(ek, enc["k"])
+                    ev = self.tp.slice_like(ev, enc["v"])
                 enc["k"].copy_(ek)
                 enc["v"].copy_(ev)
             x, _ = self._ffn(x, p)
@@ -606,7 +625,8 @@ class Model(nn.Module):
             if kind in (RWKV, RGLRU):
                 step = rwkv6.rwkv_decode_step if kind == RWKV \
                     else rglru.rglru_decode_step
-                y, state = step(p[kind], h, cfg, shard.gather(leaf, gleaf))
+                y, state = step(p[kind], h, cfg, shard.gather(leaf, gleaf),
+                                tp=self.tp)
                 for name, val in state.items():
                     leaf[name].copy_(shard.keep(val, leaf[name]))
                 x = x + y
@@ -620,8 +640,9 @@ class Model(nn.Module):
                                  self.kv_quant)
                 x = self._attn_out(x, p["attn"], o)
             if enc is not None:
-                h = layers.rmsnorm(x, p["norm_x"])
-                q, _, _ = attention.project_qkv(p["xattn"], h, cfg)
+                h = self._norm(x, p["norm_x"])
+                q, _, _ = attention.project_qkv(p["xattn"], h, cfg, self.tp,
+                                                head_local=False)
                 o = shard.attend_all(q, enc, genc)
                 x = self._attn_out(x, p["xattn"], o)
             x, _ = self._ffn(x, p)
@@ -665,10 +686,11 @@ class WholeCache:
         return attention.decode_attention(q, leaf["k"], leaf["v"], pos, **kw)
 
     @staticmethod
-    def attend_all(q, enc, _):
-        """Attend to every position of the encoder's k and v."""
+    def attend_all(q, enc, _, **extra):
+        """Attend to every position of the encoder's k and v (``extra``:
+        ``head_dim`` and ``partial``, as ``attend``)."""
         return attention.decode_attention(q, enc["k"], enc["v"],
-                                          enc["k"].shape[1] - 1)
+                                          enc["k"].shape[1] - 1, **extra)
 
 
 WHOLE_CACHE = WholeCache()

@@ -84,17 +84,27 @@ def test_long_500k_fits_one_card_at_zero3():
 def test_baseline_profile_waits_for_tp():
     """``baseline``, the default profile as in the reference, runs the
     dense LMs with tensor parallelism over the 16-way model axis (the
-    strategy over the 16 data ranks, no FSDP for SmolLM) and refuses the
-    families whose tensor parallelism is the next slice."""
+    strategy over the 16 data ranks, no FSDP for SmolLM), and the other
+    families too: reduced Mixtral and RWKV6 on the production mesh at a
+    small shape, whose parameters a rank holds are about 1/16 of the
+    ``dp`` profile's (RWKV's 8 heads do not divide over 16: its time-mix
+    runs every head on every rank from whole leaves)."""
+    from repro_torch.configs.base import InputShape, get_config
     res = dryrun.dryrun_one("smollm-135m", "train_4k", save=False)
     assert res["profile"] == "baseline" and res["fsdp"] is False
     assert res["chips"] == 256 and 0 < res["memory"]["peak_estimate_gb"] < 80
     counts = res["collectives"]["counts"]
     assert counts["all-reduce"] > 0 and counts["all-gather"] > 0
+    small = InputShape("small", 32, 256, "train")
     for arch in ("mixtral-8x7b", "rwkv6-7b"):
-        with pytest.raises(NotImplementedError, match="TP slice"):
-            dryrun.dryrun_one(arch, "train_4k", profile="baseline",
-                              save=False)
+        got = {prof: dryrun.dryrun_one(
+            arch, "small", profile=prof, save=False,
+            config=get_config(arch).reduced(), input_shape=small)
+            for prof in ("baseline", "dp")}
+        assert "skipped" not in got["baseline"]
+        assert got["baseline"]["collectives"]["counts"]["all-gather"] > 0
+        assert got["baseline"]["memory"]["argument_bytes"] < \
+            got["dp"]["memory"]["argument_bytes"] / 8
 
 
 def test_fsdp_required_recomputed_for_80gb():

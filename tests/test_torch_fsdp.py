@@ -315,10 +315,10 @@ def test_train_entry_point_runs_fsdp_on_four_ranks(tmp_path):
 @pytest.mark.parametrize("mesh, err", [
     ("2x2", NotImplementedError), ("2x1", ValueError), ("4", ValueError)])
 def test_train_entry_point_refuses_bad_meshes(mesh, err):
-    """A model axis above 1 is tensor parallelism, which the dense LMs run
-    and the families of the next slice refuse (``NotImplementedError``,
-    before any process group is touched); the axes must span the world;
-    a mesh is DxM or PxDxM."""
+    """A model axis above 1 is tensor parallelism, which every transformer
+    family runs and the CNNs refuse (``NotImplementedError``, before any
+    process group is touched); the axes must span the world; a mesh is
+    DxM or PxDxM."""
     from repro_torch import optim
     from repro_torch.configs.base import get_config
     from repro_torch.core import build_train_step, get_strategy
@@ -327,12 +327,12 @@ def test_train_entry_point_refuses_bad_meshes(mesh, err):
     if mesh == "2x2":
         tp = parse_mesh(mesh, 4)
         assert tp.shape == {"data": 2, "model": 2}
-        for arch in ("mixtral-8x7b", "rwkv6-7b"):
-            model = Model(get_config(arch).reduced(), device="meta")
-            with pytest.raises(err, match="TP slice"):
-                build_train_step(model, optim.adamw(1e-3),
-                                 get_strategy("allreduce"), tp,
-                                 model_axis="model")
+        from repro_torch.models.cnn import build_cnn
+        model = build_cnn(get_config("mobilenet-cifar"), device="cpu")
+        with pytest.raises(err, match="a CNN"):
+            build_train_step(model, optim.adamw(1e-3),
+                             get_strategy("allreduce"), tp,
+                             model_axis="model")
     else:
         with pytest.raises(err):
             parse_mesh(mesh, 4)

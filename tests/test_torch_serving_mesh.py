@@ -232,8 +232,9 @@ def test_gathered_cache_equals_the_reference(results, case):
 def test_model_axis_is_refused():
     """A model axis of 2 (on a fake process group of 2 ranks, meta
     tensors): the dense LM serves with its leaves and its ring halved
-    (one kv head: head_dim 64 -> 32); the families of the next slice
-    refuse it."""
+    (one kv head: head_dim 64 -> 32); so do the other families, MoE's
+    ring and RWKV's state S on its first N dim (32 -> 16), refusing
+    nothing."""
     from repro_torch.configs.base import get_config
     from repro_torch.core import build_serve_step
     from repro_torch.launch.dryrun import fake_group
@@ -247,8 +248,10 @@ def test_model_axis_is_refused():
         assert model.embed.table.shape == (256, 256)
         token, cache, _ = ss.make_inputs("decode", 8)
         assert cache["blocks"][0]["k"].shape == (2, 1, 8, 1, 32)
-    for arch in ("mixtral-8x7b", "rwkv6-7b"):
-        model = Model(get_config(arch).reduced(), device="meta")
-        with pytest.raises(NotImplementedError, match="TP slice"):
-            build_serve_step(model, mesh, model_axis="model", batch_size=1,
-                             cache_len=8)
+        for arch, leaf, shape in (("mixtral-8x7b", "k", (2, 1, 8, 1, 32)),
+                                  ("rwkv6-7b", "S", (2, 1, 8, 16, 32))):
+            model = Model(get_config(arch).reduced(), device="meta")
+            ss = build_serve_step(model, mesh, model_axis="model",
+                                  batch_size=1, cache_len=8)
+            _, cache, _ = ss.make_inputs("decode", 8)
+            assert cache["blocks"][0][leaf].shape == shape

@@ -246,11 +246,11 @@ def test_sharding_shards_and_shapes():
 
 
 def test_tp_is_refused():
-    """A model axis above 1 is refused for the families of the next slice
-    and the CNNs, run for the dense LMs; of size 1, or None, it refuses
-    nothing."""
-    for arch in ("mixtral-8x7b", "rwkv6-7b", "mobilenet-cifar"):
-        with pytest.raises(NotImplementedError, match="TP slice"):
+    """A model axis above 1 is refused for the CNNs alone (the reference
+    runs them on a model axis of 1) and run for every transformer family;
+    of size 1, or None, it refuses nothing."""
+    for arch in ("mobilenet-cifar", "resnet18-cifar"):
+        with pytest.raises(NotImplementedError, match="a CNN"):
             shard.require_tp_family(get_config(arch),
                                     make_production_mesh(), "model")
         shard.require_tp_family(get_config(arch), make_debug_mesh((4, 1)),
@@ -258,7 +258,9 @@ def test_tp_is_refused():
         shard.require_tp_family(get_config(arch), make_production_mesh(),
                                 None)
     for arch in ("smollm-135m", "gemma3-4b", "qwen1.5-4b",
-                 "phi3-mini-3.8b"):
+                 "phi3-mini-3.8b", "mixtral-8x7b", "mixtral-8x22b",
+                 "rwkv6-7b", "recurrentgemma-2b", "whisper-small",
+                 "pixtral-12b"):
         shard.require_tp_family(get_config(arch), make_production_mesh(),
                                 "model")
 

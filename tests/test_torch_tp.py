@@ -9,7 +9,7 @@ attention with head-local and with replicated heads.
 
 In process: the dense LMs' reduced configs laid out on a (2, 2) ("data",
 "model") mesh spec for spec as the reference lays them out, each rank's
-slices tiling every leaf; the families of the next slice refused."""
+slices tiling every leaf; the CNNs and Whisper under FSDP refused."""
 import os
 import subprocess
 import sys
@@ -271,16 +271,31 @@ def test_dense_layout_on_2x2_equals_the_reference(arch, fsdp):
     assert sum("model" in s for s in want) >= len(want) - 1
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "rwkv6-7b",
-                                  "recurrentgemma-2b", "whisper-small",
-                                  "pixtral-12b"])
-def test_families_of_the_next_slice_are_refused(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="TP slice for MoE"):
-        sharding.require_tp_family(cfg, make_mesh((2, 2), ("data", "model")),
-                                   "model")
-    sharding.require_tp_family(cfg, make_mesh((4, 1), ("data", "model")),
-                               "model")
+@pytest.mark.parametrize("case", ["cnn", "whisper-fsdp"])
+def test_cnn_and_whisper_fsdp_are_still_refused(case):
+    """Every transformer family runs a model axis above 1; the CNNs still
+    refuse it (the reference runs them on a model axis of 1), and
+    Whisper's encoder still refuses FSDP (the reference shards the
+    encoder's leaves but never gathers them)."""
+    from repro_torch import optim
+    from repro_torch.core import build_train_step, get_strategy
+    from repro_torch.launch.dryrun import fake_group
+    mesh = make_mesh((2, 2), ("data", "model"))
+    if case == "cnn":
+        with pytest.raises(NotImplementedError, match="a CNN"):
+            sharding.require_tp_family(get_config("mobilenet-cifar"), mesh,
+                                       "model")
+        for arch in ("mixtral-8x7b", "rwkv6-7b", "recurrentgemma-2b",
+                     "whisper-small", "pixtral-12b"):
+            sharding.require_tp_family(get_config(arch).reduced(), mesh,
+                                       "model")
+        return
+    with fake_group(4):
+        model = Model(get_config("whisper-small").reduced(), device="meta")
+        with pytest.raises(ValueError, match="encoder"):
+            build_train_step(model, optim.adamw(1e-3),
+                             get_strategy("allreduce"), mesh,
+                             model_axis="model", fsdp=True).init_state()
 
 
 def test_a_ring_sharded_on_its_slots_is_refused():
