@@ -125,11 +125,13 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    launches a prefill) and rwkv6-7b cut to 4 layers (batch 4, prompt 512,
    32 tokens; its prefill takes the plain chunked WKV, as the
    reference's does), gated as SmolLM (rwkv also in fp32, to 1e-3).
-   ``ServingEngine`` on SmolLM-135M: fp32, 16 requests over 8 slots,
+   ``ServingEngine`` on SmolLM-135M cut to 10 layers (its decode step's
+   eager and graph times at full depth): fp32, 16 requests over 8 slots,
    every request equal to its sequential generation; bf16, 64 requests
    over 16 slots, engine steps, tokens a second, occupancy, time to first
    token and the agreement count, a divergence allowed only at a near
-   tie.  Flash-decode on 4 gloo ranks sharing the card, 524,288 slots,
+   tie (within this model's bf16 decode error).  Flash-decode on 4 gloo
+   ranks sharing the card, 524,288 slots,
    against single-process decode attention.  Its record is the line
    ``{"serve": {...}}``; the kernels line's attention entry gains the
    launches and routes of each prefill.
@@ -188,10 +190,11 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    moments a quarter of the whole, the first step's collective bytes equal
    kind for kind to what ``launch.dryrun`` predicts for the same
    configuration, launches as counted, peak memory a rank beside the
-   dry-run's estimate.  Serving over the 4 ranks, 16 greedy tokens, in
-   fp32 token for token against one rank's decoding of the same prompts
-   and timed in bf16: batch 16 x cache 2,048 batch-sharded, batch 1 x
-   cache 32,768 sequence-sharded (flash-decode).  The dry-run of
+   dry-run's estimate.  Serving over the 4 ranks, SmolLM cut to 10
+   layers, 16 greedy tokens, in fp32 token for token against one rank's
+   decoding of the same prompts and timed in bf16: batch 16 x cache 2,048
+   batch-sharded, batch 1 x cache 32,768 sequence-sharded
+   (flash-decode).  The dry-run of
    SmolLM's train_4k and long_500k on the 16x16 mesh under zero3 (peak
    GB a device, dominant roofline term).  Its record is the line
    ``{"sharding": {...}}``; the kernels line's fused-AdamW, attention and
@@ -206,12 +209,13 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    the sharding phase's replicated run, the first step's collective
    bytes and counts equal to the ``baseline`` dry-run of the same mesh,
    peak memory a rank below the replicated run's, launches as counted
-   (kernel 8 on all 9 heads: 9 do not divide over 2).  Serving batch 16 x
-   cache 2,048 (the cache on head_dim: 3 kv heads do not divide), 8
-   greedy tokens, fp32 token for token against one rank's and timed in
-   bf16.  Then ranks 0-2 on (1, 3), where 9 / 3 heads and d 576 divide:
-   prefill through kernel 8 on 3 heads a rank (fp32 and bf16, the cache
-   on the kv heads), 8 fp32 tokens against one rank's.  Then the other
+   (kernel 8 on all 9 heads: 9 do not divide over 2).  Serving SmolLM
+   cut to 10 layers, batch 16 x cache 2,048 (the cache on head_dim: 3 kv
+   heads do not divide), 8 greedy tokens, fp32 token for token against
+   one rank's and timed in bf16.  Then ranks 0-2 on (1, 3), where 9 / 3
+   heads and d 576 divide: prefill through kernel 8 on 3 heads a rank
+   (fp32 and bf16, the cache on the kv heads; 10 layers), 8 fp32 tokens
+   against one rank's.  Then the other
    families on the (2, 2) mesh in the same spawn, at full width, depth
    cut (mixtral-8x7b 1 layer, rwkv6-7b 2, recurrentgemma-2b 3, pixtral-12b
    1, whisper-small whole; bf16, fused AdamW lr 3e-4): 2 allreduce steps
@@ -226,8 +230,16 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    versions at those sharded shapes and timed; fp32 serving, batch 4, 8
    greedy tokens token for token against one rank's, gloo calls a
    prefill and a token, kernel 8 once a causal attention layer a
-   prefill.  Its record is the line ``{"tp": {...}}``; the kernels line's
-   fused-AdamW, attention, WKV and segmented entries gain its launches.
+   prefill.  Then 6 ranks on (1, 6), where neither 9 / 3 heads nor
+   head_dim 64 divide and the model axis lands on the ring's slots: all
+   30 layers, batch 2, cache 3,072 (512 slots a rank), prompt 2,048,
+   kernel 8 on
+   all 9 heads a rank in the prefill (fp32 on the CUDA cores, bf16 on
+   wgmma), 8 greedy tokens through flash-decode over the model group,
+   fp32 token for token against one rank's, gloo calls a token against
+   the design's count.  Its record is the line ``{"tp": {...}}``; the
+   kernels line's fused-AdamW, attention, WKV and segmented entries gain
+   its launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  The table3, serve, resilience,
@@ -3140,6 +3152,9 @@ ENGINE_FP32 = dict(slots=8, requests=16, prompt=(16, 512), new=(4, 32),
                    cache=1024, seed=11)
 ENGINE_BF16 = dict(slots=16, requests=64, prompt=(128, 1024),
                    new=(32, 128), cache=2048, seed=12)
+# the engine's SmolLM cut 30 -> 10 layers, for the time limit: at full
+# depth its bf16 run and the sequential runs it is held against took 75 s
+ENGINE_LAYERS = 10
 # flash-decode: one SmolLM attention layer's heads at long_500k's context
 FLASH_RANKS, FLASH_LEN, FLASH_WINDOW = 4, 524288, 4096
 FLASH_TOL = 2e-5
@@ -3539,21 +3554,33 @@ def engine_run(model, spec):
         "ttft_median_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1]}
 
 
-def serve_engine(gap):
-    """The engine on full-width SmolLM-135M: (a) fp32, every request's
-    tokens equal to its sequential generation; (b) bf16, the agreement
-    count, a divergence allowed only where the sequential run's two
-    largest logits lie within ``gap`` (the bf16 decode's teacher-forced
-    error on this model, the size of what reordering the same products
-    in another batch shape moves a logit by)."""
+def serve_engine():
+    """The engine on full-width SmolLM-135M cut to ``ENGINE_LAYERS``: (a)
+    fp32, every request's tokens equal to its sequential generation; (b)
+    bf16, the agreement count, a divergence allowed only where the
+    sequential run's two largest logits lie within ``gap`` (the bf16
+    decode's teacher-forced error on this model at the phase's SmolLM
+    shape, the size of what reordering the same products in another
+    batch shape moves a logit by).  The decode step's eager and graph
+    times on the full-depth bf16 model."""
     import dataclasses
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models import build_model
     out = {}
     for dtype, spec in (("float32", ENGINE_FP32), ("bfloat16", ENGINE_BF16)):
-        cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype=dtype)
+        full = dataclasses.replace(get_config(SERVE_ARCH), dtype=dtype)
+        cfg = dataclasses.replace(full, n_layers=ENGINE_LAYERS)
         model = build_model(cfg, use_kernel=True, device="cuda", seed=3)
+        gap = 0.0
+        if dtype == "bfloat16":
+            prompt = serve_tokens(cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT,
+                                  0)
+            _, logits, fed = serve_run(model, prompt, SERVE_CACHE,
+                                       SERVE_TOKENS, "engine's model")
+            gap, _ = teacher_forced_err(model, prompt, fed, logits)
+            del logits
+            torch.cuda.empty_cache()
         reqs, got, rec = engine_run(model, spec)
         t0 = time.perf_counter()
         agree, ties, bad = 0, 0, []
@@ -3570,11 +3597,11 @@ def serve_engine(gap):
                 bad.append((rid, j, gaps[j]))
         rec.update(requests=len(reqs), agree_in_full=agree,
                    near_tie_divergences=ties, sequential_s=
-                   time.perf_counter() - t0, gap=gap if dtype ==
-                   "bfloat16" else 0.0)
+                   time.perf_counter() - t0, gap=gap, layers=ENGINE_LAYERS)
         check(not bad, f"[serve] engine {dtype}: requests {bad} (rid, step, "
               f"top-2 gap) differ from sequential generation")
-        log(f"[serve] engine {dtype}: {len(reqs)} requests over "
+        log(f"[serve] engine {dtype}, {ENGINE_LAYERS} layers: {len(reqs)} "
+            f"requests over "
             f"{spec['slots']} slots (prompts {spec['prompt']}, new tokens "
             f"{spec['new']}, cache {spec['cache']}): {rec['engine_steps']} "
             f"steps, {rec['generated_tokens']} tokens in {rec['wall_s']:.2f}"
@@ -3585,11 +3612,14 @@ def serve_engine(gap):
             f"full, {ties} diverge at a near tie (top-2 gap <= "
             f"{rec['gap']:.4f}); sequential runs took "
             f"{rec['sequential_s']:.1f} s")
-        if dtype == "bfloat16":
-            rec["decode_step"] = decode_graph_times(model, spec["cache"])
         out[dtype] = rec
         del model
         torch.cuda.empty_cache()
+    model = build_model(full, use_kernel=True, device="cuda", seed=3)
+    out["bfloat16"]["decode_step"] = decode_graph_times(model,
+                                                        ENGINE_BF16["cache"])
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3706,7 +3736,7 @@ def serve_phase():
                            "swa_attention_fwd_wgmma": 0}, seed=2,
         witness=chunk_64)
     rec["rwkv6_fp32"] = rwkv_fp32_serve(rprompt, r["tokens"])
-    rec["engine"] = serve_engine(smol["max_abs_err"])
+    rec["engine"] = serve_engine()
     rec["flash_decode"] = serve_flash()
     rec["seconds"] = time.perf_counter() - t0
     log(f"[serve] phase took {rec['seconds']:.1f} s")
@@ -4373,6 +4403,9 @@ SHARD_RUNS = (("allreduce", False), ("allreduce", True), ("mlless", True))
 # into rank 1's
 SHARD_SERVE = (("batch16", 16, 2048, 512), ("batch1", 1, 32768, 8184))
 SHARD_TOKENS = 16
+# SmolLM's depth in the phase's serving (and the tp phase's (2, 2) and
+# (1, 3) serving), cut 30 -> 10 for the time limit
+SHARD_SERVE_LAYERS = 10
 SHARD_DRYRUN = ("train_4k", "long_500k")
 
 
@@ -4484,7 +4517,8 @@ def shard_serve(dev, dtype, B, cache_len, prompt_len):
     from repro_torch.core import build_serve_step
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=dtype)
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=dtype,
+                              n_layers=SHARD_SERVE_LAYERS)
     model = build_model(cfg, use_kernel=True, device=dev)
     rs = np.random.RandomState(B)
     prompt = torch.as_tensor(rs.randint(0, cfg.vocab_size, (B, prompt_len))
@@ -4702,6 +4736,17 @@ TP_TOKENS = 8
 TP_LOCAL_MESH = (1, 3)
 TP_LOCAL = (4, 1024, 512)
 TP_LOCAL_TOKENS = 8
+# neither 9 / 3 heads nor head_dim 64 divide over 6: the model axis on the
+# ring's slots (512 a rank), flash-decode over the model group
+TP_SLOTS_MESH = (1, 6)
+TP_SLOTS = (2, 3072, 2048)
+TP_SLOTS_TOKENS = 8
+# gloo calls a decode token, by design: the vocab-parallel embedding's
+# all-reduce; a layer's two norm scales gathered whole, q/k/v's
+# all-reduce, flash-decode's three (max, sum, weighted sum), the
+# row-parallel output and MLP down projections' two; the final norm's
+# gather and the logits' gather over the vocab
+TP_SLOTS_CALLS = 1 + 30 * 8 + 2
 
 
 def tp_label(strategy, fsdp):
@@ -4795,19 +4840,25 @@ def tp_greedy(dev, prefill, decode, tokens, prompt_len, n, V):
     return torch.cat(out, dim=1).cpu(), ms
 
 
-def tp_serve(dev, dtype, mesh_shape, B, cache_len, prompt_len, n):
+def tp_serve(dev, dtype, mesh_shape, B, cache_len, prompt_len, n,
+             layers=None):
     """Greedy decoding of ``n`` tokens over the mesh and, on this rank
-    alone, of the same prompts (its rows of both); ms a decode step of
-    each; the query heads kernel 8 saw a launch in the mesh's prefill."""
+    alone, of the same prompts (its rows of both), SmolLM at ``layers``
+    (None: all 30); ms a decode step of each; the query heads kernel 8
+    saw a launch in the mesh's prefill; the collectives each decode step
+    over the mesh issued."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.core import build_serve_step
+    from repro_torch.costmodel.collectives import record_collectives, stats
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     cfg = dataclasses.replace(get_config(LM_ARCH), dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build_model(cfg, use_kernel=True, device=dev)
     heads = []
 
@@ -4824,7 +4875,14 @@ def tp_serve(dev, dtype, mesh_shape, B, cache_len, prompt_len, n):
                           cache_len=cache_len)
     cache_shape = list(ss.make_inputs("decode", cache_len)[1]["blocks"][0]
                        ["k"].shape)
-    tokens, ms = tp_greedy(dev, ss.prefill_fn, ss.decode_fn,
+    calls = []
+
+    def decode(token, cache, pos):
+        with record_collectives() as recs:
+            out = ss.decode_fn(token, cache, pos)
+        calls.append(stats(recs).counts)
+        return out
+    tokens, ms = tp_greedy(dev, ss.prefill_fn, decode,
                            ss.local_rows(prompt), prompt_len, n,
                            cfg.vocab_size)
     launches = lm_launches()
@@ -4838,7 +4896,9 @@ def tp_serve(dev, dtype, mesh_shape, B, cache_len, prompt_len, n):
             "tokens": tokens.tolist(), "one_rank_tokens": whole.tolist(),
             "ms_per_token": ms, "one_rank_ms_per_token": ms_one,
             "launches": launches, "prefill_heads": prefill_heads,
-            "cache_shape": cache_shape}
+            "cache_shape": cache_shape,
+            "calls_per_token": [sum(c.values()) for c in calls],
+            "call_kinds": calls[0] if calls else None}
 
 
 def tp_rank(rank, init, out_dir):
@@ -4877,16 +4937,16 @@ def tp_rank(rank, init, out_dir):
     rec["serve"] = {}
     for dtype in ("float32", "bfloat16"):
         rec["serve"][dtype] = tp_serve(dev, dtype, TP_MESH, *TP_SERVE,
-                                       TP_TOKENS)
+                                       TP_TOKENS, SHARD_SERVE_LAYERS)
         free_device_memory()
     # the head-local case on ranks 0-2; rank 3 takes part in making the
     # mesh's groups (``dist.new_group`` is collective) and waits
     local = make_mesh(TP_LOCAL_MESH, ("data", "model"))
     runs = (("float32", TP_LOCAL_TOKENS), ("bfloat16", 0))
     if rank < local.size:
-        rec["head_local"] = {dtype: tp_serve(dev, dtype, TP_LOCAL_MESH,
-                                             *TP_LOCAL, n)
-                             for dtype, n in runs}
+        rec["head_local"] = {
+            dtype: tp_serve(dev, dtype, TP_LOCAL_MESH, *TP_LOCAL, n,
+                            SHARD_SERVE_LAYERS) for dtype, n in runs}
     else:
         for _ in runs:
             for axes in (("data",), ("model",)):
@@ -4894,6 +4954,28 @@ def tp_rank(rank, init, out_dir):
     free_device_memory()
     rec["families"] = tp_family_runs(rank, dev)
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_slots_rank(rank, init, out_dir):
+    """One rank of the (1, 6) mesh, SmolLM's ring on its slots: fp32 and
+    bf16 serving."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.train import _rank_device, backend_for
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _rank_device("cuda", rank)
+    world = math.prod(TP_SLOTS_MESH)
+    dist.init_process_group(backend_for(dev, world), init_method=init,
+                            rank=rank, world_size=world)
+    rec = {"backend": dist.get_backend()}
+    for dtype in ("float32", "bfloat16"):
+        rec[dtype] = tp_serve(dev, dtype, TP_SLOTS_MESH, *TP_SLOTS,
+                              TP_SLOTS_TOKENS)
+        free_device_memory()
+    Path(out_dir, f"slots{rank}.json").write_text(json.dumps(rec))
     dist.barrier()
     dist.destroy_process_group()
 
@@ -5424,6 +5506,15 @@ def tp_phase(shard):
         local = [r["head_local"] for r in ranks if "head_local" in r]
         check(len(local) == math.prod(TP_LOCAL_MESH),
               f"[tp] head-local ranks {len(local)}")
+        n_slots = math.prod(TP_SLOTS_MESH)
+        t1 = time.perf_counter()
+        torch.multiprocessing.spawn(
+            tp_slots_rank, args=("file://" + os.path.join(out_dir,
+                                                          "pg_slots"),
+                                 out_dir), nprocs=n_slots)
+        slots_s = time.perf_counter() - t1
+        slots = [json.loads(Path(out_dir, f"slots{r}.json").read_text())
+                 for r in range(n_slots)]
         check(child.wait(timeout=300) == 0, "[tp] the dry-run failed")
         dry = json.loads(Path(dry_path).read_text())
     finally:
@@ -5467,6 +5558,20 @@ def tp_phase(shard):
             f"{[r[dtype]['equal'] for r in local]}, ms a token "
             f"{res['ms_per_token']} ({res['one_rank_ms_per_token']} on one)")
 
+    log(f"[tp] slots {TP_SLOTS_MESH}: the spawn of {len(slots)} ranks took "
+        f"{slots_s:.1f} s")
+    for dtype in ("float32", "bfloat16"):
+        res = slots[0][dtype]
+        log(f"[tp] slots {TP_SLOTS_MESH} {dtype}, {len(slots)} ranks over "
+            f"{slots[0]['backend']}, batch {TP_SLOTS[0]} x cache "
+            f"{TP_SLOTS[1]}, prompt {TP_SLOTS[2]}: kernel 8 heads (q, kv) "
+            f"{res['prefill_heads']}, cache leaf a rank {res['cache_shape']}"
+            f", launches {res['launches']}, gloo calls a token "
+            f"{res['calls_per_token']} (by design {TP_SLOTS_CALLS}; kinds "
+            f"{res['call_kinds']}), tokens equal "
+            f"{[r[dtype]['equal'] for r in slots]}, ms a token "
+            f"{res['ms_per_token']} ({res['one_rank_ms_per_token']} on one)")
+
     gaps = {}
     for r, res in enumerate(ranks):
         check(all(res["gloo_cuda"].values()),
@@ -5491,10 +5596,12 @@ def tp_phase(shard):
             if dtype == "float32":
                 check(sres["equal"], f"[tp] rank {r} serve: {sres['tokens']}"
                       f" against one rank's {sres['one_rank_tokens']}")
-            check(sres["launches"]["swa_attention_fwd"] == 30,
+            check(sres["launches"]["swa_attention_fwd"]
+                  == SHARD_SERVE_LAYERS,
                   f"[tp] rank {r} serve {dtype}: {sres['launches']}")
             if dtype == "bfloat16":
-                check(sres["launches"]["swa_attention_fwd_wgmma"] == 30,
+                check(sres["launches"]["swa_attention_fwd_wgmma"]
+                      == SHARD_SERVE_LAYERS,
                       f"[tp] rank {r} serve bf16: {sres['launches']}")
             # 9 heads do not divide over 2: every head on every rank
             check(sres["prefill_heads"] == [[9, 3]],
@@ -5512,16 +5619,39 @@ def tp_phase(shard):
               f"{res['float32']['one_rank_tokens']}")
         for dtype, sres in res.items():
             check(sres["prefill_heads"] == [[3, 1]] and
-                  sres["launches"]["swa_attention_fwd"] == 30,
+                  sres["launches"]["swa_attention_fwd"]
+                  == SHARD_SERVE_LAYERS,
                   f"[tp] head-local rank {r} {dtype}: heads "
                   f"{sres['prefill_heads']}, launches {sres['launches']}")
-        check(res["bfloat16"]["launches"]["swa_attention_fwd_wgmma"] == 30,
+        check(res["bfloat16"]["launches"]["swa_attention_fwd_wgmma"]
+              == SHARD_SERVE_LAYERS,
               f"[tp] head-local rank {r} bf16: {res['bfloat16']['launches']}")
+    for r, res in enumerate(slots):
+        check(res["float32"]["equal"], f"[tp] slots rank {r}: "
+              f"{res['float32']['tokens']} against one rank's "
+              f"{res['float32']['one_rank_tokens']}")
+        for dtype in ("float32", "bfloat16"):
+            sres = res[dtype]
+            wgmma = 30 if dtype == "bfloat16" else 0
+            # every head on every rank: 9 / 3 do not divide over 6
+            check(sres["prefill_heads"] == [[9, 3]]
+                  and sres["launches"]["swa_attention_fwd"] == 30
+                  and sres["launches"]["swa_attention_fwd_wgmma"] == wgmma,
+                  f"[tp] slots rank {r} {dtype}: heads "
+                  f"{sres['prefill_heads']}, launches {sres['launches']}")
+            check(sres["cache_shape"] == [30, TP_SLOTS[0], TP_SLOTS[1]
+                                          // math.prod(TP_SLOTS_MESH), 3, 64],
+                  f"[tp] slots rank {r} {dtype}: cache leaf "
+                  f"{sres['cache_shape']}")
+            check(sres["calls_per_token"] == [TP_SLOTS_CALLS]
+                  * TP_SLOTS_TOKENS, f"[tp] slots rank {r} {dtype}: gloo "
+                  f"calls a token {sres['calls_per_token']}, by design "
+                  f"{TP_SLOTS_CALLS}")
     log(f"[tp] allreduce losses within {LM_STEP_RTOL} of the replicated "
         f"run's (gaps {gaps}); collective bytes and counts equal the "
         "baseline dry-run's; peak memory a rank below the replicated run's; "
-        "fp32 tokens equal one rank's on both meshes; kernel 8 on 3 heads a "
-        "rank on (1, 3)")
+        "fp32 tokens equal one rank's on all three meshes; kernel 8 on 3 "
+        "heads a rank on (1, 3), on 9 on (1, 6) with the ring on its slots")
     families = tp_family_gates(ranks, dry["families"])
     record = {"train": r0["train"],
               "launches": {label: [r["train"][label]["launches"]
@@ -5533,6 +5663,9 @@ def tp_phase(shard):
                              "peak_mem_bytes": base_peak},
               "loss_gaps": gaps, "serve": r0["serve"],
               "head_local": local[0], "dryrun": dry,
+              "slots": slots[0], "slots_seconds": slots_s,
+              "slots_launches": {dtype: [r[dtype]["launches"] for r in slots]
+                                 for dtype in ("float32", "bfloat16")},
               "gloo_cuda": r0["gloo_cuda"], "families": families}
     record["seconds"] = time.perf_counter() - t0
     log(f"[tp] phase took {record['seconds']:.1f} s")
@@ -5718,6 +5851,16 @@ def main(argv):
             entry["tp"] = {"launches": {
                 label: [r[entry["name"]] for r in ranks]
                 for label, ranks in tp["launches"].items()}, "run": run}
+    attention["tp_slots"] = {
+        "launches": {dtype: [{k: r[k] for k in ("swa_attention_fwd",
+                                                "swa_attention_fwd_wgmma")}
+                             for r in ranks]
+                     for dtype, ranks in tp["slots_launches"].items()},
+        "run": f"tp phase: {LM_ARCH} full width on a {TP_SLOTS_MESH} (data, "
+               f"model) mesh, the ring on its slots, "
+               f"{math.prod(TP_SLOTS_MESH)} ranks sharing the card, one "
+               f"prefill of batch {TP_SLOTS[0]} x {TP_SLOTS[2]} a dtype, one "
+               "list entry a rank"}
     # the other families on the TP path: each kernel's launches a rank in
     # each train run, and its first call there against its plain version
     run = (f"tp phase, families: full width, depth cut, on a {TP_MESH} "

@@ -169,6 +169,12 @@ def get_config(name: str):
     return _REGISTRY[name]
 
 
+def all_arch_names():
+    """Every registered architecture's name, sorted."""
+    _load_all()
+    return sorted(_REGISTRY)
+
+
 _ALL_MODULES = ["mobilenet_cifar", "resnet18_cifar", "smollm_135m",
                 "phi3_mini_3_8b", "qwen1_5_4b", "gemma3_4b", "rwkv6_7b",
                 "mixtral_8x7b", "mixtral_8x22b", "recurrentgemma_2b",

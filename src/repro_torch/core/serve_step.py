@@ -30,14 +30,16 @@ cache by ``core.sharding.cache_pspecs``, as in the reference:
   exactly, and gathers a sharded recurrent state for the step.
 
 Under tensor parallelism each rank of a model group holds the same rows
-and slots and its slice of every ring along the model axis: its kv
-heads where M divides them, else its slice of head_dim (and an int8
-scale's slots where they divide).  Prefill fills that slice directly;
-decode computes every head (one all-reduce for q, k and v) and
-:class:`TpCache` hands the inner cache operations (the whole cache's or
-``SeqShard``'s) this rank's heads, or its head_dim slice with the scores
-summed over the model group, and gathers the output over it.  Logits
-come back whole.
+and its slice of every ring along the model axis: its kv heads where M
+divides them, else its slice of head_dim (and an int8 scale's slots
+where they divide), else its range of the slots.  Prefill fills that
+slice directly; decode computes every head (one all-reduce for q, k and
+v) and :class:`TpCache` hands the inner cache operations (the whole
+cache's or ``SeqShard``'s) this rank's heads, or its head_dim slice with
+the scores summed over the model group, and gathers the output over it;
+a ring cut on its slots goes through flash-decode over the model group,
+as a sequence-sharded one does over the data group.  Logits come back
+whole.
 
 Every step's inputs and outputs are the rank's local shards (the logits
 whole).
@@ -110,23 +112,10 @@ class SeqShard:
             raise NotImplementedError(
                 f"a ring buffer {tuple(whole.shape)} sharded on dim {d}, "
                 "not on its slots")
-        kw = dict(total_len=whole.shape[1], shard=self.index)
-        if kv_quant:
-            if quantized is None:
-                quantized = (*kvquant.quantize_kv(k),
-                             *kvquant.quantize_kv(v))
-            for name, (qv, sv) in zip("kv", (quantized[:2], quantized[2:])):
-                flash_decode.write_ring_shard(leaf[name]["q"], qv, pos, **kw)
-                flash_decode.write_ring_shard(leaf[name]["scale"], sv, pos,
-                                              **kw)
-            return flash_decode.flash_decode_attention_quant(
-                q, leaf["k"], leaf["v"], pos, group=self.group,
-                window=window, **kw, **extra)
-        flash_decode.write_ring_shard(leaf["k"], k, pos, **kw)
-        flash_decode.write_ring_shard(leaf["v"], v, pos, **kw)
-        return flash_decode.flash_decode_attention(
-            q, leaf["k"], leaf["v"], pos, group=self.group, window=window,
-            **kw, **extra)
+        return ring_attend(q, k, v, leaf, pos, window, kv_quant,
+                           group=self.group, index=self.index,
+                           total_len=whole.shape[1], quantized=quantized,
+                           **extra)
 
     def attend_all(self, q, enc, genc, **extra):
         d = _sharded_dim(enc["k"], genc["k"])
@@ -142,6 +131,31 @@ class SeqShard:
             total_len=total, shard=self.index, **extra)
 
 
+def ring_attend(q, k, v, leaf, pos, window, kv_quant, *, group, index,
+                total_len, quantized=None, **extra):
+    """Decode attention on slice ``index`` (B, L_loc, KV, hd) of a ring of
+    ``total_len`` slots laid end to end over the ranks of ``group``: the
+    slot's owner writes the token's k and v (``quantized``: its int8
+    entries, as ``WHOLE_CACHE.attend``), every rank attends its slots with
+    every query head, and flash-decode combines the partial softmaxes
+    over ``group``; the output is whole on every rank."""
+    kw = dict(total_len=total_len, shard=index)
+    if kv_quant:
+        if quantized is None:
+            quantized = (*kvquant.quantize_kv(k), *kvquant.quantize_kv(v))
+        for name, (qv, sv) in zip("kv", (quantized[:2], quantized[2:])):
+            flash_decode.write_ring_shard(leaf[name]["q"], qv, pos, **kw)
+            flash_decode.write_ring_shard(leaf[name]["scale"], sv, pos, **kw)
+        return flash_decode.flash_decode_attention_quant(
+            q, leaf["k"], leaf["v"], pos, group=group, window=window, **kw,
+            **extra)
+    flash_decode.write_ring_shard(leaf["k"], k, pos, **kw)
+    flash_decode.write_ring_shard(leaf["v"], v, pos, **kw)
+    return flash_decode.flash_decode_attention(
+        q, leaf["k"], leaf["v"], pos, group=group, window=window, **kw,
+        **extra)
+
+
 class TpCache:
     """The decode step's cache operations under tensor parallelism: q, k
     and v arrive with every head (the same on every rank of the model
@@ -152,15 +166,31 @@ class TpCache:
     the rank's slice of each, the scores summed over the group
     (``partial``), the output gathered over head_dim; int8 entries are
     quantized over the whole head_dim first, and a scale whose slots are
-    sharded over the group is written by its owner and gathered.  An
-    encoder-decoder's ``enc_kv`` goes the same two ways
-    (``attend_all``).  A recurrent state passes through ``inner`` in the
-    model axis's layout, which the layer's own step reads
+    sharded over the group is written by its owner and gathered.  Slots
+    (a ring of ``cache_len``, or of the window, whose kv heads and
+    head_dim do not divide over the group): every query head against the
+    rank's slots, flash-decode over the group (``ring_attend``), the
+    output whole.  An encoder-decoder's ``enc_kv`` goes the same three
+    ways (``attend_all``).  A recurrent state passes through ``inner`` in
+    the model axis's layout, which the layer's own step reads
     (``rwkv6.rwkv_decode_step``, ``rglru.rglru_decode_step``)."""
 
-    def __init__(self, inner, tp, cfg):
+    def __init__(self, inner, tp, cfg, cache_len):
         self.inner, self.tp, self.cfg = inner, tp, cfg
+        self.cache_len = cache_len
         self.cache = getattr(inner, "cache", None)
+
+    def _slots_cut(self, local, glocal, n):
+        """Whether the model axis cut the slots (dim 1) of ``local``, a
+        ring or encoder k/v of ``n`` slots (``glocal``: its leaf in
+        ``inner``'s cache, the model-local shapes, or None).  The data
+        axes never cut them beside it: ``cache_pspecs`` gives a ring's
+        slots to the data axes first, and the model axis then skips
+        them."""
+        cut = (local if glocal is None else glocal).shape[1] < n
+        assert not cut or local.shape[1] * self.tp.size == n, (
+            f"slots {tuple(local.shape)} of {n} cut beyond the model axis")
+        return cut
 
     def _partial(self, s):
         s = s.contiguous()
@@ -175,12 +205,18 @@ class TpCache:
 
     def attend_all(self, q, enc, genc):
         """q (every head) against this rank's slice of the encoder's k and
-        v: its kv heads, or its head_dim slice with the scores summed over
-        the group."""
+        v: its kv heads, its range of the positions (flash-decode over
+        the group), or its head_dim slice with the scores summed over the
+        group."""
         tp, cfg = self.tp, self.cfg
         if enc["k"].shape[2] < cfg.n_kv_heads:
             o = self.inner.attend_all(tp.slice(q, 2), enc, genc)
             return sharding.gather_dim(o, 2, tp.group)
+        gk = None if genc is None else genc["k"]
+        if self._slots_cut(enc["k"], gk, cfg.encoder_seq):
+            return flash_decode.flash_decode_attention(
+                q, enc["k"], enc["v"], cfg.encoder_seq - 1, group=tp.group,
+                total_len=cfg.encoder_seq, shard=tp.index)
         if enc["k"].shape[3] == cfg.head_dim:
             return self.inner.attend_all(q, enc, genc)
         o = self.inner.attend_all(tp.slice(q, 3), enc, genc,
@@ -197,6 +233,14 @@ class TpCache:
                                   kv_quant)
             return sharding.gather_dim(o, 2, tp.group)
         if payload.shape[3] == cfg.head_dim:
+            L = self.cache_len if window is None else min(window,
+                                                          self.cache_len)
+            gpay = None if gleaf is None else \
+                gleaf["k"]["q"] if kv_quant else gleaf["k"]
+            if self._slots_cut(payload, gpay, L):
+                return ring_attend(q, k, v, leaf, pos, window, kv_quant,
+                                   group=tp.group, index=tp.index,
+                                   total_len=L)
             return self.inner.attend(q, k, v, leaf, gleaf, pos, window,
                                      kv_quant)
         kw = dict(head_dim=cfg.head_dim, partial=self._partial)
@@ -242,26 +286,6 @@ def _map_tree(fn, *trees):
     if isinstance(t, (list, tuple)) and not isinstance(t, sharding.PSpec):
         return [_map_tree(fn, *xs) for xs in zip(*trees)]
     return fn(*trees)
-
-
-# the leaves of an RWKV6 or RG-LRU layer's decode state
-RECURRENT_STATE = ("S", "x_last", "h", "conv")
-
-
-def _refuse_slot_payloads(cfg, specs, model_axis):
-    """``NotImplementedError`` where ``cache_pspecs`` puts the model axis
-    on a ring's slots (neither its kv heads nor head_dim divide over the
-    model axis): prefill and decode run on kv heads or head_dim only.  An
-    int8 scale's slots are fine."""
-    def one(path, spec):
-        if path[-1] not in ("scale",) + RECURRENT_STATE and len(spec) >= 3 \
-                and model_axis in sharding._entry_axes(spec[-3]):
-            raise NotImplementedError(
-                f"{cfg.name}: the model axis falls on the slots of the ring "
-                f"{'.'.join(map(str, path))} ({cfg.n_kv_heads} kv heads and "
-                f"head_dim {cfg.head_dim} do not divide over it)")
-        return spec
-    sharding._map_with_path(one, specs, is_leaf=sharding._is_spec)
 
 
 def _drop_axes(spec, axes):
@@ -338,8 +362,6 @@ def build_serve_step(model, mesh=None, *, group=None, data_axes=("data",),
                 lambda _, sp: sharding.PSpec(
                     dp, *_drop_axes(sp, data_axes)[1:]), leaf,
                 is_leaf=sharding._is_spec) for leaf in specs["tail"]]
-        if M > 1:
-            _refuse_slot_payloads(cfg, specs, model_axis)
         cache_sh = sharding.shardings(specs, mesh)
         # the model axis alone: a rank's cache before the data axes cut it
         model_sh = sharding.shardings(_map_tree(
@@ -379,7 +401,8 @@ def build_serve_step(model, mesh=None, *, group=None, data_axes=("data",),
                     lambda t, sh: sh.shard(t, rank).clone(), cache, data_sh)
     model.tp = tp
     if tp is not None:
-        shard = TpCache(WHOLE_CACHE if shard is None else shard, tp, cfg)
+        shard = TpCache(WHOLE_CACHE if shard is None else shard, tp, cfg,
+                        cache_len)
 
     def decode(token, cache, pos):
         return model.decode_step(token, cache, pos, swa_variant=swa_variant,

@@ -36,6 +36,8 @@ Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k \\
       --profile zero3
+  python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k \\
+      --fsdp
   python -m repro_torch.launch.dryrun --all --both-meshes
 Results land in ``results/dryrun_torch/<arch>__<shape>__<mesh>[__<tag>].json``
 (no tag for ``baseline``, the profile's name for ``dp`` and ``zero3``, as
@@ -353,6 +355,10 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--strategy", default="allreduce")
+    ap.add_argument("--fsdp", action="store_true", default=None,
+                    help="shard parameters and optimizer state over the "
+                         "data axes too (baseline; absent: FSDP_REQUIRED "
+                         "decides)")
     ap.add_argument("--profile", default="baseline",
                     choices=["baseline", "dp", "zero3"],
                     help="baseline (the default, the reference's): TP over "
@@ -374,7 +380,7 @@ def main(argv=None):
                 label = f"{arch} x {shape} x {'2x16x16' if mp else '16x16'}"
                 try:
                     r = dryrun_one(arch, shape, multi_pod=mp,
-                                   strategy=args.strategy,
+                                   strategy=args.strategy, fsdp=args.fsdp,
                                    profile=args.profile, tag=args.tag)
                     results.append(r)
                     if "skipped" in r:

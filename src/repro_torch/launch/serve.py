@@ -21,8 +21,8 @@ each, as ``launch.train`` runs them): the cache is batch-sharded where the
 batch divides over the D data ranks and sequence-sharded otherwise
 (``core.serve_step``); a model axis M above 1 is tensor parallelism
 (every family): each rank of a model group holds its slice of the
-parameters and of the cache's kv heads or head_dim, an RWKV6 state's N
-dim, an RG-LRU state's channels.
+parameters and of the cache's kv heads, head_dim or ring slots, an
+RWKV6 state's N dim, an RG-LRU state's channels or taps.
 
   # reduced SmolLM, batch 1, the cache sequence-sharded over 4 CPU ranks
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
@@ -35,6 +35,11 @@ dim, an RG-LRU state's channels.
   # reduced RWKV6, its state sharded on an N dim over the model axis
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --reduced --device cpu --world-size 4 --mesh 2x2 --batch 4
+
+  # reduced SmolLM, its ring on its 21 slots over the model axis of 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --reduced --device cpu --world-size 3 --mesh 1x3 --batch 2 \
+      --prompt-len 16 --decode-tokens 5
 """
 from __future__ import annotations
 

@@ -87,15 +87,15 @@ are sharded (``logits_sharded``; the loss is vocab-parallel), and
 attention runs kernel 8 on this rank's H/M heads where M divides them,
 else on every head.  ``prefill`` and ``decode_step`` return whole logits;
 ``prefill`` fills the rank's cache given to it, laid out by
-``core.sharding.cache_pspecs`` (kv heads or head_dim on the model axis),
-and ``decode_step`` reaches that cache through the serve step's cache
-operations (``core.serve_step.TpCache``).  The MoE layer runs its experts
-on this rank's d_ff slice (``moe.moe_apply``), the RWKV6 time-mix its WKV
-on this rank's heads and the RG-LRU its channels (``rwkv6``, ``rglru``);
-an encoder-decoder's encoder layers and cross-attention take the
-attention and MLP routes above, and ``enc_kv`` holds this rank's kv
-heads or head_dim slice; a VLM's patch embeddings are replicated
-inputs.
+``core.sharding.cache_pspecs`` (kv heads, head_dim or slots on the
+model axis), and ``decode_step`` reaches that cache through the serve
+step's cache operations (``core.serve_step.TpCache``).  The MoE layer
+runs its experts on this rank's d_ff slice (``moe.moe_apply``), the
+RWKV6 time-mix its WKV on this rank's heads and the RG-LRU its channels
+(``rwkv6``, ``rglru``); an encoder-decoder's encoder layers and
+cross-attention take the attention and MLP routes above, and ``enc_kv``
+holds this rank's kv heads, head_dim slice or encoder positions; a
+VLM's patch embeddings are replicated inputs.
 """
 from __future__ import annotations
 
@@ -542,7 +542,8 @@ class Model(nn.Module):
                     k = self._rope(k, positions)
                 else:
                     k = ka
-                self._fill_ring(leaf, k, v, S)
+                self._fill_ring(leaf, k, v, S,
+                                self._cache_len(kind, cache_len))
             if enc is not None:
                 x, ek, ev = self._cross(x, p, enc_out)
                 if self.tp is not None:
@@ -554,17 +555,27 @@ class Model(nn.Module):
         x = self._norm(x[:, -1:], self.final_norm)
         return self._logits(x, whole=True), cache
 
-    def _fill_ring(self, leaf, k, v, S):
+    def _fill_ring(self, leaf, k, v, S, L):
         """Write the trailing ``min(L, S)`` positions of k and v (B, S, *,
-        hd) at ring slots ``(S - take .. S - 1) mod L`` of a cache leaf;
-        under tensor parallelism, the leaf's slice of them (its kv heads,
-        its head_dim slice, and an int8 scale's slots)."""
+        hd) at slots ``(S - take .. S - 1) mod L`` of a ring of ``L``
+        slots; under tensor parallelism, the leaf's slice of them (its kv
+        heads, its head_dim slice, or its range of the slots, an int8
+        scale's too)."""
         payload = leaf["k"]["q"] if self.kv_quant else leaf["k"]
-        L = payload.shape[1]
         take = min(L, S)
         slots = torch.remainder(torch.arange(S - take, S, device=k.device),
                                 L)
         tp = self.tp
+
+        def put(ring, val):
+            if ring.shape[1] == L:
+                ring.index_copy_(1, slots, val)
+                return
+            # this rank's range of the slots: the model axis on them
+            whole = ring.new_zeros(ring.shape[:1] + (L,) + ring.shape[2:])
+            whole.index_copy_(1, slots, val)
+            ring.copy_(tp.slice(whole, 1))
+
         for name, val in (("k", k), ("v", v)):
             val = val[:, S - take:]
             if tp is not None and val.shape[2] > payload.shape[2]:
@@ -573,20 +584,12 @@ class Model(nn.Module):
                 qv, sv = kvquant.quantize_kv(val)
                 if tp is not None and qv.shape[3] > payload.shape[3]:
                     qv = tp.slice(qv, 3)
-                leaf[name]["q"].index_copy_(1, slots, qv)
-                scale = leaf[name]["scale"]
-                if scale.shape[1] < L:
-                    # the scale's slots over the model axis
-                    whole = scale.new_zeros((scale.shape[0], L)
-                                            + tuple(scale.shape[2:]))
-                    whole.index_copy_(1, slots, sv)
-                    scale.copy_(tp.slice(whole, 1))
-                else:
-                    scale.index_copy_(1, slots, sv)
+                put(leaf[name]["q"], qv)
+                put(leaf[name]["scale"], sv)
             else:
                 if tp is not None and val.shape[3] > payload.shape[3]:
                     val = tp.slice(val, 3)
-                leaf[name].index_copy_(1, slots, val)
+                put(leaf[name], val)
 
     @torch.no_grad()
     def decode_step(self, token, cache, pos, swa_variant: bool = False,

@@ -535,6 +535,16 @@ SWA_FAMILY_CASES = [
 SWA_GPU_CASES += SWA_FAMILY_CASES
 
 
+# the heads a rank sees under tensor parallelism: Mixtral 8x7B's 32 / 8
+# over 2, Whisper's decoder's 12 / 12 over 2, SmolLM-135M's 9 / 3 on
+# (1, 6), where neither divides and every rank runs every head
+SWA_GPU_CASES += [
+    (2, 512, 16, 4, 128, 4096, True),
+    (2, 448, 6, 6, 64, None, True),
+    (2, 2048, 9, 3, 64, None, True),
+]
+
+
 # the wide head_dims, on the tensor-core route in bf16 and the CUDA-core
 # route in fp32: Gemma-3's 320 (its local and global layers at its train
 # shape, a ragged S), pixtral-12b's 160 (32 heads on 8), recurrentgemma-2b's
@@ -546,6 +556,10 @@ SWA_WIDE_CASES = [
     (1, 512, 32, 8, 160, None, True),
     (1, 512, 10, 1, 256, 128, True),
     (2, 300, 4, 2, 256, None, False),
+    # under tensor parallelism over 2: RecurrentGemma's 10 / 1 heads,
+    # Pixtral's 32 / 8 at its prompt of 1,280
+    (2, 512, 5, 1, 256, 2048, True),
+    (1, 1280, 16, 4, 160, None, True),
 ]
 
 
@@ -754,6 +768,8 @@ WKV_GPU_CASES = [
     (1, 256, 4, 64, 32, 0.0),
     (1, 64, 2, 32, 64, 1.5),
     (2, 128, 8, 64, 64, 3.0),
+    # RWKV6's 64 heads over the model axis of 2, at the TP train shape
+    (2, 512, 32, 64, 64, -2.0),
 ]
 
 

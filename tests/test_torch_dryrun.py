@@ -113,6 +113,39 @@ def test_fsdp_required_recomputed_for_80gb():
     assert dryrun.FSDP_REQUIRED == {"mixtral-8x22b"}
 
 
+def test_transformer_archs_are_the_registry_s_non_cnn_names():
+    """``TRANSFORMER_ARCHS`` (in the order ``--all`` runs them) holds
+    exactly the non-CNN names of ``all_arch_names()``."""
+    from repro_torch.configs.base import all_arch_names, get_config
+    want = [a for a in all_arch_names() if get_config(a).family != "cnn"]
+    assert sorted(dryrun.TRANSFORMER_ARCHS) == want
+    assert len(set(dryrun.TRANSFORMER_ARCHS)) == len(want) == 10
+
+
+def test_fsdp_flag_of_the_command_line(tmp_path, monkeypatch):
+    """``--fsdp`` gives the JSON of ``dryrun_one(..., fsdp=True)`` but for
+    the trace time; without it ``FSDP_REQUIRED`` decides (SmolLM: no
+    FSDP), as in the reference's CLI."""
+    import json
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path / "results")
+    runs = {}
+    for flag in ("--fsdp", None):
+        out = tmp_path / f"{flag}.json"
+        dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k",
+                     "--json-out", str(out)] + ([flag] if flag else []))
+        (runs[flag],) = json.loads(out.read_text())
+        runs[flag].pop("trace_s")
+    want = json.loads(json.dumps(dryrun.dryrun_one(
+        "smollm-135m", "train_4k", fsdp=True, save=False), default=float))
+    want.pop("trace_s")
+    assert runs["--fsdp"] == want and want["fsdp"] is True
+    assert runs[None]["fsdp"] is ("smollm-135m" in dryrun.FSDP_REQUIRED) \
+        is False
+    assert runs[None]["memory"] != want["memory"]
+    assert sorted(p.name for p in (tmp_path / "results").iterdir()) == [
+        "smollm-135m__train_4k__16x16.json"]
+
+
 def test_record_collectives_kinds_and_wire_factors():
     """Every collective the port issues, on a fake group of 4 ranks:
     result bytes and the reference's wire factors (all-reduce 2x,

@@ -11,7 +11,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro.configs.base import all_arch_names  # noqa: E402
 from repro.configs.base import get_config as jget_config  # noqa: E402
 from repro.costmodel import flops as jflops  # noqa: E402
 from repro.serverless import traces as jtraces  # noqa: E402
@@ -20,7 +19,7 @@ from repro.serving import steady_state as jsteady  # noqa: E402
 from repro.serving import workload as jworkload  # noqa: E402
 from repro_torch import costmodel  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.configs.base import ModelConfig, all_arch_names  # noqa: E402
 from repro_torch.costmodel import flops  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serverless import traces  # noqa: E402

@@ -300,12 +300,17 @@ def test_cnn_and_whisper_fsdp_are_still_refused(case):
 
 def test_a_ring_sharded_on_its_slots_is_refused():
     """Reduced SmolLM on (1, 3): 1 kv head and head_dim 64 do not divide
-    over 3, so ``cache_pspecs`` puts the model axis on the ring's 66 slots,
-    which prefill and decode do not run; the serve step says so."""
+    over 3, so ``cache_pspecs`` puts the model axis on the ring's 66
+    slots.  The serve step no longer refuses it: each rank's cache holds
+    22 slots, and the decode step runs on them (shapes only, over a fake
+    process group) to whole logits."""
     from repro_torch.core import build_serve_step
     from repro_torch.launch.dryrun import fake_group
     with fake_group(3):
         model = Model(get_config("smollm-135m").reduced(), device="meta")
-        with pytest.raises(NotImplementedError, match="slots of the ring"):
-            build_serve_step(model, make_mesh((1, 3), ("data", "model")),
-                             model_axis="model", batch_size=1, cache_len=66)
+        ss = build_serve_step(model, make_mesh((1, 3), ("data", "model")),
+                              model_axis="model", batch_size=1, cache_len=66)
+        token, cache, pos = ss.make_inputs("decode", 66)
+        assert cache["blocks"][0]["k"].shape == (2, 1, 22, 1, 64)
+        logits, _ = ss.decode_fn(token, cache, pos)
+        assert logits.shape == (1, 1, model.padded_vocab)

@@ -26,7 +26,7 @@ from repro.data import token_stream as jtoken_stream  # noqa: E402
 from repro.models.transformer import build_model as jbuild_model  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.configs.base import ModelConfig, all_arch_names  # noqa: E402
 from repro_torch.core import build_train_step, get_strategy, losses  # noqa: E402
 from repro_torch.data import lm_batches, token_stream  # noqa: E402
 from repro_torch.kernels import fused_adamw, swa_attention  # noqa: E402
@@ -66,9 +66,15 @@ def _port(cfg, tree, use_kernel=False):
     return model
 
 
+def test_arch_names_match_reference():
+    """The port registers the reference's architectures, CNNs included."""
+    assert all_arch_names() == jall_arch_names()
+
+
 def test_configs_match_reference():
-    """Every LM config the reference registers, and its ``reduced()``."""
-    lms = [n for n in jall_arch_names() if jget_config(n).family != "cnn"]
+    """Every LM config the port registers, and its ``reduced()``, the
+    reference's."""
+    lms = [n for n in all_arch_names() if get_config(n).family != "cnn"]
     assert len(lms) == 10
     for arch in lms:
         a, b = get_config(arch), jget_config(arch)
