@@ -57,12 +57,18 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    distance to the exact mean, and 5 steps of
    ``scatterreduce_q8``.  Its record is a JSON line of its own.
 7. lm: the LM kernels (fused AdamW, sliding-window attention: bf16 on
-   the tensor cores, fp32 on the CUDA cores) against their plain versions
-   at every SmolLM-135M leaf, at SmolLM's train and long shapes, windows
-   64 and 1024, a ragged S and head_dims 96 and 128, and the attention
-   gradient in fp32 and bf16; the tensor-core kernel's SASS (wgmma and TMA); their times
+   wgmma, fp32 on 3xTF32 mma.sync, both on the tensor cores, fp32 at hd
+   320 on the CUDA-core kernel) against their plain versions at every
+   SmolLM-135M leaf, at SmolLM's train and long shapes, windows 64 and
+   1024, a ragged S and head_dims 96 and 128, and the attention
+   gradient in fp32 and bf16; the attention
+   kernels' SASS (wgmma and TMA; TF32 mma and no spill); their times
    against bound, plain version, library call and, for attention, the
-   CUDA-core kernel in bf16; then the LM entry point on full-width
+   CUDA-core kernel in bf16; the fp32 route's times at SmolLM's long
+   shape, Gemma-3's and the families' head_dims 128, 160 and 256 in
+   turns with the CUDA-core kernel, against its fp32 bound, its design's
+   least time and ``F.scaled_dot_product_attention`` in fp32 under each
+   backend, with their errors; then the LM entry point on full-width
    SmolLM-135M (bf16, batch 16 x seq 128, fused AdamW, 30 steps, one-rank
    NCCL group) at lr 1e-3 with each kernel's launches counted per step
    (every attention launch on the tensor-core route), two steps through
@@ -74,8 +80,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    earlier readings).
 8. gemma: attention at the wide head_dims (Gemma-3's 320 at its train
    shape, local and global, and a ragged S; 160; 256) against its plain
-   version in bf16 (every launch on the tensor-core route) and fp32 (the
-   CUDA-core route); its times at Gemma-3's shape against bound, plain
+   version in bf16 (every launch on the wgmma route) and fp32 (the 3xTF32
+   route, the CUDA-core kernel at hd 320); its times at Gemma-3's shape
+   against bound, plain
    version, the CUDA-core kernel in bf16 (its earlier route) and
    ``F.scaled_dot_product_attention`` under each backend (which one the
    default picks, which refuse hd 320); then the LM entry point on
@@ -234,7 +241,7 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    head_dim 64 divide and the model axis lands on the ring's slots: all
    30 layers, batch 2, cache 3,072 (512 slots a rank), prompt 2,048,
    kernel 8 on
-   all 9 heads a rank in the prefill (fp32 on the CUDA cores, bf16 on
+   all 9 heads a rank in the prefill (fp32 on 3xTF32, bf16 on
    wgmma), 8 greedy tokens through flash-decode over the model group,
    fp32 token for token against one rank's, gloo calls a token against
    the design's count.  Its record is the line ``{"tp": {...}}``; the
@@ -1437,6 +1444,7 @@ LM_ARCH = "smollm-135m"
 ADAMW_SRC = "src/repro_torch/kernels/csrc/fused_adamw.cu"
 SWA_SRC = "src/repro_torch/kernels/csrc/swa_attention.cu"
 SWA_TC_SRC = "src/repro_torch/kernels/csrc/swa_attention_tc.cu"
+SWA_TF32_SRC = "src/repro_torch/kernels/csrc/swa_attention_tf32.cu"
 LM_BATCH, LM_SEQ, LM_STEPS = 16, 128, 30
 # the entry point's default lr 3e-3 makes full-width SmolLM's loss rise
 # over 30 steps (11.21 -> 11.58, first and last five); 1e-3 trains (PERF.md)
@@ -1530,14 +1538,16 @@ def lm_kernel_parity(dev):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev)
                        .to(dtype) for n in (H, KV, KV))
-            before = swa.LAUNCHES["swa_attention_fwd_wgmma"]
+            before = dict(swa.LAUNCHES)
             got = swa.swa_attention_fwd(q, k, v, window=window,
                                         causal=causal)
             want = ref.swa_attention(q, k, v, window=window, causal=causal)
             torch.cuda.synchronize()
-            check(swa.LAUNCHES["swa_attention_fwd_wgmma"] - before
-                  == (dtype == torch.bfloat16),
-                  f"swa_attention_fwd at {label} {dtype}: wrong route")
+            check_attention_route(
+                {name: n - before[name]
+                 for name, n in swa.LAUNCHES.items()}, 1,
+                str(dtype).split(".")[-1], f"swa_attention_fwd at {label}",
+                hd)
             diff = (got.float() - want.float()).abs()
             if dtype == torch.float32:
                 ok = bool((diff <= SWA_F32_ATOL).all())
@@ -1578,8 +1588,8 @@ def lm_kernel_parity(dev):
                        for name in ("kernel", "plain_bf16"))
     check(gerr16 <= 2 ** -7, f"swa_attention bf16 gradient differs by "
           f"{gerr16:.3e} of the largest fp32 gradient")
-    log(f"[lm] swa_attention_fwd (bf16 on the tensor-core kernel, fp32 on "
-        f"the CUDA-core kernel) against its plain version at "
+    log(f"[lm] swa_attention_fwd (bf16 on the wgmma kernel, fp32 on the "
+        f"3xTF32 kernel) against its plain version at "
         f"{len(SWA_PARITY)} shapes x bf16/fp32 "
         f"({', '.join(c[0] for c in SWA_PARITY)}): max abs err fp32 "
         f"{err[torch.float32]:.3e} (tol {SWA_F32_ATOL}), bf16 "
@@ -1639,11 +1649,11 @@ def swa_sass():
     return counts
 
 
-def cuda_core_bf16(q, k, v, window):
-    """The CUDA-core attention kernel on bf16 (causal), which no route of
-    the port takes since the tensor-core kernel replaced it at every head_dim:
-    launched through its C entry point only to time the two designs in one
-    run; counts nothing."""
+def cuda_core_attention(q, k, v, window):
+    """The CUDA-core attention kernel (causal) in q's dtype, launched
+    through its C entry point to time it beside the routes that replaced
+    it (bf16 at every head_dim, fp32 below hd 320) in one run; counts
+    nothing."""
     import math
     import torch
     from repro_torch.kernels import _build
@@ -1652,9 +1662,10 @@ def cuda_core_bf16(q, k, v, window):
     out = torch.empty_like(q)
     lib = _build._library("swa_attention", swa._SIGNATURES)
     err = lib.rt_swa_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, B, S, H,
-        k.shape[2], hd, 0 if window is None else window, 1,
-        1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        swa._DTYPES[q.dtype], B, S, H, k.shape[2], hd,
+        0 if window is None else window, 1, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream().cuda_stream)
     check(err == 0, f"CUDA-core attention kernel failed: CUDA error {err}")
     return out
 
@@ -1739,7 +1750,7 @@ def lm_kernel_times(dev):
             lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=band, enable_gqa=True)
         fn = lambda: swa.swa_attention_fwd(q, k, v, window=window)  # noqa: E731
-        old = lambda: cuda_core_bf16(q, k, v, window)  # noqa: E731
+        old = lambda: cuda_core_attention(q, k, v, window)  # noqa: E731
         r = dict(ms=time_ms(fn, reps=10), graph_ms=graphed_ms(fn),
                  cuda_core_ms=time_ms(old, reps=10),
                  cuda_core_graph_ms=graphed_ms(old),
@@ -1765,6 +1776,151 @@ def lm_kernel_times(dev):
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return out
+
+
+# kernel 8's fp32 route at the shapes its callers give it: SmolLM's long
+# shape, Gemma-3's local and global layers, and the families' head_dims
+# 128, 160 and 256 at their prefill shapes (``FAM_ATTENTION``)
+# (label, B, S, H, KV, hd, window), causal
+SWA_F32_SHAPES = [
+    ("smollm long", LONG_BATCH, LONG_SEQ, 9, 3, 64, None),
+    ("gemma3 local", 1, 2048, 8, 4, 320, 1024),
+    ("gemma3 global", 1, 2048, 8, 4, 320, None),
+    ("mixtral-8x7b", 4, 512, 32, 8, 128, 4096),
+    ("recurrentgemma-2b", 4, 512, 10, 1, 256, 2048),
+    ("pixtral-12b", 1, 1536, 32, 8, 160, None),
+]
+
+
+def tf32_tile_exps(B, S, H, KV, hd, window):
+    """exp2s the fp32 kernel takes (``swa_attention_tf32.cu``): one a row
+    and key of every kv tile it visits (64 rows a q tile of 64 / G
+    queries; 64 keys a tile at hd <= 64, 32 up to 160, else 16),
+    causal."""
+    keys = 64 if hd <= 64 else 32 if hd <= 160 else 16
+    bq = 64 // (H // KV)
+    tiles = 0
+    for q0 in range(0, S, bq):
+        lo = max(q0 - window + 1, 0) if window else 0
+        tiles += (min(q0 + bq, S) - 1) // keys - lo // keys + 1
+    return B * KV * 64 * keys * tiles
+
+
+def swa_f32_times(dev):
+    """Kernel 8's fp32 route at ``SWA_F32_SHAPES``: the wrapper (the
+    3xTF32 kernel; the CUDA-core kernel at hd 320) and the CUDA-core
+    kernel (the route before, through its C entry point) called back to
+    back and as CUDA graphs in turns (old, new, new, old), each against
+    the plain version; the bound at the fp32 peak outside the tensor
+    cores, the design's own least time (three TF32 products at the TF32
+    peak) and its exp2 count;
+    ``F.scaled_dot_product_attention`` in fp32 with TF32 off, as the
+    default dispatcher runs it and under each backend, with its error."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as swa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(27)
+    out = {}
+    for label, B, S, H, KV, hd, window in SWA_F32_SHAPES:
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev)
+                   for n in (H, KV, KV))
+        flops = 4 * B * H * hd * attention_pairs(S, window, True)
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+        t_ops, t_bytes = flops / H100_FP32_FLOP_PER_S, \
+            nbytes / H100_BYTES_PER_S
+        design = 3 * flops / H100_TF32_FLOP_PER_S
+        want = ref.swa_attention(q, k, v, window=window)
+        fn = lambda: swa.swa_attention_fwd(q, k, v, window=window)  # noqa: E731
+        old = lambda: cuda_core_attention(q, k, v, window)  # noqa: E731
+        route = "tf32" if hd in swa.TF32_HEAD_DIMS else "cuda_core"
+        err = float((fn() - want).abs().max())
+        err_old = float((old() - want).abs().max())
+        check(err <= SWA_F32_ATOL and err_old <= SWA_F32_ATOL,
+              f"[lm] fp32 attention at {label}: max abs err {err:.3e} "
+              f"(the wrapper, route {route}), {err_old:.3e} (CUDA cores)")
+        turns = [graphed_ms(old), graphed_ms(fn), graphed_ms(fn),
+                 graphed_ms(old)]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ke, ve = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
+        if window is None or window >= S:
+            mask = dict(is_causal=True)
+        else:
+            pos = torch.arange(S, device=dev)
+            mask = dict(attn_mask=(pos[None, :] <= pos[:, None])
+                        & (pos[None, :] > pos[:, None] - window))
+        lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, enable_gqa=True, **mask)
+        expanded = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, ke, ve, **mask)
+        backend, _ = sdpa_backend_of(lib_fn)
+        r = dict(route=route, ms=time_ms(fn, reps=10),
+                 graph_ms=min(turns[1:3]),
+                 cuda_core_ms=time_ms(old, reps=10),
+                 cuda_core_graph_ms=min(turns[0], turns[3]), turns=turns,
+                 plain_ms=time_ms(lambda: ref.swa_attention(
+                     q, k, v, window=window), reps=2, warmup=1),
+                 max_abs_err=err, cuda_core_max_abs_err=err_old,
+                 library_ms=time_ms(lib_fn, reps=10),
+                 library_max_abs_err=float((lib_fn().transpose(1, 2)
+                                            - want).abs().max()),
+                 library_backend=backend,
+                 sdpa_backends=sdpa_by_backend(lib_fn, expanded, want),
+                 bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 design_ms=design * 1e3, flops=flops, bytes=nbytes,
+                 exps=tf32_tile_exps(B, S, H, KV, hd, window),
+                 shapes=f"q ({B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, "
+                        f"{hd}) fp32, causal, window {window}")
+        out[label] = r
+        backends = "; ".join(
+            f"{name} " + (f"{b['gqa_ms']:.4f} ms" if "gqa_ms" in b else
+                          f"refuses GQA ({b['gqa_refused']})"
+                          + (f", expanded k/v {b['expanded_ms']:.4f} ms"
+                             if "expanded_ms" in b else
+                             f", expanded refused too "
+                             f"({b.get('expanded_refused')})"))
+            + (f" (err {b['max_abs_err']:.3e})" if "max_abs_err" in b
+               else "")
+            for name, b in r["sdpa_backends"].items())
+        log(f"[lm] fp32 swa_attention_fwd {label} {r['shapes']}: the "
+            f"wrapper (route {route}) {r['ms']:.4f} ms (graph {r['graph_ms']:.4f} ms, "
+            f"{r['bound_ms'] / r['graph_ms']:.3f} of the fp32 bound, "
+            f"{r['design_ms'] / r['graph_ms']:.3f} of the design's least "
+            f"time {r['design_ms']:.4f} ms; err {err:.3e}), CUDA-core "
+            f"kernel {r['cuda_core_ms']:.4f} ms (graph "
+            f"{r['cuda_core_graph_ms']:.4f} ms; err {err_old:.3e}; graphs "
+            f"in turns old, new, new, old {[round(t, 4) for t in turns]}), "
+            f"plain {r['plain_ms']:.4f} ms, SDPA default {backend} "
+            f"{r['library_ms']:.4f} ms (err {r['library_max_abs_err']:.3e})"
+            f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+            f"{flops / 1e9:.2f} GFLOP at the fp32 peak; {nbytes / 1e6:.1f} "
+            f"MB), exp2s {r['exps'] / 1e6:.1f} M")
+        log(f"[lm] fp32 SDPA by backend, {label}: {backends}")
+        del q, k, v, qt, kt, vt, ke, ve, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def swa_tf32_sass():
+    """The fp32 attention kernel's SASS: counts of TF32 mma (HMMA) and
+    local-memory stores (STL, a spill) in each instantiation of
+    ``swa_tf32_kernel``; fails unless there is one for every head_dim of
+    ``TF32_HEAD_DIMS``, each with HMMA and no STL."""
+    from repro_torch.kernels import swa_attention as swa
+    counts = {}
+    for name, c in sass_counts("swa_attention_tf32", "swa_tf32_kernel",
+                               ("HMMA", "STL")).items():
+        hd = [h for h in swa.TF32_HEAD_DIMS if f"ILi{h}E" in name]
+        check(len(hd) == 1, f"unexpected instantiation {name}")
+        counts[f"hd {hd[0]}"] = c
+    check(len(counts) == len(swa.TF32_HEAD_DIMS)
+          and all(c["HMMA"] and not c["STL"] for c in counts.values()),
+          f"swa_tf32_kernel SASS lacks an instantiation or HMMA, or "
+          f"spills: {counts}")
+    log(f"[lm] swa_tf32_kernel SASS (cuobjdump -sass): {counts}")
+    return counts
 
 
 def _lm_counters():
@@ -1796,6 +1952,7 @@ def expected_lm_launches(steps, microbatches=1, mlless=False):
          "wkv6_chunked": 0, "wkv6_chunked_tc": 0,
          **mlless_launches(steps if mlless else 0)}
     n["swa_attention_fwd_wgmma"] = n["swa_attention_fwd"]   # bf16: all
+    n["swa_attention_fwd_tf32"] = 0
     return n
 
 
@@ -2022,7 +2179,11 @@ def lm_phase():
     t0 = time.perf_counter()
     err = lm_kernel_parity(dev)
     sass = swa_sass()
+    tf32_sass = swa_tf32_sass()
     times = lm_kernel_times(dev)
+    t1 = time.perf_counter()
+    f32 = swa_f32_times(dev)
+    log(f"[lm] fp32 attention times took {time.perf_counter() - t1:.1f} s")
     init = "file://" + os.path.join(tempfile.mkdtemp(prefix="chip_smoke_lm_"),
                                     "pg")
     launches, runs = lm_train_phase(init)
@@ -2051,6 +2212,21 @@ def lm_phase():
          "train_shape": times["swa_attention_fwd/train"],
          "window_1024": times["swa_attention_fwd/long_window_1024"],
          "sass": sass},
+        # the fp32 route; its launches come from the serve phase's fp32
+        # engine run (``main``)
+        {"name": "swa_attention_fwd_tf32", "route": "cuda",
+         "source": SWA_TF32_SRC, "cuda_core_source": SWA_SRC,
+         "replaces": "src/repro/kernels/swa_attention.py:81",
+         "launches": None,
+         "max_abs_err": max([err["swa_attention_fwd"]]
+                            + [r["max_abs_err"] for r in f32.values()]),
+         **{key: f32["smollm long"][key] for key in (
+             "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "design_ms", "cuda_core_ms",
+             "cuda_core_graph_ms", "shapes")},
+         "library": "F.scaled_dot_product_attention(is_causal=True, "
+                    "enable_gqa=True) in fp32, TF32 off, (B, H, S, hd)",
+         "at_shapes": f32, "sass": tf32_sass},
     ]
 
 
@@ -2082,8 +2258,8 @@ GEMMA_PARITY = [
 
 def gemma_kernel_parity(dev):
     """Attention against its plain version at ``GEMMA_PARITY`` in bf16
-    (every launch on the tensor-core route) and fp32 (the CUDA-core
-    route), at the gates of ``lm_kernel_parity``."""
+    (every launch on the wgmma route) and fp32 (the 3xTF32 route; the
+    CUDA-core kernel at hd 320), at the gates of ``lm_kernel_parity``."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import swa_attention as swa
@@ -2098,13 +2274,11 @@ def gemma_kernel_parity(dev):
                                         causal=causal)
             want = ref.swa_attention(q, k, v, window=window, causal=causal)
             torch.cuda.synchronize()
-            wgmma = dtype == torch.bfloat16
-            check(swa.LAUNCHES["swa_attention_fwd"]
-                  == before["swa_attention_fwd"] + 1
-                  and swa.LAUNCHES["swa_attention_fwd_wgmma"]
-                  == before["swa_attention_fwd_wgmma"] + wgmma,
-                  f"swa_attention_fwd at {label} {dtype}: not one launch on "
-                  f"the {'tensor' if wgmma else 'CUDA'}-core route")
+            check_attention_route(
+                {name: n - before[name]
+                 for name, n in swa.LAUNCHES.items()}, 1,
+                str(dtype).split(".")[-1], f"swa_attention_fwd at {label}",
+                hd)
             diff = (got.float() - want.float()).abs()
             if dtype == torch.float32:
                 ok = bool((diff <= SWA_F32_ATOL).all())
@@ -2116,8 +2290,8 @@ def gemma_kernel_parity(dev):
                   f"{float(diff.max()):.3e}")
             err[dtype] = max(err[dtype], float(diff.max()))
             del q, k, v, got, want, diff
-    log(f"[gemma] swa_attention_fwd (bf16 on the tensor-core kernel, fp32 "
-        f"on the CUDA-core kernel) against its plain version at "
+    log(f"[gemma] swa_attention_fwd (bf16 on the wgmma kernel, fp32 on "
+        f"the 3xTF32 kernel, at hd 320 the CUDA-core one) against its plain version at "
         f"{len(GEMMA_PARITY)} shapes x bf16/fp32 "
         f"({', '.join(c[0] for c in GEMMA_PARITY)}): max abs err fp32 "
         f"{err[torch.float32]:.3e} (tol {SWA_F32_ATOL}), bf16 "
@@ -2159,11 +2333,12 @@ def sdpa_backend_of(fn):
     return ("MATH" if names else "not measured"), names
 
 
-def sdpa_by_backend(lib_fn, expanded_fn):
+def sdpa_by_backend(lib_fn, expanded_fn, want=None):
     """``F.scaled_dot_product_attention`` under each backend of
     ``SDPA_BACKENDS`` (``torch.nn.attention.sdpa_kernel``): its time as
     called, or why it refuses; where it refuses the GQA call, the same
-    call on k and v expanded to every q head."""
+    call on k and v expanded to every q head.  With ``want`` (B, S, H, hd)
+    also its largest error against it."""
     import warnings
     from torch.nn.attention import SDPBackend, sdpa_kernel
     out = {}
@@ -2175,6 +2350,10 @@ def sdpa_by_backend(lib_fn, expanded_fn):
                         warnings.catch_warnings():
                     warnings.simplefilter("ignore")
                     r[f"{form}_ms"] = time_ms(fn, reps=10)
+                    if want is not None:
+                        r["max_abs_err"] = float(
+                            (fn().transpose(1, 2).float() - want.float())
+                            .abs().max())
                 break
             except RuntimeError as e:
                 r[f"{form}_refused"] = str(e).strip().splitlines()[0][:160]
@@ -2221,7 +2400,7 @@ def gemma_kernel_times(dev):
         expanded = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, ke, ve, **mask)
         fn = lambda: swa.swa_attention_fwd(q, k, v, window=window)  # noqa: E731
-        old = lambda: cuda_core_bf16(q, k, v, window)  # noqa: E731
+        old = lambda: cuda_core_attention(q, k, v, window)  # noqa: E731
         turns = [graphed_ms(old), graphed_ms(fn), graphed_ms(fn),
                  graphed_ms(old)]
         backend, names = sdpa_backend_of(lib_fn)
@@ -2322,12 +2501,12 @@ def gemma_config():
 def expected_gemma_launches(steps):
     """Per step: fused AdamW once per leaf (51); attention once per layer
     in the forward and once more in the backward's recompute of the
-    checkpointed block (2 x 6), all on the tensor-core route (bf16, hd
-    320), none on the CUDA-core route."""
+    checkpointed block (2 x 6), all on the wgmma route (bf16, hd 320),
+    none on the fp32 route."""
     return {"fused_adamw_flat": GEMMA_LEAVES * steps,
             "swa_attention_fwd": 2 * GEMMA_LAYERS * steps,
             "swa_attention_fwd_wgmma": 2 * GEMMA_LAYERS * steps,
-            "wkv6_chunked": 0,
+            "swa_attention_fwd_tf32": 0, "wkv6_chunked": 0,
             "wkv6_chunked_tc": 0, **mlless_launches(0)}
 
 
@@ -2741,7 +2920,8 @@ def expected_rwkv_launches(steps, mlless=False):
     (N 64, chunk 64); MLLess's segmented filter once over all 17 leaves."""
     wkv = 2 * RWKV_LAYERS * steps
     return {"fused_adamw_flat": 17 * steps, "swa_attention_fwd": 0,
-            "swa_attention_fwd_wgmma": 0, "wkv6_chunked": wkv,
+            "swa_attention_fwd_wgmma": 0, "swa_attention_fwd_tf32": 0,
+            "wkv6_chunked": wkv,
             "wkv6_chunked_tc": wkv,
             **mlless_launches(steps if mlless else 0)}
 
@@ -3165,6 +3345,21 @@ def serve_launches():
     return dict(swa.LAUNCHES)
 
 
+def check_attention_route(launches, n, dtype, where, hd=64):
+    """Kernel 8 launched ``n`` times in ``launches`` (None: at least once),
+    every launch on the route of ``dtype`` and ``hd``: wgmma in bf16,
+    3xTF32 in fp32 at ``TF32_HEAD_DIMS``, else the CUDA-core kernel."""
+    from repro_torch.kernels import swa_attention as swa
+    got = launches["swa_attention_fwd"]
+    want = {"swa_attention_fwd_wgmma": got if dtype == "bfloat16" else 0,
+            "swa_attention_fwd_tf32": got if dtype == "float32"
+            and hd in swa.TF32_HEAD_DIMS else 0}
+    check((got == n if n is not None else got > 0)
+          and all(launches[k] == v for k, v in want.items()),
+          f"{where}: kernel 8 launches {launches}, expected "
+          f"{'some' if n is None else n}, {want}")
+
+
 def serve_tokens(vocab, batch, n, seed):
     import numpy as np
     import torch
@@ -3373,7 +3568,8 @@ def serve_prefill_32k():
         times.append((time.perf_counter() - t0) * 1e3)
         launches = serve_launches()
         check(launches == {"swa_attention_fwd": 30,
-                           "swa_attention_fwd_wgmma": 30},
+                           "swa_attention_fwd_wgmma": 30,
+                           "swa_attention_fwd_tf32": 0},
               f"[serve] prefill_32k launched {launches}")
         peak = torch.cuda.max_memory_allocated()
         check(bool(torch.isfinite(logits).all()), "prefill_32k logits")
@@ -3581,7 +3777,11 @@ def serve_engine():
             gap, _ = teacher_forced_err(model, prompt, fed, logits)
             del logits
             torch.cuda.empty_cache()
+        reset_lm_launches()
         reqs, got, rec = engine_run(model, spec)
+        rec["launches"] = serve_launches()
+        check_attention_route(rec["launches"], None, dtype,
+                              f"[serve] engine {dtype}")
         t0 = time.perf_counter()
         agree, ties, bad = 0, 0, []
         for rid, (p, n) in enumerate(reqs):
@@ -3611,7 +3811,8 @@ def serve_engine():
             f"s; {agree} of {len(reqs)} equal sequential generation in "
             f"full, {ties} diverge at a near tie (top-2 gap <= "
             f"{rec['gap']:.4f}); sequential runs took "
-            f"{rec['sequential_s']:.1f} s")
+            f"{rec['sequential_s']:.1f} s; kernel 8 launches in the engine's "
+            f"run {rec['launches']}")
         out[dtype] = rec
         del model
         torch.cuda.empty_cache()
@@ -3694,7 +3895,8 @@ def serve_phase():
     t0 = time.perf_counter()
     rec = {}
     cfg = get_config(SERVE_ARCH)
-    attn = {"swa_attention_fwd": 30, "swa_attention_fwd_wgmma": 30}
+    attn = {"swa_attention_fwd": 30, "swa_attention_fwd_wgmma": 30,
+            "swa_attention_fwd_tf32": 0}
     prompt = serve_tokens(cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, 0)
     smol = serve_model(cfg, prompt, SERVE_CACHE, SERVE_TOKENS,
                        f"{SERVE_ARCH} batch {SERVE_BATCH}, prompt "
@@ -3716,7 +3918,8 @@ def serve_phase():
         gcfg, serve_tokens(gcfg.vocab_size, g["batch"], g["prompt"], 2),
         g["cache"], g["tokens"], f"{GEMMA_ARCH} ({GEMMA_LAYERS} layers) "
         f"batch {g['batch']}, prompt {g['prompt']}, cache {g['cache']}",
-        {"swa_attention_fwd": 6, "swa_attention_fwd_wgmma": 6}, seed=4)
+        {"swa_attention_fwd": 6, "swa_attention_fwd_wgmma": 6,
+         "swa_attention_fwd_tf32": 0}, seed=4)
     r = RWKV_SERVE
     rcfg = rwkv_config()
     rprompt = serve_tokens(rcfg.vocab_size, r["batch"], r["prompt"], 3)
@@ -3733,7 +3936,8 @@ def serve_phase():
         rcfg, rprompt, r["prompt"] + r["tokens"], r["tokens"],
         f"{RWKV_ARCH} ({RWKV_LAYERS} layers) batch {r['batch']}, prompt "
         f"{r['prompt']}", {"swa_attention_fwd": 0,
-                           "swa_attention_fwd_wgmma": 0}, seed=2,
+                           "swa_attention_fwd_wgmma": 0,
+                           "swa_attention_fwd_tf32": 0}, seed=2,
         witness=chunk_64)
     rec["rwkv6_fp32"] = rwkv_fp32_serve(rprompt, r["tokens"])
     rec["engine"] = serve_engine()
@@ -3896,7 +4100,7 @@ def fam_train(arch, spec):
     want = {"fused_adamw_flat": spec["leaves"] * FAM_STEPS,
             "swa_attention_fwd": 2 * n_att * FAM_STEPS,
             "swa_attention_fwd_wgmma": 2 * n_att * FAM_STEPS,
-            "wkv6_chunked": 0, "wkv6_chunked_tc": 0, **mlless_launches(0)}
+            "swa_attention_fwd_tf32": 0, "wkv6_chunked": 0, "wkv6_chunked_tc": 0, **mlless_launches(0)}
     check(launches == want, f"[families] {arch} train: launches "
           f"{launches}, expected {want}")
     losses = res["losses"]
@@ -3982,7 +4186,8 @@ def fam_serve(arch, spec, seed):
     cfg = fam_config(arch, spec["layers"])
     B = spec["batch"]
     n_att = attention_layers(cfg)
-    want = {"swa_attention_fwd": n_att, "swa_attention_fwd_wgmma": n_att}
+    want = {"swa_attention_fwd": n_att, "swa_attention_fwd_wgmma": n_att,
+            "swa_attention_fwd_tf32": 0}
     label = (f"{arch} ({cfg.n_layers} layers) batch {B}, prompt "
              f"{spec['prompt']}, cache {spec['cache']}")
     prompt = serve_tokens(cfg.vocab_size, B, spec["prompt"], seed)
@@ -4686,6 +4891,10 @@ def sharding_phase():
                 check(sres["equal"], f"[sharding] rank {r} serve {label}: "
                       f"{sres['tokens']} against one rank's "
                       f"{sres['one_rank_tokens']}")
+            check_attention_route(
+                sres["launches"], None,
+                "float32" if label.endswith("float32") else "bfloat16",
+                f"[sharding] rank {r} serve {label}")
     base, fsdp = (r0["train"]["allreduce/dp"]["losses"],
                   r0["train"]["allreduce/fsdp"]["losses"])
     gaps = [abs(a - b) / abs(b) for a, b in zip(fsdp, base)]
@@ -5071,7 +5280,8 @@ def tp_family_expected(cfg, leaves, steps):
                           for i in range(cfg.n_layers))
     att = 2 * steps * attention_layers(cfg)
     return {"fused_adamw_flat": leaves * steps, "swa_attention_fwd": att,
-            "swa_attention_fwd_wgmma": att, "wkv6_chunked": wkv,
+            "swa_attention_fwd_wgmma": att, "swa_attention_fwd_tf32": 0,
+            "wkv6_chunked": wkv,
             "wkv6_chunked_tc": wkv, **mlless_launches(0)}
 
 
@@ -5264,12 +5474,12 @@ def tp_family_serve(dev, arch, mesh):
                   _tree_tensors(cache)][:4]
         del cache
         return torch.cat(out, dim=1).cpu(), ms, len(pre), len(dec) / n, \
-            shapes
+            sum(r.bytes for r in dec) / n, shapes
 
     reset_lm_launches()
     ss = build_serve_step(model, mesh, model_axis="model", batch_size=B,
                           cache_len=cache_len)
-    tokens, ms, pre_calls, tok_calls, cache_shapes = greedy(
+    tokens, ms, pre_calls, tok_calls, tok_bytes, cache_shapes = greedy(
         ss, ss.local_rows)
     launches = lm_launches()
     prefill_heads = sorted(set(heads))
@@ -5279,7 +5489,7 @@ def tp_family_serve(dev, arch, mesh):
     # one rank alone: the same seed's weights, drawn again whole
     one = build_serve_step(build_model(cfg, use_kernel=True, device=dev),
                            batch_size=B, cache_len=cache_len)
-    whole, ms_one, _, _, _ = greedy(one, lambda x: x)
+    whole, ms_one, _, _, _, _ = greedy(one, lambda x: x)
     whole = rows(whole)
     del one
     free_device_memory()
@@ -5287,6 +5497,7 @@ def tp_family_serve(dev, arch, mesh):
             "tokens": tokens.tolist(), "one_rank_tokens": whole.tolist(),
             "ms_per_token": ms, "one_rank_ms_per_token": ms_one,
             "prefill_calls": pre_calls, "calls_per_token": tok_calls,
+            "bytes_per_token": tok_bytes,
             "launches": launches, "prefill_heads": prefill_heads,
             "cache_shapes": cache_shapes, "prompt": P}
 
@@ -5418,7 +5629,8 @@ def tp_family_gates(ranks, dry):
             f"{srv['ms_per_token']:.3f} ms a token over {TP_RANKS} ranks "
             f"({srv['one_rank_ms_per_token']:.3f} on one), gloo calls "
             f"{srv['prefill_calls']} a prefill and "
-            f"{srv['calls_per_token']:.1f} a token; kernel 8 heads (q, kv) "
+            f"{srv['calls_per_token']:.1f} a token "
+            f"({srv['bytes_per_token']:,.0f} B); kernel 8 heads (q, kv) "
             f"{srv['prefill_heads']}; cache a rank {srv['cache_shapes']}; "
             f"launches {srv['launches']}; tokens equal "
             f"{[r['serve']['equal'] for r in recs]}")
@@ -5449,10 +5661,10 @@ def tp_family_gates(ranks, dry):
             check(rec["serve"]["equal"], f"[tp] {arch} rank {r} serve: "
                   f"{rec['serve']['tokens']} against one rank's "
                   f"{rec['serve']['one_rank_tokens']}")
-            check(rec["serve"]["launches"]["swa_attention_fwd"]
-                  == attention_layers(cfg),
-                  f"[tp] {arch} rank {r} prefill launches "
-                  f"{rec['serve']['launches']}")
+            check_attention_route(rec["serve"]["launches"],
+                                  attention_layers(cfg), "float32",
+                                  f"[tp] {arch} rank {r} prefill",
+                                  cfg.head_dim)
         for label, g in gaps.items():
             check(max(g) <= LM_STEP_RTOL,
                   f"[tp] {arch} {label} losses against the replicated "
@@ -5596,13 +5808,8 @@ def tp_phase(shard):
             if dtype == "float32":
                 check(sres["equal"], f"[tp] rank {r} serve: {sres['tokens']}"
                       f" against one rank's {sres['one_rank_tokens']}")
-            check(sres["launches"]["swa_attention_fwd"]
-                  == SHARD_SERVE_LAYERS,
-                  f"[tp] rank {r} serve {dtype}: {sres['launches']}")
-            if dtype == "bfloat16":
-                check(sres["launches"]["swa_attention_fwd_wgmma"]
-                      == SHARD_SERVE_LAYERS,
-                      f"[tp] rank {r} serve bf16: {sres['launches']}")
+            check_attention_route(sres["launches"], SHARD_SERVE_LAYERS,
+                                  dtype, f"[tp] rank {r} serve {dtype}")
             # 9 heads do not divide over 2: every head on every rank
             check(sres["prefill_heads"] == [[9, 3]],
                   f"[tp] rank {r}: kernel 8 saw {sres['prefill_heads']}")
@@ -5618,27 +5825,23 @@ def tp_phase(shard):
               f"{res['float32']['tokens']} against one rank's "
               f"{res['float32']['one_rank_tokens']}")
         for dtype, sres in res.items():
-            check(sres["prefill_heads"] == [[3, 1]] and
-                  sres["launches"]["swa_attention_fwd"]
-                  == SHARD_SERVE_LAYERS,
+            check(sres["prefill_heads"] == [[3, 1]],
                   f"[tp] head-local rank {r} {dtype}: heads "
-                  f"{sres['prefill_heads']}, launches {sres['launches']}")
-        check(res["bfloat16"]["launches"]["swa_attention_fwd_wgmma"]
-              == SHARD_SERVE_LAYERS,
-              f"[tp] head-local rank {r} bf16: {res['bfloat16']['launches']}")
+                  f"{sres['prefill_heads']}")
+            check_attention_route(sres["launches"], SHARD_SERVE_LAYERS,
+                                  dtype, f"[tp] head-local rank {r} {dtype}")
     for r, res in enumerate(slots):
         check(res["float32"]["equal"], f"[tp] slots rank {r}: "
               f"{res['float32']['tokens']} against one rank's "
               f"{res['float32']['one_rank_tokens']}")
         for dtype in ("float32", "bfloat16"):
             sres = res[dtype]
-            wgmma = 30 if dtype == "bfloat16" else 0
             # every head on every rank: 9 / 3 do not divide over 6
-            check(sres["prefill_heads"] == [[9, 3]]
-                  and sres["launches"]["swa_attention_fwd"] == 30
-                  and sres["launches"]["swa_attention_fwd_wgmma"] == wgmma,
+            check(sres["prefill_heads"] == [[9, 3]],
                   f"[tp] slots rank {r} {dtype}: heads "
-                  f"{sres['prefill_heads']}, launches {sres['launches']}")
+                  f"{sres['prefill_heads']}")
+            check_attention_route(sres["launches"], 30, dtype,
+                                  f"[tp] slots rank {r} {dtype}")
             check(sres["cache_shape"] == [30, TP_SLOTS[0], TP_SLOTS[1]
                                           // math.prod(TP_SLOTS_MESH), 3, 64],
                   f"[tp] slots rank {r} {dtype}: cache leaf "
@@ -5797,9 +6000,17 @@ def main(argv):
         run: {"launches_per_prefill": serve[run]["launches"][
             "swa_attention_fwd"], "routes": {
                 "wgmma": serve[run]["launches"]["swa_attention_fwd_wgmma"],
-                "cuda_core": serve[run]["launches"]["swa_attention_fwd"]
-                - serve[run]["launches"]["swa_attention_fwd_wgmma"]}}
+                "tf32": serve[run]["launches"]["swa_attention_fwd_tf32"]}}
         for run in ("smollm", "prefill_32k", "gemma3")}
+    attention["serve"]["engine"] = {
+        dtype: serve["engine"][dtype]["launches"]
+        for dtype in ("float32", "bfloat16")}
+    tf32 = next(k for k in line["kernels"]
+                if k["name"] == "swa_attention_fwd_tf32")
+    tf32["launches"] = serve["engine"]["float32"]["launches"][
+        "swa_attention_fwd_tf32"]
+    tf32["launches_run"] = (f"serve phase: the fp32 engine, {SERVE_ARCH} "
+                            f"cut to {ENGINE_LAYERS} layers")
     torch.cuda.empty_cache()
     res = resilience_phase()
     print(json.dumps({"resilience": res}))
@@ -5825,7 +6036,8 @@ def main(argv):
            "rank")
     for entry, keys in ((adamw, ("fused_adamw_flat",)),
                         (attention, ("swa_attention_fwd",
-                                     "swa_attention_fwd_wgmma"))):
+                                     "swa_attention_fwd_wgmma",
+                                     "swa_attention_fwd_tf32"))):
         entry["sharding"] = {"launches": {
             label: [{k: r[k] for k in keys} for r in ranks]
             for label, ranks in shard["launches"].items()}, "run": run}
@@ -5842,7 +6054,8 @@ def main(argv):
            "run, one list entry a rank")
     for entry, keys in ((adamw, ("fused_adamw_flat",)),
                         (attention, ("swa_attention_fwd",
-                                     "swa_attention_fwd_wgmma"))):
+                                     "swa_attention_fwd_wgmma",
+                                     "swa_attention_fwd_tf32"))):
         entry["tp"] = {"launches": {
             label: [{k: r[k] for k in keys} for r in ranks]
             for label, ranks in tp["launches"].items()}, "run": run}
@@ -5853,7 +6066,8 @@ def main(argv):
                 for label, ranks in tp["launches"].items()}, "run": run}
     attention["tp_slots"] = {
         "launches": {dtype: [{k: r[k] for k in ("swa_attention_fwd",
-                                                "swa_attention_fwd_wgmma")}
+                                                "swa_attention_fwd_wgmma",
+                                                "swa_attention_fwd_tf32")}
                              for r in ranks]
                      for dtype, ranks in tp["slots_launches"].items()},
         "run": f"tp phase: {LM_ARCH} full width on a {TP_SLOTS_MESH} (data, "
@@ -5869,7 +6083,8 @@ def main(argv):
     wkv = next(k for k in line["kernels"] if k["name"] == "wkv6_chunked")
     for entry, keys in ((adamw, ("fused_adamw_flat",)),
                         (attention, ("swa_attention_fwd",
-                                     "swa_attention_fwd_wgmma")),
+                                     "swa_attention_fwd_wgmma",
+                                     "swa_attention_fwd_tf32")),
                         (wkv, ("wkv6_chunked", "wkv6_chunked_tc"))):
         entry["tp_families"] = {
             "launches": {f"{arch}/{label}": [{k: r[k] for k in keys}
@@ -5883,7 +6098,8 @@ def main(argv):
     attention["families"] = {
         "prefill_shapes": fam["attention"],
         "train_launches": {a: {k: r["launches"][k] for k in (
-            "swa_attention_fwd", "swa_attention_fwd_wgmma")}
+            "swa_attention_fwd", "swa_attention_fwd_wgmma",
+            "swa_attention_fwd_tf32")}
             for a, r in fam["train"].items()},
         "prefill_launches": {a: r["launches"]
                              for a, r in fam["serve"].items()},

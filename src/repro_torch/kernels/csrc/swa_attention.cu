@@ -13,9 +13,11 @@
 // sum l, masked scores -1e30 as in the reference) and a final division by
 // max(l, 1e-30).  The output is written in q's dtype.
 //
-// Routes (the wrapper picks them): every fp32 call, and bf16 calls at the
-// head_dims the tensor-core kernel (swa_attention_tc.cu) does not take,
-// 160 (pixtral-12b), 256 (recurrentgemma-2b) and 320 (gemma3-4b).
+// Routes: none.  The wrapper sends every bf16 call to swa_attention_tc.cu
+// (wgmma) and every fp32 call to swa_attention_tf32.cu (3xTF32 mma.sync),
+// at every head_dim.  This kernel stays as the design they are timed
+// against: chip_smoke.cuda_core_attention launches it through this entry
+// point, in either dtype.
 //
 // Bound: operations.  One call does 4 * B * H * hd multiply-adds per
 // unmasked (query, key) pair; at SmolLM's long shape (B 8, S 2048, H 9,

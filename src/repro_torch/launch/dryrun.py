@@ -12,7 +12,9 @@ so nothing is allocated and nothing is computed, only shapes:
     from the sharding rules (``core.sharding``): ``memory.argument_bytes``
     is their exact size (the reference layout: parameters, both AdamW
     moments, the strategy's per-rank state, two int32 steps, the batch
-    shard; for serving, the parameters and the step's inputs);
+    shard; for serving, the parameters and the step's inputs, and for a
+    decode step only the parameters it reads, ``ReadStorages``, as the
+    reference's compiler drops the arguments a step never reads);
   * a dispatch mode sums the live bytes of every storage the step
     creates: ``temp_bytes`` is its peak less the outputs the step returns
     (``output_bytes``; the port updates the state in place, so a train
@@ -128,6 +130,23 @@ class LiveBytes(TorchDispatchMode):
         return out
 
 
+class ReadStorages(TorchDispatchMode):
+    """Records the storages that the ops other than views take as inputs
+    while it is on: a parameter a step reads is among them, one it only
+    slices (a layer of a stacked leaf) is not."""
+
+    def __init__(self):
+        super().__init__()
+        self.keys = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            self.keys.update(t.untyped_storage()._cdata
+                             for t in tree_leaves((args, kwargs))
+                             if isinstance(t, torch.Tensor))
+        return func(*args, **(kwargs or {}))
+
+
 class _ShapeOnlyAttention(torch.autograd.Function):
     """Kernel 8 on ``meta`` tensors: its output (and, backward, the
     gradients' shapes), nothing else."""
@@ -205,7 +224,7 @@ def _train(model, cfg, shp, mesh, data_axes, model_axis, strategy, fsdp,
     def run():
         _, metrics = ts.step_fn(state, batch)
         return metrics
-    return args, run
+    return lambda: args, run
 
 
 def _serve(model, cfg, shp, mesh, data_axes, model_axis, swa_variant):
@@ -213,18 +232,28 @@ def _serve(model, cfg, shp, mesh, data_axes, model_axis, swa_variant):
                           model_axis=model_axis,
                           batch_size=shp.global_batch, cache_len=shp.seq_len,
                           swa_variant=swa_variant)
-    params = tree_bytes(list(model.parameters()))
     if shp.kind == "prefill":
         batch = ss.make_inputs("prefill", shp.seq_len)
         batch.update(_extras(cfg, batch["tokens"].shape[0],
                              torch.device("meta")))
-        return params + tree_bytes(batch), lambda: ss.prefill_fn(batch)
+        args = tree_bytes(list(model.parameters())) + tree_bytes(batch)
+        return lambda: args, lambda: ss.prefill_fn(batch)
     token, cache, pos = ss.make_inputs("decode", shp.seq_len)
+    reads = ReadStorages()
 
     def run():
-        logits, _ = ss.decode_fn(token, cache, pos)
+        with reads:
+            logits, _ = ss.decode_fn(token, cache, pos)
         return logits           # the cache is written in place
-    return params + tree_bytes([token, cache, pos]), run
+
+    def args():
+        # the parameters the step read, as the reference's compiled decode
+        # drops the arguments it never reads (an encoder-decoder's encoder
+        # and its cross-attention's k and v weights: ``enc_kv`` is cached)
+        read = [p for p in model.parameters()
+                if p.untyped_storage()._cdata in reads.keys]
+        return tree_bytes(read) + tree_bytes([token, cache, pos])
+    return args, run
 
 
 def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
@@ -282,6 +311,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         with record_collectives() as records, LiveBytes() as live:
             out = run()
             out_bytes = tree_bytes(out)
+        args = args()   # after the run: a decode step counts what it read
         trace_s = time.perf_counter() - t0  # repro: allow[no-wallclock] -- trace time is a reported dry-run field
     coll = stats(records)
     temp = max(live.peak - out_bytes, 0)

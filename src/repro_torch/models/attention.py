@@ -84,6 +84,25 @@ def project_qkv(p, x, cfg, tp=None, head_local=True):
             v.reshape(B, S, KV, hd))
 
 
+def project_q(p, x, cfg, tp=None):
+    """x: (B, S, d) -> q (B, S, H, hd), every head, and neither k nor v:
+    decode's cross-attention reads its k and v from the cache
+    (``enc_kv``).  Under ``tp`` the product is ``tp.linear`` on wq alone
+    (row-parallel: one all-reduce of q)."""
+    B, S, d = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    if tp is None:
+        q = x @ p["wq"]
+        if cfg.qkv_bias:
+            q = q + p["bq"].to(q.dtype)
+    else:
+        shapes = _qkv_shapes(cfg, d)
+        q = tp.linear(x, p["wq"], shapes["wq"])
+        if cfg.qkv_bias:
+            q = q + tp.whole(p["bq"], shapes["bq"]).to(q.dtype)
+    return q.reshape(B, S, H, hd)
+
+
 def _qkv_shapes(cfg, d):
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),

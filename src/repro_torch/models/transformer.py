@@ -644,8 +644,7 @@ class Model(nn.Module):
                 x = self._attn_out(x, p["attn"], o)
             if enc is not None:
                 h = self._norm(x, p["norm_x"])
-                q, _, _ = attention.project_qkv(p["xattn"], h, cfg, self.tp,
-                                                head_local=False)
+                q = attention.project_q(p["xattn"], h, cfg, self.tp)
                 o = shard.attend_all(q, enc, genc)
                 x = self._attn_out(x, p["xattn"], o)
             x, _ = self._ffn(x, p)

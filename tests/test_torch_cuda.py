@@ -545,8 +545,8 @@ SWA_GPU_CASES += [
 ]
 
 
-# the wide head_dims, on the tensor-core route in bf16 and the CUDA-core
-# route in fp32: Gemma-3's 320 (its local and global layers at its train
+# the wide head_dims, on the wgmma route in bf16 and the 3xTF32 route in
+# fp32 (the CUDA-core kernel at 320): Gemma-3's 320 (its local and global layers at its train
 # shape, a ragged S), pixtral-12b's 160 (32 heads on 8), recurrentgemma-2b's
 # 256 (10 heads on 1) and a full (non-causal) call at 256
 SWA_WIDE_CASES = [
@@ -567,9 +567,9 @@ SWA_WIDE_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_swa_attention_wide_head_dims_match_plain(cuda, case, dtype):
-    """One launch, on the tensor-core kernel in bf16 and on the CUDA-core
-    kernel in fp32, at the gates of the narrower head_dims: 2e-5 in fp32,
-    one bf16 step in bf16."""
+    """One launch, on the wgmma kernel in bf16 and on the 3xTF32 kernel
+    in fp32 (the CUDA-core kernel at hd 320), at the gates of the narrower
+    head_dims: 2e-5 in fp32, one bf16 step in bf16."""
     B, S, H, KV, hd, window, causal = case
     gen = torch.Generator(device=cuda).manual_seed(S + H + hd)
     q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=cuda)
@@ -580,7 +580,9 @@ def test_swa_attention_wide_head_dims_match_plain(cuda, case, dtype):
     assert tswa.LAUNCHES == {
         "swa_attention_fwd": before["swa_attention_fwd"] + 1,
         "swa_attention_fwd_wgmma": before["swa_attention_fwd_wgmma"]
-        + (dtype == torch.bfloat16)}
+        + (dtype == torch.bfloat16),
+        "swa_attention_fwd_tf32": before["swa_attention_fwd_tf32"]
+        + (dtype == torch.float32 and hd in tswa.TF32_HEAD_DIMS)}
     want = tref.swa_attention(q, k, v, window=window, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
@@ -596,9 +598,9 @@ def test_swa_attention_wide_head_dims_match_plain(cuda, case, dtype):
                          ids=["f32", "bf16"])
 def test_swa_attention_kernel_matches_plain(cuda, case, dtype):
     """Both compute in fp32 from the same inputs, in other orders: 2e-5
-    in fp32 (the CUDA-core kernel); in bf16 (the tensor-core kernel, P.V
-    as two bf16 products) each rounds its result once, so they may sit
-    one bf16 step (2^-7 relative) apart."""
+    in fp32 (the 3xTF32 kernel, products to about 21 bits); in bf16 (the
+    wgmma kernel, P.V as two bf16 products) each rounds its result once,
+    so they may sit one bf16 step (2^-7 relative) apart."""
     B, S, H, KV, hd, window, causal = case
     gen = torch.Generator(device=cuda).manual_seed(S + H + hd)
     q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=cuda)
@@ -610,6 +612,9 @@ def test_swa_attention_kernel_matches_plain(cuda, case, dtype):
         before["swa_attention_fwd"] + 1
     assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
         before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
+    assert tswa.LAUNCHES["swa_attention_fwd_tf32"] == \
+        before["swa_attention_fwd_tf32"] + (
+        dtype == torch.float32 and hd in tswa.TF32_HEAD_DIMS)
     want = tref.swa_attention(q, k, v, window=window, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
@@ -645,6 +650,8 @@ def test_swa_attention_gradient_on_cuda(cuda, dtype):
         before["swa_attention_fwd"] + 1
     assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
         before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
+    assert tswa.LAUNCHES["swa_attention_fwd_tf32"] == \
+        before["swa_attention_fwd_tf32"] + (dtype == torch.float32)
     for x, y in zip(a, b):
         assert x.grad.dtype == dtype
         if dtype == torch.float32:
@@ -675,6 +682,9 @@ def test_swa_attention_gradient_at_head_dim_320(cuda, dtype):
         before["swa_attention_fwd"] + 1
     assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
         before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
+    # fp32 at hd 320 runs the CUDA-core kernel (the 3xTF32 one spills)
+    assert tswa.LAUNCHES["swa_attention_fwd_tf32"] == \
+        before["swa_attention_fwd_tf32"]
     for x, y in zip(a, b):
         assert x.grad.dtype == dtype
         if dtype == torch.float32:
@@ -710,6 +720,45 @@ def test_swa_wgmma_kernel_is_built_on_tensor_cores_and_tma(cuda):
     assert widths == [64, 128, 192, 256, 320], widths
     for body in kernels:
         assert "HGMMA" in body and "UTMALDG" in body
+
+
+def test_swa_tf32_kernel_is_built_on_tensor_cores_without_spills(cuda):
+    """The fp32 kernel's SASS holds TF32 ``mma.sync`` (HMMA) in each of its
+    six instantiations (every head_dim of ``TF32_HEAD_DIMS``), as compiled
+    for sm_90a from ``csrc/swa_attention_tf32.cu``, and no local-memory
+    store (STL): no instantiation spills its registers."""
+    kernels = _sass_functions("swa_attention_tf32", "swa_tf32_kernel")
+    widths = sorted(w for w in tswa.HEAD_DIMS for body in kernels
+                    if f"ILi{w}E" in body.split("\n", 1)[0])
+    assert widths == list(tswa.TF32_HEAD_DIMS), widths
+    for body in kernels:
+        assert "HMMA" in body and "TF32" in body
+        assert "STL" not in body, body.split("\n", 1)[0]
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+def test_swa_attention_f32_row_does_not_change_with_its_batch(cuda, hd):
+    """On the 3xTF32 route an output row depends on its own q row and the
+    keys it attends to alone: the rows of batch entry 1 equal bit for bit
+    those of entry 1 called alone, and those of kv head 1's query heads
+    called alone (the heads a tensor-parallel rank holds: another group
+    size G, so other q tiles), as the fp32 engine's and the ranks' token
+    equalities need."""
+    H, KV = (9, 3) if hd == 64 else (8, 2)
+    G = H // KV
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v = (torch.randn(3, 700, n, hd, generator=gen, device=cuda)
+               for n in (H, KV, KV))
+    for window in (None, 100):
+        whole = tswa.swa_attention_fwd(q, k, v, window=window)
+        alone = tswa.swa_attention_fwd(q[1:2], k[1:2], v[1:2],
+                                       window=window)
+        heads = tswa.swa_attention_fwd(
+            q[:, :, G:G + 1].contiguous(), k[:, :, 1:2].contiguous(),
+            v[:, :, 1:2].contiguous(), window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(whole[1:2], alone)
+        assert torch.equal(whole[:, :, G:G + 1], heads)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1028,6 +1077,9 @@ def test_swa_attention_at_prompt_lengths_one_and_five(cuda, S, dtype):
             before["swa_attention_fwd"] + 1
         assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
             before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
+        assert tswa.LAUNCHES["swa_attention_fwd_tf32"] == \
+            before["swa_attention_fwd_tf32"] + (
+            dtype == torch.float32 and hd in tswa.TF32_HEAD_DIMS)
         want = tref.swa_attention(q, k, v, window=window)
         assert bool(torch.isfinite(got).all())
         if dtype == torch.float32:
@@ -1055,6 +1107,8 @@ def test_swa_attention_at_prefill_32k(cuda, dtype):
     torch.cuda.synchronize()
     assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
         before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
+    assert tswa.LAUNCHES["swa_attention_fwd_tf32"] == \
+        before["swa_attention_fwd_tf32"] + (dtype == torch.float32)
     with torch.no_grad():
         want = tattention.chunked_attention(q.float(), k.float(), v.float())
     assert bool(torch.isfinite(got).all())
@@ -1116,6 +1170,9 @@ def test_reduced_prefill_and_decode_on_cuda_match_cpu(cuda, arch, kw):
     torch.cuda.synchronize()
     assert tswa.LAUNCHES["swa_attention_fwd"] == \
         before["swa_attention_fwd"] + attn_layers
+    assert tswa.LAUNCHES["swa_attention_fwd_tf32"] == \
+        before["swa_attention_fwd_tf32"] + attn_layers * (
+            cpu.cfg.head_dim in tswa.TF32_HEAD_DIMS)
     for a, b in zip(outs[0][0] + outs[0][1], outs[1][0] + outs[1][1]):
         b = b.cpu()
         assert bool(torch.isfinite(b).all())

@@ -146,11 +146,10 @@ for c, (arch, kv_quant) in enumerate({cases}):
                           cache_len={cache})
     params = jax.tree.map(lambda a, sh: jax.device_put(jnp.asarray(a), sh),
                           tree, ss.param_shardings)
-    if not model.cfg.is_encoder_decoder:
-        token, cache, pos = ss.make_inputs("decode", {cache})
-        res[f"{{c}}/argument_bytes"] = np.asarray(ss.decode_fn.lower(
-            params, token, cache, pos).compile().memory_analysis()
-            .argument_size_in_bytes)
+    token, cache, pos = ss.make_inputs("decode", {cache})
+    res[f"{{c}}/argument_bytes"] = np.asarray(ss.decode_fn.lower(
+        params, token, cache, pos).compile().memory_analysis()
+        .argument_size_in_bytes)
     pre = f"in/{{arch}}/"
     logits, cache = ss.prefill_fn(params, {{
         k[len(pre):]: jnp.asarray(d[k]) for k in d.files
@@ -178,6 +177,14 @@ def _env(**extra):
 
 def _jcfg(arch):
     cfg = jget_config(arch).reduced(n_layers=LAYERS[arch], vocab=VOCAB)
+    if cfg.is_encoder_decoder:
+        cfg = dataclasses.replace(cfg, encoder_seq=30)
+    return cfg
+
+
+def _tcfg(arch):
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch).reduced(n_layers=LAYERS[arch], vocab=VOCAB)
     if cfg.is_encoder_decoder:
         cfg = dataclasses.replace(cfg, encoder_seq=30)
     return cfg
@@ -309,27 +316,76 @@ def test_slots_cache_layouts(results):
         [(2, BATCH, 32, 4, 64)] * 2
 
 
-# Whisper's decode is left out: the reference's compiled decode drops the
-# arguments it never reads (the encoder's weights and the cross-attention's
-# k and v projections, 5,258,240 B here), the dry-run counts every
-# parameter (ROADMAP §3)
-@pytest.mark.parametrize("case", range(4), ids=IDS[:4])
+@pytest.mark.parametrize("case", range(len(CASES)), ids=IDS)
 def test_slots_baseline_dryrun_decode_bytes_equal_the_reference(results,
                                                                case):
-    """The ``baseline`` dry-run of each decoder-only case's decode step on
-    the (1, 3) mesh: the parameter, token, cache and position slices a
-    rank holds, byte for byte the reference's ``memory_analysis()``."""
-    from repro_torch.configs.base import InputShape, get_config
+    """The ``baseline`` dry-run of each case's decode step on the (1, 3)
+    mesh: the slices a rank holds of the parameters the step reads, the
+    token, the cache and the position, byte for byte the reference's
+    ``memory_analysis()``, whose compiled decode drops the arguments it
+    never reads (Whisper's encoder and its cross-attention's k and v
+    weights)."""
+    from repro_torch.configs.base import InputShape
     from repro_torch.launch import dryrun
     ref, _ = results
     arch, kv_quant = CASES[case]
     res = dryrun.dryrun_one(
         arch, "small", profile="baseline", save=False, kv_quant=kv_quant,
-        mesh=make_mesh((D, M), ("data", "model")),
-        config=get_config(arch).reduced(n_layers=LAYERS[arch], vocab=VOCAB),
+        mesh=make_mesh((D, M), ("data", "model")), config=_tcfg(arch),
         input_shape=InputShape("small", CACHE, BATCH, "decode"))
     assert res["memory"]["argument_bytes"] == \
         int(ref[f"{case}/argument_bytes"])
+
+
+def test_whisper_decode_reads_no_encoder_or_cross_kv_weights(monkeypatch):
+    """Whisper's ``decode_step`` on the plain path reads no leaf of the
+    encoder (nor its final norm) and none of the cross-attention's wk, wv,
+    bk and bv: it projects q alone (``attention.project_q``), and the
+    cache's ``enc_kv`` holds k and v.  Its fp32 logits are bit for bit
+    those of a step that projects q, k and v together and keeps q."""
+    from repro_torch.launch.dryrun import ReadStorages
+    from repro_torch.launch.train import stub_inputs
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import Model
+    cfg = _tcfg("whisper-small")
+    assert cfg.dtype == "float32" and cfg.qkv_bias
+    model = Model(cfg)
+    rs = np.random.RandomState(2)
+    with torch.no_grad():    # biases too, so that bq's add is seen
+        for p in model.parameters():
+            p.copy_(torch.from_numpy(
+                0.1 * rs.randn(*p.shape).astype(np.float32)))
+    batch = {k: torch.from_numpy(v)
+             for k, v in stub_inputs(cfg, BATCH, rs).items()}
+    batch["tokens"] = torch.from_numpy(
+        rs.randint(0, VOCAB, (BATCH, 16)).astype(np.int32))
+    token = torch.from_numpy(rs.randint(0, VOCAB, (BATCH, 1))
+                             .astype(np.int32))
+    names = {p.untyped_storage()._cdata: n
+             for n, p in model.named_parameters()}
+
+    def decode():
+        _, cache = model.prefill(batch, cache_len=24)
+        reads = ReadStorages()
+        with reads:
+            logits, _ = model.decode_step(token, cache, 16)
+        return logits, {names[k] for k in reads.keys if k in names}
+
+    logits, read = decode()
+    cross_kv = {n for n in names.values()
+                if n.split(".")[-2:-1] == ["xattn"] and
+                n.split(".")[-1] in ("wk", "wv", "bk", "bv")}
+    assert len(cross_kv) == 4
+    unread = set(names.values()) - read
+    assert unread == cross_kv | {n for n in names.values()
+                                 if n.startswith("encoder.") or
+                                 n == "enc_norm"}
+    monkeypatch.setattr(
+        attention, "project_q", lambda p, x, cfg, tp=None:
+        attention.project_qkv(p, x, cfg, tp, head_local=False)[0])
+    before, read_before = decode()
+    assert read_before == read | cross_kv
+    assert torch.equal(logits, before)
 
 
 @pytest.mark.parametrize("world,mesh,batch", [(3, "1x3", 2), (6, "2x3", 1)],
