@@ -33,7 +33,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    one 4 bytes off; then each is timed against its plain version and a
    library call at the MobileNet stack, Krum's streaming kernel beside
    its earlier tile form (through its C entry point) at W = 4 and 8, and
-   the tile form, which W above 8 takes, at W = 16 and 32.
+   the tile form, which W above 8 takes, at W = 16 and 32, with
+   ``torch.cdist(x, x) ** 2`` as a CUDA graph beside it at every W.
 5. byzantine: ``repro_torch.launch.byzantine_train.run`` on full-width
    MobileNet, 4 ranks on the one card over gloo, global batch 96 (4
    microbatches of 6 a rank), rank 0 under a -8x attack.  The trimmed mean
@@ -57,20 +58,21 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    distance to the exact mean, and 5 steps of
    ``scatterreduce_q8``.  Its record is a JSON line of its own.
 7. lm: the LM kernels (fused AdamW, sliding-window attention: bf16 on
-   wgmma, fp32 on 3xTF32 mma.sync, both on the tensor cores, fp32 at hd
-   320 on the CUDA-core kernel) against their plain versions at every
-   SmolLM-135M leaf, at SmolLM's train and long shapes, windows 64 and
-   1024, a ragged S and head_dims 96 and 128, and the attention
+   wgmma, fp32 on 3xTF32 mma.sync at every head_dim, both on the tensor
+   cores) against their plain versions at every SmolLM-135M leaf, at
+   SmolLM's train and long shapes, windows 64 and 1024, a ragged S and
+   head_dims 96 and 128, and the attention
    gradient in fp32 and bf16; the attention
    kernels' SASS (wgmma and TMA; TF32 mma and no spill); their times
    against bound, plain version, library call and, for attention, the
    CUDA-core kernel in bf16; the fp32 route's times at SmolLM's long
-   shape, Gemma-3's and the families' head_dims 128, 160 and 256 in
-   turns with the CUDA-core kernel, against its fp32 bound, its design's
-   least time and ``F.scaled_dot_product_attention`` in fp32 under each
-   backend, with their errors; then the LM entry point on full-width
-   SmolLM-135M (bf16, batch 16 x seq 128, fused AdamW, 30 steps, one-rank
-   NCCL group) at lr 1e-3 with each kernel's launches counted per step
+   shape, Gemma-3's (in turns with the CUDA-core kernel, its route there
+   before) and the families' head_dims 128, 160 and 256, against its fp32
+   bound, its design's least time and ``F.scaled_dot_product_attention``
+   in fp32 under each backend, with their errors; then the LM entry
+   point on full-width SmolLM-135M (bf16, batch 16 x seq 128, fused
+   AdamW, 30 steps, one-rank NCCL group) at lr 1e-3 with each kernel's
+   launches counted per step
    (every attention launch on the tensor-core route), two steps through
    the kernels against the kernel-free path, a record of the entry point's
    default lr 3e-3 on the same steps, reduced logits on the card against
@@ -80,10 +82,10 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    earlier readings).
 8. gemma: attention at the wide head_dims (Gemma-3's 320 at its train
    shape, local and global, and a ragged S; 160; 256) against its plain
-   version in bf16 (every launch on the wgmma route) and fp32 (the 3xTF32
-   route, the CUDA-core kernel at hd 320); its times at Gemma-3's shape
-   against bound, plain
-   version, the CUDA-core kernel in bf16 (its earlier route) and
+   version in bf16 (every launch on the wgmma route) and fp32 (every
+   launch on the 3xTF32 route, a warp pair a row at hd 320); its times at
+   Gemma-3's shape against bound, plain version, the CUDA-core kernel in
+   bf16 (its earlier route) and
    ``F.scaled_dot_product_attention`` under each backend (which one the
    default picks, which refuse hd 320); then the LM entry point on
    full-width gemma3-4b cut to 6 layers (one 5:1 local/global group;
@@ -131,7 +133,10 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    past its window of 1,024, cache 2,048, 64 tokens; 6 hd-320 tensor-core
    launches a prefill) and rwkv6-7b cut to 4 layers (batch 4, prompt 512,
    32 tokens; its prefill takes the plain chunked WKV, as the
-   reference's does), gated as SmolLM (rwkv also in fp32, to 1e-3).
+   reference's does), gated as SmolLM; both also in fp32 with decode held
+   to 1e-3 of the largest logit: rwkv at the same shape, Gemma-3 at batch
+   1, prompt 1,536, cache 2,048, 8 tokens, its 6 prefill launches of
+   kernel 8 all on the 3xTF32 route at hd 320.
    ``ServingEngine`` on SmolLM-135M cut to 10 layers (its decode step's
    eager and graph times at full depth): fp32, 16 requests over 8 slots,
    every request equal to its sequential generation; bf16, 64 requests
@@ -978,7 +983,8 @@ def krum_times(D, dev):
     """Krum at W = 4, 8, 16 and 32 on a (W, D) stack: the wrapper as a
     CUDA graph (the streaming kernel at W <= 8, the tile form above) and
     the tile form through its C entry point, in turns (tile, wrapper,
-    wrapper, tile), against the bytes bound."""
+    wrapper, tile), against the bytes bound, and ``torch.cdist(x, x) **
+    2`` as a CUDA graph beside them (the library call)."""
     import torch
     from repro_torch.kernels import robust_agg as ra
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -989,15 +995,18 @@ def krum_times(D, dev):
         tile = [graphed_ms(lambda: krum_tile(x))]
         new = [graphed_ms(lambda: ra.krum_pairwise(x)) for _ in range(2)]
         tile.append(graphed_ms(lambda: krum_tile(x)))
+        library = graphed_ms(lambda: torch.cdist(x, x) ** 2)
         nbytes = 4 * W * D + 4 * W * W
         r = dict(graph_ms=min(new), tile_graph_ms=min(tile),
                  route="stream" if W <= 8 else "tile",
+                 library_graph_ms=library, library="torch.cdist(x, x) ** 2",
                  bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bytes=nbytes)
         out[f"W{W}"] = r
         log(f"[robust] krum_pairwise W={W} D={D:,}: wrapper ({r['route']} "
             f"kernel) as a CUDA graph {new[0]:.4f} / {new[1]:.4f} ms, tile "
-            f"form {tile[0]:.4f} / {tile[1]:.4f} ms (in turns), bound "
-            f"{r['bound_ms']:.4f} ms (bytes, {nbytes / 1e6:.1f} MB): "
+            f"form {tile[0]:.4f} / {tile[1]:.4f} ms (in turns), "
+            f"torch.cdist(x, x) ** 2 as a CUDA graph {library:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms (bytes, {nbytes / 1e6:.1f} MB): "
             f"{r['bound_ms'] / r['graph_ms']:.3f} of the bound")
         del x
     return out
@@ -1652,8 +1661,8 @@ def swa_sass():
 def cuda_core_attention(q, k, v, window):
     """The CUDA-core attention kernel (causal) in q's dtype, launched
     through its C entry point to time it beside the routes that replaced
-    it (bf16 at every head_dim, fp32 below hd 320) in one run; counts
-    nothing."""
+    it (bf16 on wgmma, fp32 on 3xTF32, at every head_dim) in one run;
+    counts nothing."""
     import math
     import torch
     from repro_torch.kernels import _build
@@ -1795,27 +1804,29 @@ SWA_F32_SHAPES = [
 def tf32_tile_exps(B, S, H, KV, hd, window):
     """exp2s the fp32 kernel takes (``swa_attention_tf32.cu``): one a row
     and key of every kv tile it visits (64 rows a q tile of 64 / G
-    queries; 64 keys a tile at hd <= 64, 32 up to 160, else 16),
+    queries, each row's taken by both warps of its pair at hd 320; 64 keys
+    a tile at hd <= 64, 32 at 96 and 128, 16 at 160 and 256, 32 at 320),
     causal."""
-    keys = 64 if hd <= 64 else 32 if hd <= 160 else 16
+    keys = 64 if hd <= 64 else 32 if hd <= 128 else 16 if hd <= 256 else 32
+    rows = 64 if hd <= 256 else 128
     bq = 64 // (H // KV)
     tiles = 0
     for q0 in range(0, S, bq):
         lo = max(q0 - window + 1, 0) if window else 0
         tiles += (min(q0 + bq, S) - 1) // keys - lo // keys + 1
-    return B * KV * 64 * keys * tiles
+    return B * KV * rows * keys * tiles
 
 
 def swa_f32_times(dev):
     """Kernel 8's fp32 route at ``SWA_F32_SHAPES``: the wrapper (the
-    3xTF32 kernel; the CUDA-core kernel at hd 320) and the CUDA-core
-    kernel (the route before, through its C entry point) called back to
-    back and as CUDA graphs in turns (old, new, new, old), each against
-    the plain version; the bound at the fp32 peak outside the tensor
-    cores, the design's own least time (three TF32 products at the TF32
-    peak) and its exp2 count;
-    ``F.scaled_dot_product_attention`` in fp32 with TF32 off, as the
-    default dispatcher runs it and under each backend, with its error."""
+    3xTF32 kernel) called back to back and as a CUDA graph, against the
+    plain version; at hd 320, the route the CUDA-core kernel kept
+    longest, that kernel (through its C entry point) too, as graphs in
+    turns (old, new, new, old); the bound at the fp32 peak outside the
+    tensor cores, the design's own least time (three TF32 products at the
+    TF32 peak) and its exp2 count; ``F.scaled_dot_product_attention`` in
+    fp32 with TF32 off, as the default dispatcher runs it and under each
+    backend, with its error."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -1833,15 +1844,28 @@ def swa_f32_times(dev):
         design = 3 * flops / H100_TF32_FLOP_PER_S
         want = ref.swa_attention(q, k, v, window=window)
         fn = lambda: swa.swa_attention_fwd(q, k, v, window=window)  # noqa: E731
-        old = lambda: cuda_core_attention(q, k, v, window)  # noqa: E731
-        route = "tf32" if hd in swa.TF32_HEAD_DIMS else "cuda_core"
         err = float((fn() - want).abs().max())
-        err_old = float((old() - want).abs().max())
-        check(err <= SWA_F32_ATOL and err_old <= SWA_F32_ATOL,
-              f"[lm] fp32 attention at {label}: max abs err {err:.3e} "
-              f"(the wrapper, route {route}), {err_old:.3e} (CUDA cores)")
-        turns = [graphed_ms(old), graphed_ms(fn), graphed_ms(fn),
-                 graphed_ms(old)]
+        check(err <= SWA_F32_ATOL, f"[lm] fp32 attention at {label}: max "
+              f"abs err {err:.3e} (the 3xTF32 kernel)")
+        r = {}
+        if hd == 320:
+            old = lambda: cuda_core_attention(q, k, v, window)  # noqa: E731
+            err_old = float((old() - want).abs().max())
+            check(err_old <= SWA_F32_ATOL, f"[lm] fp32 attention at "
+                  f"{label}: max abs err {err_old:.3e} (CUDA cores)")
+            turns = [graphed_ms(old), graphed_ms(fn), graphed_ms(fn),
+                     graphed_ms(old)]
+            r.update(graph_ms=min(turns[1:3]),
+                     cuda_core_ms=time_ms(old, reps=10),
+                     cuda_core_graph_ms=min(turns[0], turns[3]),
+                     turns=turns, cuda_core_max_abs_err=err_old)
+            before = (f"; CUDA-core kernel {r['cuda_core_ms']:.4f} ms "
+                      f"(graph {r['cuda_core_graph_ms']:.4f} ms; err "
+                      f"{err_old:.3e}; graphs in turns old, new, new, old "
+                      f"{[round(t, 4) for t in turns]})")
+        else:
+            r["graph_ms"] = graphed_ms(fn)
+            before = ""
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         ke, ve = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
         if window is None or window >= S:
@@ -1855,14 +1879,10 @@ def swa_f32_times(dev):
         expanded = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, ke, ve, **mask)
         backend, _ = sdpa_backend_of(lib_fn)
-        r = dict(route=route, ms=time_ms(fn, reps=10),
-                 graph_ms=min(turns[1:3]),
-                 cuda_core_ms=time_ms(old, reps=10),
-                 cuda_core_graph_ms=min(turns[0], turns[3]), turns=turns,
+        r.update(ms=time_ms(fn, reps=10),
                  plain_ms=time_ms(lambda: ref.swa_attention(
                      q, k, v, window=window), reps=2, warmup=1),
-                 max_abs_err=err, cuda_core_max_abs_err=err_old,
-                 library_ms=time_ms(lib_fn, reps=10),
+                 max_abs_err=err, library_ms=time_ms(lib_fn, reps=10),
                  library_max_abs_err=float((lib_fn().transpose(1, 2)
                                             - want).abs().max()),
                  library_backend=backend,
@@ -1885,13 +1905,10 @@ def swa_f32_times(dev):
                else "")
             for name, b in r["sdpa_backends"].items())
         log(f"[lm] fp32 swa_attention_fwd {label} {r['shapes']}: the "
-            f"wrapper (route {route}) {r['ms']:.4f} ms (graph {r['graph_ms']:.4f} ms, "
+            f"3xTF32 kernel {r['ms']:.4f} ms (graph {r['graph_ms']:.4f} ms, "
             f"{r['bound_ms'] / r['graph_ms']:.3f} of the fp32 bound, "
             f"{r['design_ms'] / r['graph_ms']:.3f} of the design's least "
-            f"time {r['design_ms']:.4f} ms; err {err:.3e}), CUDA-core "
-            f"kernel {r['cuda_core_ms']:.4f} ms (graph "
-            f"{r['cuda_core_graph_ms']:.4f} ms; err {err_old:.3e}; graphs "
-            f"in turns old, new, new, old {[round(t, 4) for t in turns]}), "
+            f"time {r['design_ms']:.4f} ms; err {err:.3e}){before}, "
             f"plain {r['plain_ms']:.4f} ms, SDPA default {backend} "
             f"{r['library_ms']:.4f} ms (err {r['library_max_abs_err']:.3e})"
             f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
@@ -2198,7 +2215,7 @@ def lm_phase():
          "max_abs_err": err["fused_adamw_flat"],
          **times["fused_adamw_flat"]},
         {"name": "swa_attention_fwd", "route": "cuda", "source": SWA_TC_SRC,
-         "fp32_source": SWA_SRC,
+         "fp32_source": SWA_TF32_SRC,
          "replaces": "src/repro/kernels/swa_attention.py:81",
          "launches": launches["swa_attention_fwd"],
          "launches_wgmma": launches["swa_attention_fwd_wgmma"],
@@ -2222,8 +2239,7 @@ def lm_phase():
                             + [r["max_abs_err"] for r in f32.values()]),
          **{key: f32["smollm long"][key] for key in (
              "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "design_ms", "cuda_core_ms",
-             "cuda_core_graph_ms", "shapes")},
+             "library_ms", "design_ms", "shapes")},
          "library": "F.scaled_dot_product_attention(is_causal=True, "
                     "enable_gqa=True) in fp32, TF32 off, (B, H, S, hd)",
          "at_shapes": f32, "sass": tf32_sass},
@@ -2258,8 +2274,8 @@ GEMMA_PARITY = [
 
 def gemma_kernel_parity(dev):
     """Attention against its plain version at ``GEMMA_PARITY`` in bf16
-    (every launch on the wgmma route) and fp32 (the 3xTF32 route; the
-    CUDA-core kernel at hd 320), at the gates of ``lm_kernel_parity``."""
+    (every launch on the wgmma route) and fp32 (every launch on the 3xTF32
+    route), at the gates of ``lm_kernel_parity``."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import swa_attention as swa
@@ -2291,7 +2307,7 @@ def gemma_kernel_parity(dev):
             err[dtype] = max(err[dtype], float(diff.max()))
             del q, k, v, got, want, diff
     log(f"[gemma] swa_attention_fwd (bf16 on the wgmma kernel, fp32 on "
-        f"the 3xTF32 kernel, at hd 320 the CUDA-core one) against its plain version at "
+        f"the 3xTF32 kernel) against its plain version at "
         f"{len(GEMMA_PARITY)} shapes x bf16/fp32 "
         f"({', '.join(c[0] for c in GEMMA_PARITY)}): max abs err fp32 "
         f"{err[torch.float32]:.3e} (tol {SWA_F32_ATOL}), bf16 "
@@ -3323,6 +3339,10 @@ PREFILL_LEN = 32768
 # Gemma-3 cut to one 5:1 group (the gemma phase's cut): its prompt is
 # longer than the window of 1,024, so the local rings wrap in prefill
 GEMMA_SERVE = dict(batch=4, prompt=1536, cache=2048, tokens=64)
+# the same Gemma-3 in fp32 (7.1 GB of weights), as served for the
+# reference's exact arithmetic: its prefill runs kernel 8's 3xTF32 route at
+# hd 320
+GEMMA_SERVE_FP32 = dict(batch=1, prompt=1536, cache=2048, tokens=8)
 # rwkv6-7b cut to the rwkv phase's 4 layers
 RWKV_SERVE = dict(batch=4, prompt=512, tokens=32)
 # the witness's factor (a bf16 gate, as the rwkv phase's full-depth one)
@@ -3348,7 +3368,7 @@ def serve_launches():
 def check_attention_route(launches, n, dtype, where, hd=64):
     """Kernel 8 launched ``n`` times in ``launches`` (None: at least once),
     every launch on the route of ``dtype`` and ``hd``: wgmma in bf16,
-    3xTF32 in fp32 at ``TF32_HEAD_DIMS``, else the CUDA-core kernel."""
+    3xTF32 in fp32 at ``TF32_HEAD_DIMS`` (every head_dim)."""
     from repro_torch.kernels import swa_attention as swa
     got = launches["swa_attention_fwd"]
     want = {"swa_attention_fwd_wgmma": got if dtype == "bfloat16" else 0,
@@ -3622,6 +3642,41 @@ def rwkv_fp32_serve(prompt, n_tokens):
         f"{res['prefill_ms']:.2f} ms, decode {res['decode_ms_per_token']:.3f}"
         f" ms a token; decode vs teacher-forced forward max abs {err:.3e} "
         f"(tol {RWKV_SERVE_FP32_TOL} x {scale:.3f})")
+    res.update(max_abs_err=err, max_abs_logit=scale)
+    return res
+
+
+def gemma_fp32_serve():
+    """gemma3-4b (``GEMMA_LAYERS`` layers) in fp32 with TF32 off at
+    ``GEMMA_SERVE_FP32``: kernel 8 once a layer a prefill, every launch on
+    the 3xTF32 route at hd 320; decode against the teacher-forced forward
+    to ``RWKV_SERVE_FP32_TOL`` of the largest logit."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+    g = GEMMA_SERVE_FP32
+    cfg = dataclasses.replace(gemma_config(), dtype="float32")
+    model = build_model(cfg, use_kernel=True, device="cuda", seed=5)
+    prompt = serve_tokens(cfg.vocab_size, g["batch"], g["prompt"], 5)
+    label = (f"{GEMMA_ARCH} ({GEMMA_LAYERS} layers) fp32 batch {g['batch']},"
+             f" prompt {g['prompt']}, cache {g['cache']}")
+    res, logits, fed = serve_run(model, prompt, g["cache"], g["tokens"],
+                                 label)
+    check_attention_route(res["launches"], GEMMA_LAYERS, "float32",
+                          f"[serve] {label}", hd=cfg.head_dim)
+    check(bool(torch.isfinite(logits).all()), f"[serve] {label}: decode "
+          "logits not finite")
+    err, scale = teacher_forced_err(model, prompt, fed, logits)
+    del model, logits
+    torch.cuda.empty_cache()
+    check(err <= RWKV_SERVE_FP32_TOL * scale, f"[serve] {label}: decode vs "
+          f"forward max abs {err:.3e} > {RWKV_SERVE_FP32_TOL} x {scale}")
+    log(f"[serve] {label}: prefill {res['prefill_ms']:.2f} ms (kernel-8 "
+        f"launches {res['launches']}), decode "
+        f"{res['decode_ms_per_token']:.3f} ms a token, peak "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; decode vs teacher-forced "
+        f"forward max abs {err:.3e} (tol {RWKV_SERVE_FP32_TOL} x "
+        f"{scale:.3f})")
     res.update(max_abs_err=err, max_abs_logit=scale)
     return res
 
@@ -3920,6 +3975,7 @@ def serve_phase():
         f"batch {g['batch']}, prompt {g['prompt']}, cache {g['cache']}",
         {"swa_attention_fwd": 6, "swa_attention_fwd_wgmma": 6,
          "swa_attention_fwd_tf32": 0}, seed=4)
+    rec["gemma3_fp32"] = gemma_fp32_serve()
     r = RWKV_SERVE
     rcfg = rwkv_config()
     rprompt = serve_tokens(rcfg.vocab_size, r["batch"], r["prompt"], 3)
@@ -6001,7 +6057,7 @@ def main(argv):
             "swa_attention_fwd"], "routes": {
                 "wgmma": serve[run]["launches"]["swa_attention_fwd_wgmma"],
                 "tf32": serve[run]["launches"]["swa_attention_fwd_tf32"]}}
-        for run in ("smollm", "prefill_32k", "gemma3")}
+        for run in ("smollm", "prefill_32k", "gemma3", "gemma3_fp32")}
     attention["serve"]["engine"] = {
         dtype: serve["engine"][dtype]["launches"]
         for dtype in ("float32", "bfloat16")}
@@ -6011,6 +6067,12 @@ def main(argv):
         "swa_attention_fwd_tf32"]
     tf32["launches_run"] = (f"serve phase: the fp32 engine, {SERVE_ARCH} "
                             f"cut to {ENGINE_LAYERS} layers")
+    tf32["gemma3_fp32_serve"] = {
+        "launches_per_prefill": serve["gemma3_fp32"]["launches"][
+            "swa_attention_fwd_tf32"],
+        "run": f"serve phase: {GEMMA_ARCH} cut to {GEMMA_LAYERS} layers, "
+               f"fp32, hd 320, batch {GEMMA_SERVE_FP32['batch']} x prompt "
+               f"{GEMMA_SERVE_FP32['prompt']}"}
     torch.cuda.empty_cache()
     res = resilience_phase()
     print(json.dumps({"resilience": res}))

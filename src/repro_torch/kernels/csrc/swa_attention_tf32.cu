@@ -8,11 +8,9 @@
 // optional sliding window (query i attends to keys j in (i - window, i]),
 // an online softmax in fp32 with masked scores at -1e30 after the scale,
 // division by max(l, 1e-30).  q (B, S, H, hd), k and v (B, S, KV, hd), all
-// fp32, hd in {32, 64, 96, 128, 160, 256}; head h reads kv head
+// fp32, hd in {32, 64, 96, 128, 160, 256, 320}; head h reads kv head
 // h / (H / KV).  It takes the place of the CUDA-core kernel of
-// swa_attention.cu on the fp32 route at those head_dims.  At hd 320
-// (gemma3-4b) O alone holds 160 registers a thread and every form of this
-// design tried spilled, so fp32 there stays on the CUDA-core kernel.
+// swa_attention.cu on the fp32 route at every head_dim.
 //
 // Bound: operations.  The function does 4 * hd multiply-adds per unmasked
 // (query, key) pair and head: 38.67 GFLOP at SmolLM's long shape (B 8,
@@ -45,12 +43,13 @@
 // registers and B in either layout; TF32 wgmma reads B from shared memory
 // K-major only, so V (hd-contiguous) would need a transposed copy, and the
 // lo parts of K and V tiles of their own.  GQA is folded as in
-// swa_attention.cu: one 128-thread block per (batch, kv head, q tile), a
-// q tile holding BQ = 64 / G query positions times the G heads of the
-// group, 64 (query, head) rows, 16 to a warp; the q tiles run in reverse
-// order, so the long causal tiles start first.  The kv loop walks only the
-// tiles of BN keys that meet [q_first - window + 1, q_last] and masks by
-// position only on tiles that cross the diagonal, the window's edge or S.
+// swa_attention.cu: one block of 4 warps (8 at hd 320, below) per (batch,
+// kv head, q tile), a q tile holding BQ = 64 / G query positions times the
+// G heads of the group, 64 (query, head) rows, 16 to a warp; the q tiles
+// run in reverse order, so the long causal tiles start first.  The kv loop
+// walks only the tiles of BN keys that meet [q_first - window + 1, q_last]
+// and masks by position only on tiles that cross the diagonal, the
+// window's edge or S.
 // K and V tiles (rows padded by 4 floats: both fragments are read without
 // bank conflicts) come by cp.async into one buffer each, rows past S as
 // zeros: K of the next tile loads while P.V runs and V of the next while
@@ -67,14 +66,39 @@
 // Each output row depends on its own q row and the keys it attends to
 // alone (no split of the keys across blocks; a tile whose keys a row
 // masks adds exact zeros), so a row's output does not change with the
-// batch, the heads or the q tile it shares.  O holds hd / 2 fp32
-// registers a thread (128 at hd 256), so the kv tiles narrow as hd grows,
-// 64 keys at hd <= 64, 32 at 96 and 128, 16 at 160 and 256; Q's fragments
-// stay in registers at hd <= 64 and are read from shared memory above,
-// fewer k steps unrolled at once at 128 and 160 (``s_unroll``): ptxas
-// then reports no spill at any head_dim.  Shared memory is
-// (64 + 2 BN) (hd + 4) x 4 bytes: 27.6 KB at hd 32, 52.2 KB at 64, 51.2 KB
-// at 96, 67.6 KB at 128, 63.0 KB at 160 and 99.8 KB at 256.
+// batch, the heads or the q tile it shares.  A warp that owns all of O's
+// columns holds hd / 2 fp32 registers a thread (128 at hd 256), so the kv
+// tiles narrow as hd grows, 64 keys at hd <= 64, 32 at 96 and 128, 16 at
+// 160 and 256; Q's fragments stay in registers at hd <= 64 and are read
+// from shared memory above, fewer k steps unrolled at once at 128, 160 and
+// 320 (``s_unroll``).
+//
+// At hd 320 (gemma3-4b) O alone would hold 160 registers a thread, and
+// every form of that layout spilled.  There the block has 8 warps (256
+// threads) for the same 64 rows (``col_split``): warps 2i and 2i + 1 share
+// rows 16i..16i + 15 and each owns 160 of O's columns, 80 registers a
+// thread.  Each warp of a pair takes Q.K^T over its own 160 of hd (20 of
+// the 40 k steps), adds its hi.hi and small products in fp32, writes that
+// 16 x BN partial to shared memory, meets its partner at a named barrier
+// (bar.sync 1 + i, 64: the pairs run apart, no block-wide barrier) and
+// adds the partner's partial to its own.  fp32 addition commutes, so both
+// warps hold S bit for bit, run the same scale, mask and online softmax
+// (their m and l agree exactly) and take P.V over their own columns with
+// P in registers, as above.  The kv tiles there hold 32 keys (in the
+// first forms, all of which spilled, 16 keys took 17% longer and each warp
+// taking the whole S, no exchange but 1.5x the products, 33% longer).
+// Its 80 registers of O, 32 of P and the fragments in flight fill the 255
+// a thread may have, so the layout keeps nothing else across the kv loop:
+// the k and v rows' pointers and the output's indices are read afresh
+// from the special registers (``kv_rows``, ``place``), the rows' positions
+// are taken where a tile is masked, and P.V is fenced (``__syncwarp``)
+// every two n tiles of O.  ptxas then reports no spill at any head_dim
+// (-O3, sm_90a).
+//
+// Shared memory is (64 + 2 BN) (hd + 4) x 4 bytes, and at hd 320 the
+// pairs' partials (8 warps x 16 x BN x 4 bytes) besides: 27.6 KB at hd 32,
+// 52.2 KB at 64, 51.2 KB at 96, 67.6 KB at 128, 63.0 KB at 160, 99.8 KB at
+// 256 and 182.3 KB at 320 (one block an SM).
 //
 // The entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns the first CUDA error of the launch.
@@ -83,9 +107,7 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRows = 16 * kWarps;     // (query, head) rows of a q tile
-constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 64;              // (query, head) rows of a q tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxDevices = 64;
@@ -93,22 +115,34 @@ constexpr int kMaxDevices = 64;
 // keys of a kv tile
 template <int HD>
 __host__ __device__ constexpr int tile_keys() {
-  return HD <= 64 ? 64 : HD <= 128 ? 32 : 16;
+  return HD <= 64 ? 64 : HD <= 128 ? 32 : HD <= 256 ? 16 : 32;
+}
+// warps that share a group of 16 rows, each owning HD / col_split of O's
+// columns and of Q.K^T's k steps
+template <int HD>
+__host__ __device__ constexpr int col_split() {
+  return HD <= 256 ? 1 : 2;
+}
+template <int HD>
+__host__ __device__ constexpr int block_threads() {
+  return 4 * 32 * col_split<HD>();
 }
 // Q's fragments kept in registers across the kv loop (else read from the
 // q tile in shared memory at each step)
 template <int HD>
 __host__ __device__ constexpr bool q_in_registers() { return HD <= 64; }
-// k steps of Q.K^T unrolled together: fewer at hd 128 and 160, where a
-// full unroll spills (ptxas, -O3, sm_90a)
+// k steps of Q.K^T a warp unrolls together: fewer at hd 128, 160 and 320,
+// where a full unroll spills (ptxas, -O3, sm_90a)
 template <int HD>
 __host__ __device__ constexpr int s_unroll() {
-  return HD == 128 ? 4 : HD == 160 ? 2 : HD / 8;
+  return HD == 128 ? 4 : HD == 160 ? 2 : HD == 320 ? 10 : HD / 8;
 }
 
 template <int HD>
 __host__ __device__ constexpr int smem_bytes() {
-  return (kRows + 2 * tile_keys<HD>()) * (HD + 4) * 4;
+  return (kRows + 2 * tile_keys<HD>()) * (HD + 4) * 4 +
+         (col_split<HD>() > 1 ? block_threads<HD>() * tile_keys<HD>() / 2 * 4
+                              : 0);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -184,48 +218,94 @@ __device__ __forceinline__ void cp_async_wait_all_but_one() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
+// the two warps of row group `group` (barrier 0 is __syncthreads)
+__device__ __forceinline__ void pair_sync(int group) {
+  asm volatile("bar.sync %0, 64;" ::"r"(1 + group) : "memory");
+}
+
+// A block's k or v rows of this (batch, kv head), from a fresh read of
+// the special registers (volatile asm, never merged with an earlier read):
+// at hd 320 the pointer held across the kv loop took a register the layout
+// has not got, and ptxas spilled it
+__device__ __forceinline__ const float* kv_rows(const float* x, int S,
+                                                int KV, int HD) {
+  unsigned by, bz;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(by));
+  asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(bz));
+  return x + ((long long)bz * S * KV + by) * HD;
+}
+
+// Where a thread writes its two output rows: row r0 (r0 + 8 the other) of
+// the q tile at q0 with n_rows used rows, its first column, its kv head
+// and batch entry.  `place` reads them afresh from the special registers
+// (as kv_rows, and for the same reason) for the hd-320 layout's output.
+struct Place {
+  int r0, col, q0, n_rows, kvh;
+  long long b;
+};
+template <int HD>
+__device__ __forceinline__ Place place(int S, int G, int BQ) {
+  unsigned tid, bx, by, bz, nx;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bx));
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(by));
+  asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(bz));
+  asm volatile("mov.u32 %0, %%nctaid.x;" : "=r"(nx));
+  const int warp = tid / 32, lane = tid % 32;
+  const int q0 = int(nx - 1 - bx) * BQ;
+  return {16 * (warp / col_split<HD>()) + lane / 4,
+          warp % col_split<HD>() * (HD / col_split<HD>()) + 2 * (lane % 4),
+          q0, (min(q0 + BQ, S) - q0) * G, int(by), (long long)bz};
+}
+
 // BN rows of k or v from key k0 (rows past S as zeros) into rows of
 // HD + 4 floats; `src` is key 0 of this (batch, kv head), rows `step`
 // floats apart
 template <int HD, int BN>
 __device__ __forceinline__ void stage_kv(float* dst, const float* src,
-                                         long long step, int k0, int S,
+                                         int step, int k0, int S,
                                          int tid) {
   constexpr int V = HD / 4;
-  for (int i = tid; i < BN * V; i += kThreads) {
+  for (int i = tid; i < BN * V; i += block_threads<HD>()) {
     const int r = i / V, c = 4 * (i % V);
     const bool ok = k0 + r < S;
-    cp_async16(dst + r * (HD + 4) + c, ok ? src + (k0 + r) * step + c : src,
-               ok);
+    cp_async16(dst + r * (HD + 4) + c,
+               ok ? src + (long long)(k0 + r) * step + c : src, ok);
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(block_threads<HD>(), 1)
 swa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o, int S,
                 int H, int KV, int G, int BQ, int window, int causal,
                 float scale) {
   constexpr int BN = tile_keys<HD>();
+  constexpr int SPLIT = col_split<HD>();
+  constexpr int THREADS = block_threads<HD>();
   constexpr int LD = HD + 4;          // padded row of Q, K and V tiles
-  constexpr int KD = HD / 8;          // k steps of Q.K^T
+  constexpr int HW = HD / SPLIT;      // O's columns and hd a warp takes
+  constexpr int KD = HW / 8;          // k steps of Q.K^T a warp takes
   constexpr int NT = BN / 8;          // n tiles of S, k steps of P.V
-  constexpr int OT = HD / 8;          // n tiles of O
+  constexpr int OT = HW / 8;          // n tiles of O a warp owns
   constexpr bool kQRegs = q_in_registers<HD>();
-  static_assert(HD % 32 == 0, "tile shape");
+  static_assert(HD % 32 == 0 && HW % 8 == 0, "tile shape");
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                   // kRows x LD
   float* Ks = Qs + kRows * LD;        // BN x LD
   float* Vs = Ks + BN * LD;           // BN x LD
+  float* Xs = Vs + BN * LD;           // SPLIT > 1: a float4 a lane a n tile
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
+  const int group = warp / SPLIT;     // this warp's 16 rows
+  const int col0 = warp % SPLIT * HW; // its first column of O and of hd
   const int kvh = blockIdx.y;
   const long long b = blockIdx.z;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // long tiles first
   const int q_last = min(q0 + BQ, S) - 1;
   const int n_rows = (q_last - q0 + 1) * G;
-  const long long step = (long long)KV * HD;          // between keys
+  const int step = KV * HD;           // floats between keys
   const float* kb = k + (b * S * KV + kvh) * HD;
   const float* vb = v + (b * S * KV + kvh) * HD;
   const int lo_key = window > 0 ? max(q0 - window + 1, 0) : 0;
@@ -233,7 +313,7 @@ swa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int t_first = lo_key / BN, t_last = hi_key / BN;
 
   // ---- the q tile (row r: query q0 + r / G, head kvh * G + r % G) ----
-  for (int i = tid; i < kRows * (HD / 4); i += kThreads) {
+  for (int i = tid; i < kRows * (HD / 4); i += THREADS) {
     const int r = i / (HD / 4), c = 4 * (i % (HD / 4));
     const bool ok = r < n_rows;
     const float* src =
@@ -241,9 +321,10 @@ swa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async16(Qs + r * LD + c, src, ok);
   }
 
-  // this thread's rows: r0 = 16 warp + g and r1 = r0 + 8 (unused rows
-  // take the last used row's position and are not written)
-  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  // this thread's rows: r0 = 16 group + g and r1 = r0 + 8 (unused rows
+  // take the last used row's position and are not written); at hd 320
+  // the positions are taken where a tile is masked, not held
+  const int r0 = 16 * group + g, r1 = r0 + 8;
   const int qpos0 = q0 + min(r0, n_rows - 1) / G;
   const int qpos1 = q0 + min(r1, n_rows - 1) / G;
   float qf[kQRegs ? KD : 1][4];
@@ -266,15 +347,16 @@ swa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (kQRegs && kt == t_first) {
 #pragma unroll
       for (int kk = 0; kk < (kQRegs ? KD : 1); ++kk) {
-        qf[kk][0] = Qs[r0 * LD + 8 * kk + t];
-        qf[kk][1] = Qs[r1 * LD + 8 * kk + t];
-        qf[kk][2] = Qs[r0 * LD + 8 * kk + t + 4];
-        qf[kk][3] = Qs[r1 * LD + 8 * kk + t + 4];
+        qf[kk][0] = Qs[r0 * LD + col0 + 8 * kk + t];
+        qf[kk][1] = Qs[r1 * LD + col0 + 8 * kk + t];
+        qf[kk][2] = Qs[r0 * LD + col0 + 8 * kk + t + 4];
+        qf[kk][3] = Qs[r1 * LD + col0 + 8 * kk + t + 4];
       }
     }
 
     // ---- S = Q K^T: keys k0 + 8 j + 2 t (+1) of rows r0 (s[j][0..1])
-    // and r1 (s[j][2..3]); hi.hi in s, the small products in sl ----
+    // and r1 (s[j][2..3]), over this warp's hd; hi.hi in s, the small
+    // products in sl ----
     float s[NT][4], sl[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -286,20 +368,45 @@ swa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if constexpr (kQRegs) {
         a = frag_a(qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
       } else {
-        a = frag_a(Qs[r0 * LD + 8 * kk + t], Qs[r1 * LD + 8 * kk + t],
-                   Qs[r0 * LD + 8 * kk + t + 4],
-                   Qs[r1 * LD + 8 * kk + t + 4]);
+        const float* qr = Qs + col0 + 8 * kk + t;
+        a = frag_a(qr[r0 * LD], qr[r1 * LD], qr[r0 * LD + 4],
+                   qr[r1 * LD + 4]);
       }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const float* kr = Ks + (8 * j + g) * LD + 8 * kk + t;
+        const float* kr = Ks + (8 * j + g) * LD + col0 + 8 * kk + t;
         mma3(s[j], sl[j], a, frag_b(kr[0], kr[4]));
       }
     }
     __syncthreads();                // every warp is done with K
     if (kt < t_last)
-      stage_kv<HD, BN>(Ks, kb, step, k0 + BN, S, tid);
+      stage_kv<HD, BN>(Ks, SPLIT > 1 ? kv_rows(k, S, KV, HD) : kb, step,
+                       k0 + BN, S, tid);
     cp_async_commit();
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += sl[j][e];
+    if constexpr (SPLIT > 1) {
+      // the pair's partials: each warp adds its partner's to its own (the
+      // sum commutes, so both hold S bit for bit); the buffer is written
+      // again only after the next tile's block-wide barriers
+      float4* xs = reinterpret_cast<float4*>(Xs) + warp * NT * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        xs[32 * j] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+      pair_sync(group);
+      const float4* px =
+          reinterpret_cast<const float4*>(Xs) + (warp ^ 1) * NT * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float4 x = px[32 * j];
+        s[j][0] += x.x;
+        s[j][1] += x.y;
+        s[j][2] += x.z;
+        s[j][3] += x.w;
+      }
+    }
 
     // ---- scale, mask, online softmax ----
     const bool masked = (causal && k0 + BN - 1 > q0) ||
@@ -310,10 +417,12 @@ swa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = (s[j][e] + sl[j][e]) * scale;
+        float x = s[j][e] * scale;
         if (masked) {
           const int key = k0 + 8 * j + 2 * t + (e & 1);
-          const int qp = e < 2 ? qpos0 : qpos1;
+          const int qp =
+              SPLIT > 1 ? q0 + min(e < 2 ? r0 : r1, n_rows - 1) / G
+                        : e < 2 ? qpos0 : qpos1;
           const bool ok = key < S && (!causal || key <= qp) &&
                           (window <= 0 || key > qp - window);
           x = ok ? x : kNegInf;
@@ -360,7 +469,7 @@ swa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // ---- O = O corr + P V: each n tile's product over the tile's keys
     // from zero, then added to O in fp32 (the mma truncates its sums, so
     // O never runs through it) ----
-    const float* vr = Vs + 2 * t * LD + g;
+    const float* vr = Vs + 2 * t * LD + col0 + g;
 #pragma unroll
     for (int c = 0; c < OT; ++c) {
       float dh[4] = {0.f, 0.f, 0.f, 0.f}, dl[4] = {0.f, 0.f, 0.f, 0.f};
@@ -372,10 +481,15 @@ swa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       oacc[c][1] = fmaf(oacc[c][1], c0, dh[1] + dl[1]);
       oacc[c][2] = fmaf(oacc[c][2], c1, dh[2] + dl[2]);
       oacc[c][3] = fmaf(oacc[c][3], c1, dh[3] + dl[3]);
+      // at hd 320 two n tiles at a time: unfenced, ptxas hoists the V
+      // loads of more n tiles than the layout has registers for
+      if constexpr (SPLIT > 1)
+        if (c % 2 == 1) __syncwarp();
     }
     __syncthreads();                // every warp is done with V
     if (kt < t_last)
-      stage_kv<HD, BN>(Vs, vb, step, k0 + BN, S, tid);
+      stage_kv<HD, BN>(Vs, SPLIT > 1 ? kv_rows(v, S, KV, HD) : vb, step,
+                       k0 + BN, S, tid);
     cp_async_commit();
   }
 
@@ -387,13 +501,15 @@ swa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   l0 = fmaxf(l0, 1e-30f);
   l1 = fmaxf(l1, 1e-30f);
+  Place at{r0, col0 + 2 * t, q0, n_rows, kvh, b};
+  if constexpr (SPLIT > 1) at = place<HD>(S, G, BQ);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = half ? r1 : r0;
-    if (r >= n_rows) continue;
+    const int r = at.r0 + 8 * half;
+    if (r >= at.n_rows) continue;
     const float li = half ? l1 : l0;
-    float* dst =
-        o + ((b * S + q0 + r / G) * H + kvh * G + r % G) * HD + 2 * t;
+    float* dst = o + ((at.b * S + at.q0 + r / G) * H + at.kvh * G + r % G) *
+                         HD + at.col;
 #pragma unroll
     for (int c = 0; c < OT; ++c)
       *reinterpret_cast<float2*>(dst + 8 * c) =
@@ -424,7 +540,7 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
   const int G = H / KV;
   const int BQ = kRows / G;
   dim3 grid((S + BQ - 1) / BQ, KV, B);
-  swa_tf32_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+  swa_tf32_kernel<HD><<<grid, block_threads<HD>(), bytes, stream>>>(
       q, k, v, o, S, H, KV, G, BQ, window, causal, scale);
   return (int)cudaGetLastError();
 }
@@ -433,7 +549,7 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
 
 extern "C" {
 
-// fp32 q, k, v and o.  hd in {32, 64, 96, 128, 160, 256}; H % KV == 0 and
+// fp32 q, k, v and o.  hd in {32, 64, 96, 128, 160, 256, 320}; H % KV == 0 and
 // H / KV <= 64; window <= 0 means none.
 int rt_swa_attention_fwd_tf32(const void* q, const void* k, const void* v,
                               void* o, int B, int S, int H, int KV, int hd,
@@ -451,6 +567,7 @@ int rt_swa_attention_fwd_tf32(const void* q, const void* k, const void* v,
     case 128: return launch<128>(qf, kf, vf, of, B, S, H, KV, window, causal, scale, s);
     case 160: return launch<160>(qf, kf, vf, of, B, S, H, KV, window, causal, scale, s);
     case 256: return launch<256>(qf, kf, vf, of, B, S, H, KV, window, causal, scale, s);
+    case 320: return launch<320>(qf, kf, vf, of, B, S, H, KV, window, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

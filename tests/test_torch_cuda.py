@@ -546,9 +546,10 @@ SWA_GPU_CASES += [
 
 
 # the wide head_dims, on the wgmma route in bf16 and the 3xTF32 route in
-# fp32 (the CUDA-core kernel at 320): Gemma-3's 320 (its local and global layers at its train
-# shape, a ragged S), pixtral-12b's 160 (32 heads on 8), recurrentgemma-2b's
-# 256 (10 heads on 1) and a full (non-causal) call at 256
+# fp32 (at 320 a warp pair a row): Gemma-3's 320 (its local and global
+# layers at its train shape, a ragged S), pixtral-12b's 160 (32 heads on
+# 8), recurrentgemma-2b's 256 (10 heads on 1) and a full (non-causal) call
+# at 256
 SWA_WIDE_CASES = [
     (1, 2048, 8, 4, 320, 1024, True),
     (1, 2048, 8, 4, 320, None, True),
@@ -568,8 +569,8 @@ SWA_WIDE_CASES = [
                          ids=["f32", "bf16"])
 def test_swa_attention_wide_head_dims_match_plain(cuda, case, dtype):
     """One launch, on the wgmma kernel in bf16 and on the 3xTF32 kernel
-    in fp32 (the CUDA-core kernel at hd 320), at the gates of the narrower
-    head_dims: 2e-5 in fp32, one bf16 step in bf16."""
+    in fp32 (at hd 320 too), at the gates of the narrower head_dims: 2e-5
+    in fp32, one bf16 step in bf16."""
     B, S, H, KV, hd, window, causal = case
     gen = torch.Generator(device=cuda).manual_seed(S + H + hd)
     q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=cuda)
@@ -582,7 +583,7 @@ def test_swa_attention_wide_head_dims_match_plain(cuda, case, dtype):
         "swa_attention_fwd_wgmma": before["swa_attention_fwd_wgmma"]
         + (dtype == torch.bfloat16),
         "swa_attention_fwd_tf32": before["swa_attention_fwd_tf32"]
-        + (dtype == torch.float32 and hd in tswa.TF32_HEAD_DIMS)}
+        + (dtype == torch.float32)}
     want = tref.swa_attention(q, k, v, window=window, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
@@ -613,8 +614,7 @@ def test_swa_attention_kernel_matches_plain(cuda, case, dtype):
     assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
         before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
     assert tswa.LAUNCHES["swa_attention_fwd_tf32"] == \
-        before["swa_attention_fwd_tf32"] + (
-        dtype == torch.float32 and hd in tswa.TF32_HEAD_DIMS)
+        before["swa_attention_fwd_tf32"] + (dtype == torch.float32)
     want = tref.swa_attention(q, k, v, window=window, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
@@ -666,8 +666,9 @@ def test_swa_attention_gradient_on_cuda(cuda, dtype):
 def test_swa_attention_gradient_at_head_dim_320(cuda, dtype):
     """Gemma-3's head_dim (8 heads on 4, its local window) through
     ``ops.swa_attention``, at the gates of ``test_swa_attention_gradient_on
-    _cuda``: fp32 1e-4; bf16 (the forward on the tensor-core route) within
-    one bf16 step of the largest fp32 gradient."""
+    _cuda``: fp32 1e-4 (the forward on the 3xTF32 route, a warp pair a
+    row); bf16 (the forward on the wgmma route) within one bf16 step of the
+    largest fp32 gradient."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda).manual_seed(320)
     qkv = [torch.randn(1, 256, n, 320, generator=gen, device=cuda).to(dtype)
@@ -682,9 +683,8 @@ def test_swa_attention_gradient_at_head_dim_320(cuda, dtype):
         before["swa_attention_fwd"] + 1
     assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
         before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
-    # fp32 at hd 320 runs the CUDA-core kernel (the 3xTF32 one spills)
     assert tswa.LAUNCHES["swa_attention_fwd_tf32"] == \
-        before["swa_attention_fwd_tf32"]
+        before["swa_attention_fwd_tf32"] + (dtype == torch.float32)
     for x, y in zip(a, b):
         assert x.grad.dtype == dtype
         if dtype == torch.float32:
@@ -724,7 +724,7 @@ def test_swa_wgmma_kernel_is_built_on_tensor_cores_and_tma(cuda):
 
 def test_swa_tf32_kernel_is_built_on_tensor_cores_without_spills(cuda):
     """The fp32 kernel's SASS holds TF32 ``mma.sync`` (HMMA) in each of its
-    six instantiations (every head_dim of ``TF32_HEAD_DIMS``), as compiled
+    seven instantiations (every head_dim of ``TF32_HEAD_DIMS``), as compiled
     for sm_90a from ``csrc/swa_attention_tf32.cu``, and no local-memory
     store (STL): no instantiation spills its registers."""
     kernels = _sass_functions("swa_attention_tf32", "swa_tf32_kernel")
@@ -736,15 +736,16 @@ def test_swa_tf32_kernel_is_built_on_tensor_cores_without_spills(cuda):
         assert "STL" not in body, body.split("\n", 1)[0]
 
 
-@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("hd", [64, 256, 320])
 def test_swa_attention_f32_row_does_not_change_with_its_batch(cuda, hd):
     """On the 3xTF32 route an output row depends on its own q row and the
     keys it attends to alone: the rows of batch entry 1 equal bit for bit
     those of entry 1 called alone, and those of kv head 1's query heads
     called alone (the heads a tensor-parallel rank holds: another group
     size G, so other q tiles), as the fp32 engine's and the ranks' token
-    equalities need."""
-    H, KV = (9, 3) if hd == 64 else (8, 2)
+    equalities need.  At hd 320 a warp pair shares each row's scores
+    through shared memory, which must keep that."""
+    H, KV = {64: (9, 3), 256: (8, 2), 320: (8, 4)}[hd]
     G = H // KV
     gen = torch.Generator(device=cuda).manual_seed(hd)
     q, k, v = (torch.randn(3, 700, n, hd, generator=gen, device=cuda)
@@ -1078,8 +1079,7 @@ def test_swa_attention_at_prompt_lengths_one_and_five(cuda, S, dtype):
         assert tswa.LAUNCHES["swa_attention_fwd_wgmma"] == \
             before["swa_attention_fwd_wgmma"] + (dtype == torch.bfloat16)
         assert tswa.LAUNCHES["swa_attention_fwd_tf32"] == \
-            before["swa_attention_fwd_tf32"] + (
-            dtype == torch.float32 and hd in tswa.TF32_HEAD_DIMS)
+            before["swa_attention_fwd_tf32"] + (dtype == torch.float32)
         want = tref.swa_attention(q, k, v, window=window)
         assert bool(torch.isfinite(got).all())
         if dtype == torch.float32:
@@ -1171,8 +1171,7 @@ def test_reduced_prefill_and_decode_on_cuda_match_cpu(cuda, arch, kw):
     assert tswa.LAUNCHES["swa_attention_fwd"] == \
         before["swa_attention_fwd"] + attn_layers
     assert tswa.LAUNCHES["swa_attention_fwd_tf32"] == \
-        before["swa_attention_fwd_tf32"] + attn_layers * (
-            cpu.cfg.head_dim in tswa.TF32_HEAD_DIMS)
+        before["swa_attention_fwd_tf32"] + attn_layers
     for a, b in zip(outs[0][0] + outs[0][1], outs[1][0] + outs[1][1]):
         b = b.cpu()
         assert bool(torch.isfinite(b).all())

@@ -10,9 +10,13 @@ with its 13 low mantissa bits dropped, so each operand x is split as hi =
 x truncated to TF32 and lo = x - hi (exact in fp32, truncated again by the
 mma), and each product is taken as lo.hi + hi.lo + hi.hi (lo.lo
 dropped).  The softmax is fp32 and online over kv tiles of 64 keys at
-hd <= 64, 32 up to 160 and 16 above (``kv_tile``): masked scores at -1e30 after the
-scale, exp as exp2((x - m) log2 e).  P goes from the score accumulators
-into P.V unrounded (only the mma's own split and truncation touch it).
+hd <= 64, 32 at 96 and 128, 16 at 160 and 256 and 32 at 320
+(``kv_tile``): masked scores at -1e30 after the scale, exp as
+exp2((x - m) log2 e).  P goes from the score accumulators into P.V
+unrounded (only the mma's own split and truncation touch it).  At hd 320
+two warps share each row, each taking Q.K^T over half of hd (its own
+hi.hi and small products added in fp32) before the two halves are added
+in fp32 (``qk_parts``).
 
 The mma also truncates each sum it forms (toward zero).  The kernel keeps
 hi.hi and the small products in accumulators of their own, added in
@@ -29,6 +33,8 @@ fall outside it, the largest error 2.43e-3, where the three products land
 both, and asserts neither).  That is why the kernel takes three products.
 """
 import math
+import re
+from pathlib import Path
 
 import pytest
 
@@ -47,13 +53,25 @@ F32_ATOL = 2e-5      # chip_smoke.SWA_F32_ATOL and the card tests' gate
 
 def kv_tile(hd):
     """Keys of the kernel's kv tile at head_dim ``hd`` (``tile_keys``)."""
-    return 64 if hd <= 64 else 32 if hd <= 160 else 16
+    return 64 if hd <= 64 else 32 if hd <= 128 else 16 if hd <= 256 else 32
 
 
-def mm(a, b, split=True):
+def qk_parts(hd):
+    """Warps that share a row at head_dim ``hd`` (``col_split``), each
+    taking Q.K^T over its own equal range of hd."""
+    return 1 if hd <= 256 else 2
+
+
+def mm(a, b, split=True, parts=1):
     """a @ b as the kernel's ``mma3`` forms it: both fp32 operands split by
     ``ref.tf32_split``, lo truncated to TF32 by the mma, lo.hi + hi.lo +
-    hi.hi in fp32; ``split=False``: hi.hi alone, one TF32 product."""
+    hi.hi in fp32; ``split=False``: hi.hi alone, one TF32 product.
+    ``parts``: over that many equal ranges of the inner dim apart, the
+    results added in fp32 (the warp pair's halves of hd)."""
+    if parts > 1:
+        w = a.shape[-1] // parts
+        return sum(mm(a[..., i * w:(i + 1) * w], b[..., i * w:(i + 1) * w, :],
+                      split) for i in range(parts))
     (ah, al), (bh, bl) = tref.tf32_split(a), tref.tf32_split(b)
     if not split:
         return ah @ bh
@@ -87,7 +105,7 @@ def emulate(q, k, v, *, window=None, causal=True, split=True):
         if window is not None:
             ok = ok & (key > qpos - window)
         x = torch.where(ok, mm(qf, kf[:, :, k0:k0 + tile].transpose(-1, -2),
-                               split) * scale, masked)
+                               split, qk_parts(hd)) * scale, masked)
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
         corr = torch.exp2((m - m_new) * LOG2E)
         p = torch.exp2((x - m_new) * LOG2E)
@@ -189,10 +207,17 @@ def _mma_rz(c, a, b):
     return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
 
 
-def _mm_rz(a, b, c=None, apart=True):
+def _mm_rz(a, b, c=None, apart=True, parts=1):
     """a @ b in 3xTF32 over k steps of 8 with truncated sums: hi.hi and
     the small products in two accumulators added in fp32 (``apart``, the
-    kernel), or all three into ``c``."""
+    kernel), or all three into ``c``.  ``parts`` (apart only): each of that
+    many equal ranges of the inner dim summed so, the results added in
+    fp32."""
+    if parts > 1:
+        w = a.shape[-1] // parts
+        return sum(_mm_rz(a[..., i * w:(i + 1) * w],
+                          b[..., i * w:(i + 1) * w, :])
+                   for i in range(parts))
     (ah, al), (bh, bl) = tref.tf32_split(a), tref.tf32_split(b)
     al, bl = tref.tf32_trunc(al), tref.tf32_trunc(bl)
     hi = torch.zeros(a.shape[:-1] + b.shape[-1:]) if c is None or apart \
@@ -224,9 +249,9 @@ def _emulate_rz(q, k, v, apart):
     for k0 in range(0, S, tile):
         kt, vt = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
         key = torch.arange(k0, k0 + tile)[None, :]
-        x = torch.where(key <= qpos, _mm_rz(q, kt.transpose(1, 2),
-                                            apart=apart) * scale,
-                        torch.tensor(-1e30))
+        x = torch.where(key <= qpos, _mm_rz(
+            q, kt.transpose(1, 2), apart=apart,
+            parts=qk_parts(hd) if apart else 1) * scale, torch.tensor(-1e30))
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
         corr = torch.exp2((m - m_new) * LOG2E)
         p = torch.exp2((x - m_new) * LOG2E)
@@ -255,13 +280,32 @@ def test_truncated_sums_meet_the_gate(hd, S):
     assert bad == 0, f"{bad} outside {F32_ATOL}, largest error {worst:.3e}"
 
 
+def _kernel_table(fn):
+    """{hd: value} at every head_dim of the wrapper of the kernel's
+    ``constexpr`` function ``fn``, read from its source: a chain
+    ``HD <= a ? x : HD <= b ? y : z``."""
+    src = (Path(tswa.__file__).with_name("csrc")
+           / "swa_attention_tf32.cu").read_text()
+    body = re.search(fn + r"\(\) \{\s*return ([^;]*);", src).group(1)
+    steps = [(int(a), int(x))
+             for a, x in re.findall(r"HD <= (\d+) \? (\d+) :", body)]
+    last = int(body.rsplit(":", 1)[1])
+    return {hd: next((x for a, x in steps if hd <= a), last)
+            for hd in tswa.HEAD_DIMS}
+
+
 def test_tiles_follow_the_kernel():
-    """The emulation's kv tiles are the kernel's (``tile_keys``: 64 keys at
-    hd <= 64, 32 up to 160, 16 at 256 and 320) at every head_dim the
-    wrapper takes, and the TF32 split is exact: hi keeps 10 mantissa
-    bits, hi + lo is x."""
+    """The emulation's kv tiles and Q.K^T parts are the kernel's
+    (``tile_keys``: 64 keys at hd <= 64, 32 at 96 and 128, 16 at 160 and
+    256, 32 at 320; ``col_split``: two warps a row at 320) at every
+    head_dim the wrapper takes, as its source states them, and the TF32
+    split is exact: hi keeps 10 mantissa bits, hi + lo is x."""
     assert [kv_tile(hd) for hd in tswa.HEAD_DIMS] == \
-        [64, 64, 32, 32, 32, 16, 16]
+        [64, 64, 32, 32, 16, 16, 32]
+    assert _kernel_table("tile_keys") == {hd: kv_tile(hd)
+                                          for hd in tswa.HEAD_DIMS}
+    assert _kernel_table("col_split") == {hd: qk_parts(hd)
+                                          for hd in tswa.HEAD_DIMS}
     rs = np.random.RandomState(3)
     x = torch.from_numpy(np.concatenate([
         rs.randn(100_000) * 10.0 ** rs.randint(-30, 30, 100_000),
