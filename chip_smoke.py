@@ -259,6 +259,11 @@ families, sharding and tp records come earlier, on lines of their own:
 ``{"table3": {...}}``, ``{"serve": {...}}``, ``{"resilience": {...}}``,
 ``{"families": {...}}``, ``{"sharding": {...}}``, ``{"tp": {...}}``.
 
+Where a phase spawns W ranks on the one host (``spawn_ranks``), each
+rank's torch takes at most ``os.cpu_count() // W`` CPU threads, through
+``OMP_NUM_THREADS`` and ``MKL_NUM_THREADS``; a ``[spawn]`` line says how
+many.
+
     python3 chip_smoke.py --compare-mlless ROOT
 
 times only the MLLess step of MobileNet and ResNet-18 (``profile_step``)
@@ -301,6 +306,35 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+THREAD_VARS = ("OMP_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+def spawn_ranks(fn, args, nprocs):
+    """``torch.multiprocessing.spawn`` of ``nprocs`` ranks on this host,
+    each rank's torch given at most ``os.cpu_count() // nprocs`` CPU
+    threads (fewer where the caller's ``OMP_NUM_THREADS`` says so).  A
+    spawned interpreter's torch sizes its pool from these variables as it
+    starts; ranks that each start a pool as wide as the host keep threads
+    spinning on cores they do not hold."""
+    import torch
+    cpus = os.cpu_count() or 1
+    saved = {v: os.environ.get(v) for v in THREAD_VARS}
+    n = min([max(1, cpus // nprocs)] + [int(old) for old in saved.values()
+                                        if old and old.isdigit()
+                                        and int(old) > 0])
+    os.environ.update({v: str(n) for v in THREAD_VARS})
+    log(f"[spawn] {fn.__name__}: {nprocs} ranks on {cpus} CPUs, {n} torch "
+        "threads a rank")
+    try:
+        torch.multiprocessing.spawn(fn, args=args, nprocs=nprocs)
+    finally:
+        for v, old in saved.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
 
 
 def time_ms(fn, reps=50, warmup=5):
@@ -1132,10 +1166,9 @@ def byz_rank(rank, init, out_dir):
 def byzantine_phase():
     """Four ranks on the one card through ``byzantine_train.run``;
     returns rank 0's runs by label."""
-    import torch
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_byz_")
     t0 = time.perf_counter()
-    torch.multiprocessing.spawn(
+    spawn_ranks(
         byz_rank, args=("file://" + os.path.join(out_dir, "pg"), out_dir),
         nprocs=BYZ_RANKS)
     ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
@@ -1361,10 +1394,9 @@ def qsr_rank(rank, init, out_dir, lr):
 def qsr_phase(lr):
     """QuantizedScatterReduce on ``QSR_RANKS`` gloo ranks sharing the
     card; returns rank 0's record."""
-    import torch
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_qsr_")
     t0 = time.perf_counter()
-    torch.multiprocessing.spawn(
+    spawn_ranks(
         qsr_rank, args=("file://" + os.path.join(out_dir, "pg"), out_dir,
                         lr), nprocs=QSR_RANKS)
     ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
@@ -3917,10 +3949,9 @@ def flash_rank(rank, init, out_dir):
 
 
 def serve_flash():
-    import torch
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_flash_")
     t0 = time.perf_counter()
-    torch.multiprocessing.spawn(
+    spawn_ranks(
         flash_rank, args=("file://" + os.path.join(out_dir, "pg"), out_dir),
         nprocs=FLASH_RANKS)
     ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
@@ -4534,12 +4565,11 @@ def resilience_phase():
     """The chaos harness on the card; returns its record.  Every run is
     logged before the gates are held."""
     import shutil
-    import torch
     t0 = time.perf_counter()
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_res_")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        torch.multiprocessing.spawn(
+        spawn_ranks(
             res_rank, args=("file://" + os.path.join(out_dir, "pg"),
                             out_dir, ckpt_dir), nprocs=RES_RANKS)
         ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
@@ -4867,7 +4897,7 @@ def sharding_phase():
     child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
                               "--sharding-dryrun", dry_path])
     try:
-        torch.multiprocessing.spawn(
+        spawn_ranks(
             shard_rank, args=("file://" + os.path.join(out_dir, "pg"),
                               out_dir), nprocs=SHARD_RANKS)
         ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
@@ -5759,14 +5789,13 @@ def tp_phase(shard):
     (``shard``, its record); returns the record.  Every number is logged
     before the gates."""
     import shutil
-    import torch
     t0 = time.perf_counter()
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     dry_path = os.path.join(out_dir, "dryrun.json")
     child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
                               "--tp-dryrun", dry_path])
     try:
-        torch.multiprocessing.spawn(
+        spawn_ranks(
             tp_rank, args=("file://" + os.path.join(out_dir, "pg"),
                            out_dir), nprocs=TP_RANKS)
         ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
@@ -5776,7 +5805,7 @@ def tp_phase(shard):
               f"[tp] head-local ranks {len(local)}")
         n_slots = math.prod(TP_SLOTS_MESH)
         t1 = time.perf_counter()
-        torch.multiprocessing.spawn(
+        spawn_ranks(
             tp_slots_rank, args=("file://" + os.path.join(out_dir,
                                                           "pg_slots"),
                                  out_dir), nprocs=n_slots)

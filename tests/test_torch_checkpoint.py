@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (pins torch's CPU threads)
 msgpack = pytest.importorskip("msgpack")
 ml_dtypes = pytest.importorskip("ml_dtypes")
 

@@ -4,6 +4,7 @@ bridge and the classification loss, at reduced width (0.25)."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (pins torch's CPU threads)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

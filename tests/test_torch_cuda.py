@@ -9,6 +9,7 @@ installed:
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (pins torch's CPU threads)
 
 import numpy as np  # noqa: E402
 

@@ -8,6 +8,7 @@ one production-mesh dry-run on the fake process group."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (pins torch's CPU threads)
 
 from repro.costmodel import roofline as jroofline  # noqa: E402
 from repro_torch.configs.base import InputShape, get_config  # noqa: E402

@@ -7,6 +7,7 @@ import ast
 from pathlib import Path
 
 import pytest
+import torch_threads  # noqa: F401  (pins torch's CPU threads)
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (pins torch's CPU threads)
 
 import golden_utils as gu  # noqa: E402
 import repro.serverless as J  # noqa: E402

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (pins torch's CPU threads)
 
 import golden_utils as gu  # noqa: E402
 from repro_torch.serverless import (ByzantineWorker,  # noqa: E402

@@ -7,6 +7,7 @@ models; greedy tokens must be equal, not close."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (pins torch's CPU threads)
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402

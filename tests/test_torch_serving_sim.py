@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (pins torch's CPU threads)
 
 from repro.configs.base import get_config as jget_config  # noqa: E402
 from repro.costmodel import flops as jflops  # noqa: E402

@@ -8,6 +8,7 @@ import pytest
 
 pytest.importorskip("hypothesis")
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (pins torch's CPU threads)
 
 import hypothesis.strategies as st  # noqa: E402
 import jax  # noqa: E402
