@@ -148,10 +148,11 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    ``{"serve": {...}}``; the kernels line's attention entry gains the
    launches and routes of each prefill.
 11. resilience: the chaos harness (``repro_torch.resilience``) on
-   full-width SmolLM-135M (bf16, SPIRT), 4 ranks sharing the card over
-   gloo, global batch 12 x seq 128, lr 1e-3, 5 steps, worker 1 killed at
-   step 3, a checkpoint every 2 steps and the in-DB store pushed every
-   step: the baseline, checkpoint restore twice (each bit for bit the
+   full-width SmolLM-135M cut 30 -> 10 layers (``MULTI_RANK_LAYERS``,
+   every trainer the ranks build; bf16, SPIRT), 4 ranks sharing the card
+   over gloo, global batch 12 x seq 128, lr 1e-3, 5 steps, worker 1
+   killed at step 3, a checkpoint every 2 steps and the in-DB store
+   pushed every step: the baseline, checkpoint restore twice (each bit for bit the
    baseline; where not, the ops without a deterministic implementation
    are named), SPIRT's peer takeover (no replay, 3 ranks on, the dead
    partition's bytes, final loss within 0.5 of the baseline's), the
@@ -162,7 +163,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    bit; ``benchmarks/recovery_replay.py``'s sign check through the port's
    event runtime; wall times split into read, decode, to-device and
    replay (its profiler window over rank 0's step is cut for the time
-   limit: PERF.md keeps its earlier reading).  Its record is the line
+   limit: PERF.md keeps its earlier reading).  The lm phase keeps
+   SmolLM's full depth on one card.  Its record is the line
    ``{"resilience": {...}}``; the kernels line's fused-AdamW and
    attention entries gain its launches.
 
@@ -193,8 +195,10 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    fused-AdamW entries gain its shapes and launches.
 
 13. sharding: FSDP training and data-sharded serving (``core.sharding``,
-   ``core.train_step``, ``core.serve_step``) on full-width SmolLM-135M,
-   4 ranks sharing the card over gloo (gloo's all-gather and
+   ``core.train_step``, ``core.serve_step``) on full-width SmolLM-135M
+   cut 30 -> 10 layers (``MULTI_RANK_LAYERS``; the dry-runs of the
+   phase's own configuration and the serving too), 4 ranks sharing the
+   card over gloo (gloo's all-gather and
    reduce-scatter on CUDA tensors checked first).  Global batch 8 x seq
    512, 3 steps each of allreduce replicated, allreduce under FSDP and
    MLLess under FSDP (bf16, fused AdamW, kernel 8): the FSDP losses within
@@ -207,13 +211,15 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    decoding of the same prompts and timed in bf16: batch 16 x cache 2,048
    batch-sharded, batch 1 x cache 32,768 sequence-sharded
    (flash-decode).  The dry-run of
-   SmolLM's train_4k and long_500k on the 16x16 mesh under zero3 (peak
+   full-depth SmolLM's train_4k and long_500k on the 16x16 mesh under zero3 (peak
    GB a device, dominant roofline term).  Its record is the line
    ``{"sharding": {...}}``; the kernels line's fused-AdamW, attention and
    segmented entries gain its launches.
 
-14. tp: tensor parallelism (``models.tp``) on full-width SmolLM-135M, 4
-   ranks sharing the card over gloo on a (2, 2) ("data", "model") mesh
+14. tp: tensor parallelism (``models.tp``) on full-width SmolLM-135M cut
+   30 -> 10 layers (``MULTI_RANK_LAYERS``: the train runs, the dry-runs
+   they are held against and the serving on every mesh), 4 ranks sharing
+   the card over gloo on a (2, 2) ("data", "model") mesh
    (gloo's bf16 all-reduce and reduce-scatter on CUDA tensors checked
    first).  The sharding phase's batches (global 8 x seq 512), 3 steps
    each of allreduce, allreduce under FSDP and MLLess (whole leaves, as
@@ -243,13 +249,14 @@ Phases, each of which must pass (the script exits nonzero otherwise):
    greedy tokens token for token against one rank's, gloo calls a
    prefill and a token, kernel 8 once a causal attention layer a
    prefill.  Then 6 ranks on (1, 6), where neither 9 / 3 heads nor
-   head_dim 64 divide and the model axis lands on the ring's slots: all
-   30 layers, batch 2, cache 3,072 (512 slots a rank), prompt 2,048,
-   kernel 8 on
-   all 9 heads a rank in the prefill (fp32 on 3xTF32, bf16 on
-   wgmma), 8 greedy tokens through flash-decode over the model group,
+   head_dim 64 divide and the model axis lands on the ring's slots: 10
+   layers, batch 2, cache 3,072 (512 slots a rank), prompt 2,048,
+   kernel 8 on all 9 heads a rank in the prefill (fp32 on 3xTF32, bf16
+   on wgmma), 8 greedy tokens through flash-decode over the model group,
    fp32 token for token against one rank's, gloo calls a token against
-   the design's count.  Its record is the line ``{"tp": {...}}``; the
+   the design's count (1 + 8 a layer + 2).  SmolLM's full depth stays
+   on one card: the lm phase trains all 30 layers, the serve phase
+   serves them.  Its record is the line ``{"tp": {...}}``; the
    kernels line's fused-AdamW, attention, WKV and segmented entries gain
    its launches.
 
@@ -262,7 +269,12 @@ families, sharding and tp records come earlier, on lines of their own:
 Where a phase spawns W ranks on the one host (``spawn_ranks``), each
 rank's torch takes at most ``os.cpu_count() // W`` CPU threads, through
 ``OMP_NUM_THREADS`` and ``MKL_NUM_THREADS``; a ``[spawn]`` line says how
-many.
+many.  The resilience, sharding and tp phases print ``[budget]`` lines:
+each spawn's start-up (seconds from the spawn until the ranks entered
+their function, held a CUDA context and joined the group), each train
+run's build, first step and later steps, each trainer's build and warm
+steps, each run's snapshots, each serving call, and the dry-run child's
+time and the wait for it.
 
     python3 chip_smoke.py --compare-mlless ROOT
 
@@ -335,6 +347,49 @@ def spawn_ranks(fn, args, nprocs):
                 os.environ.pop(v, None)
             else:
                 os.environ[v] = old
+
+
+def start_rank(rank, world, init, t_spawn):
+    """A spawned rank's start: TF32 off, its device, its CUDA context and
+    the default process group over ``init``.  Returns the device and the
+    seconds from the spawn (``t_spawn``: the parent's ``time.time()``
+    just before it) until the rank entered its function (interpreter and
+    imports), held its CUDA context and had joined the group."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.train import _rank_device, backend_for
+    clock = {"entered": time.time() - t_spawn}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _rank_device("cuda", rank)
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize(dev)
+    clock["cuda"] = time.time() - t_spawn
+    dist.init_process_group(backend_for(dev, world), init_method=init,
+                            rank=rank, world_size=world)
+    clock["group"] = time.time() - t_spawn
+    return dev, clock
+
+
+def budget_spawn(where, clocks, spawn_s):
+    """The ``[budget]`` line of one spawn: each start-up stage's seconds
+    from the spawn, first and last rank (``clocks``, ``start_rank``'s),
+    and when the spawn returned."""
+    stages = ", ".join(
+        f"{k} {min(c[k] for c in clocks):.1f}-{max(c[k] for c in clocks):.1f}"
+        for k in ("entered", "cuda", "group"))
+    log(f"[budget] {where}: {len(clocks)} ranks, spawn -> first rank ready "
+        f"{min(c['group'] for c in clocks):.1f} s (from the spawn, first-"
+        f"last rank: {stages} s); the spawn returned after {spawn_s:.1f} s")
+
+
+def budget_train(where, run):
+    """The ``[budget]`` line of one rank's train run: the model's and the
+    step's build, the first step and the later ones."""
+    ms = run["step_ms"]
+    log(f"[budget] {where} (rank 0): build {run['build_s']:.1f} s, first "
+        f"step {ms[0] / 1e3:.1f} s, later steps "
+        f"{[round(m / 1e3, 1) for m in ms[1:]]} s")
 
 
 def time_ms(fn, reps=50, warmup=5):
@@ -1509,6 +1564,23 @@ SWA_BF16_RTOL, SWA_BF16_ATOL, SWA_F32_ATOL = 2 ** -7, 1e-5, 2e-5
 # the kernel step against the kernel-free step, bf16 model: losses agree
 # to within half a bf16 step of the loss (2^-9 relative)
 LM_STEP_RTOL = 2 ** -9
+# SmolLM's depth on every multi-rank path (the resilience phase's
+# trainers; the sharding and tp phases' train runs, the dry-runs they are
+# held against and their serving on every mesh), cut 30 -> 10 for the
+# time limit: their time is gloo traffic and snapshots, which grow with
+# the parameters (92,024,640 at 10 layers, 162,826,560 at 30).  The width
+# stays; the lm and serve phases train and serve all 30 layers.
+MULTI_RANK_LAYERS = 10
+
+
+def multi_rank_config():
+    """Full-width SmolLM cut to ``MULTI_RANK_LAYERS``, registered under a
+    name of its own for the harnesses that build an arch by name."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, register
+    return register(dataclasses.replace(
+        get_config(LM_ARCH), name=f"{LM_ARCH}-{MULTI_RANK_LAYERS}l",
+        n_layers=MULTI_RANK_LAYERS))
 
 
 def lm_leaves(dev):
@@ -1990,14 +2062,15 @@ def reset_lm_launches():
             counts[k] = 0
 
 
-def expected_lm_launches(steps, microbatches=1, mlless=False):
-    """Per ``steps``: fused AdamW once per leaf (12); the attention kernel
+def expected_lm_launches(layers, steps, microbatches=1, mlless=False):
+    """Per ``steps`` of SmolLM at ``layers``: fused AdamW once per leaf
+    (12, each block leaf stacked over the layers); the attention kernel
     once per layer in the forward and once more in the backward's
-    recompute of each checkpointed layer, per microbatch (2 x 30 x Ke),
-    every launch on the tensor-core route (the model is bf16); MLLess's
-    segmented filter once over all 12 leaves."""
+    recompute of each checkpointed layer, per microbatch (2 x layers x
+    Ke), every launch on the tensor-core route (the model is bf16);
+    MLLess's segmented filter once over all 12 leaves."""
     n = {"fused_adamw_flat": 12 * steps,
-         "swa_attention_fwd": 2 * 30 * microbatches * steps,
+         "swa_attention_fwd": 2 * layers * microbatches * steps,
          "wkv6_chunked": 0, "wkv6_chunked_tc": 0,
          **mlless_launches(steps if mlless else 0)}
     n["swa_attention_fwd_wgmma"] = n["swa_attention_fwd"]   # bf16: all
@@ -2012,8 +2085,10 @@ def lm_train_phase(init_method):
     and MLLess; the long sequence."""
     import torch
     import torch.distributed as dist
+    from repro_torch.configs.base import get_config
     from repro_torch.launch.train import train
 
+    layers = get_config(LM_ARCH).n_layers
     dist.init_process_group("nccl", init_method=init_method, rank=0,
                             world_size=1)
     try:
@@ -2028,7 +2103,7 @@ def lm_train_phase(init_method):
         first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
         check(last < first, f"loss did not fall: first five {first:.4f}, "
               f"last five {last:.4f}")
-        want = expected_lm_launches(LM_STEPS)
+        want = expected_lm_launches(layers, LM_STEPS)
         check(launches == want, f"launches {launches}, expected {want}")
         log(f"[lm] {LM_ARCH} full width ({res['params']:,} parameters), "
             f"bf16, batch {LM_BATCH} x seq {LM_SEQ}, allreduce, fused AdamW "
@@ -2048,7 +2123,8 @@ def lm_train_phase(init_method):
             r = train(arch=LM_ARCH, strategy=strategy, batch=LM_BATCH,
                       seq=LM_SEQ, steps=3, lr=LM_LR, fused_optimizer=True,
                       device="cuda", log=None)
-            got, want = lm_launches(), expected_lm_launches(3, k_mb, mlless)
+            got = lm_launches()
+            want = expected_lm_launches(layers, 3, k_mb, mlless)
             check(got == want, f"{strategy}: launches {got}, expected {want}")
             check(all(map(math.isfinite, r["losses"])),
                   f"{strategy}: loss not finite {r['losses']}")
@@ -2064,7 +2140,8 @@ def lm_train_phase(init_method):
         r = train(arch=LM_ARCH, batch=LONG_BATCH, seq=LONG_SEQ,
                   steps=LONG_STEPS, lr=LM_LR, fused_optimizer=True,
                   device="cuda", log=None)
-        got, want = lm_launches(), expected_lm_launches(LONG_STEPS)
+        got = lm_launches()
+        want = expected_lm_launches(layers, LONG_STEPS)
         check(got == want, f"long: launches {got}, expected {want}")
         check(all(map(math.isfinite, r["losses"])),
               f"long: loss not finite {r['losses']}")
@@ -3596,9 +3673,10 @@ def serve_model(cfg, prompt, cache_len, n_tokens, label, expect_launches,
 
 
 def serve_prefill_32k():
-    """SmolLM-135M prefills one prompt of prefill_32k's length: 30
-    tensor-core launches of kernel 8, its time and peak memory, and layer
-    0's launch held against the plain chunked attention at that length."""
+    """SmolLM-135M prefills one prompt of prefill_32k's length: a
+    tensor-core launch of kernel 8 a layer (30), its time and peak memory,
+    and layer 0's launch held against the plain chunked attention at that
+    length."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import swa_attention as swa
@@ -3619,8 +3697,8 @@ def serve_prefill_32k():
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         launches = serve_launches()
-        check(launches == {"swa_attention_fwd": 30,
-                           "swa_attention_fwd_wgmma": 30,
+        check(launches == {"swa_attention_fwd": cfg.n_layers,
+                           "swa_attention_fwd_wgmma": cfg.n_layers,
                            "swa_attention_fwd_tf32": 0},
               f"[serve] prefill_32k launched {launches}")
         peak = torch.cuda.max_memory_allocated()
@@ -3981,7 +4059,8 @@ def serve_phase():
     t0 = time.perf_counter()
     rec = {}
     cfg = get_config(SERVE_ARCH)
-    attn = {"swa_attention_fwd": 30, "swa_attention_fwd_wgmma": 30,
+    attn = {"swa_attention_fwd": cfg.n_layers,
+            "swa_attention_fwd_wgmma": cfg.n_layers,
             "swa_attention_fwd_tf32": 0}
     prompt = serve_tokens(cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, 0)
     smol = serve_model(cfg, prompt, SERVE_CACHE, SERVE_TOKENS,
@@ -4366,10 +4445,13 @@ RES_LOSS_GAP = 0.5
 
 
 def res_config(lr=RES_LR, steps=RES_STEPS, **kw):
+    """The harness's config: SmolLM at ``MULTI_RANK_LAYERS``, full
+    width."""
     from repro_torch.resilience import ResilienceConfig
     return ResilienceConfig(
-        arch=LM_ARCH, sim_arch="spirt", n_workers=RES_RANKS, steps=steps,
-        global_batch=RES_BATCH, seq=RES_SEQ, lr=lr,
+        arch=multi_rank_config().name, sim_arch="spirt",
+        n_workers=RES_RANKS, steps=steps, global_batch=RES_BATCH,
+        seq=RES_SEQ, lr=lr,
         checkpoint_every=RES_CKPT_EVERY, push_every=1, reduced=False, **kw)
 
 
@@ -4391,13 +4473,14 @@ def res_widths(label, rank):
                                 + (replay if label == "shrunk" else 0))
 
 
-def res_expected(label, rank):
-    """Kernel launches of one rank's run: fused AdamW once per leaf a
-    step (12), attention once per layer a microbatch (30 x Ke, Ke =
-    gcd(4, local batch): 1 at W 4, 4 at W 3), forward only (the harness
-    builds the model without remat), all on the tensor-core route."""
+def res_expected(label, rank, layers):
+    """Kernel launches of one rank's run of SmolLM at ``layers``: fused
+    AdamW once per leaf a step (12), attention once per layer a
+    microbatch (layers x Ke, Ke = gcd(4, local batch): 1 at W 4, 4 at W
+    3), forward only (the harness builds the model without remat), all on
+    the tensor-core route."""
     widths = res_widths(label, rank)
-    attn = sum(30 * math.gcd(4, RES_BATCH // w) for w in widths)
+    attn = sum(layers * math.gcd(4, RES_BATCH // w) for w in widths)
     n = {k: 0 for k in lm_launches()}
     n.update(fused_adamw_flat=12 * len(widths), swa_attention_fwd=attn,
              swa_attention_fwd_wgmma=attn)
@@ -4464,26 +4547,35 @@ def res_nondeterminism(trainer):
     return sorted({str(w.message).split("\n")[0][:200] for w in caught})
 
 
-def res_rank(rank, init, out_dir, ckpt_dir):
+def res_rank(rank, init, out_dir, ckpt_dir, t_spawn):
     """One rank of the resilience phase: baseline, restore twice, takeover
     and the shrunk restore through ``ResilientTrainer``, launch counts set
-    to 0 just before each run and read just after."""
+    to 0 just before each run and read just after; each trainer's build
+    and warm-up timed."""
     import dataclasses
     import torch
     import torch.distributed as dist
-    from repro_torch.launch.train import _rank_device, backend_for
     from repro_torch.resilience import FaultSchedule, ResilientTrainer
     from repro_torch.serverless.recovery import (CheckpointRestore,
                                                  PeerTakeover)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = _rank_device("cuda", rank)
-    dist.init_process_group(backend_for(dev, RES_RANKS), init_method=init,
-                            rank=rank, world_size=RES_RANKS)
+    dev, clock = start_rank(rank, RES_RANKS, init, t_spawn)
     schedule = FaultSchedule.single(*RES_KILL)
     restore = CheckpointRestore(checkpoint_every=RES_CKPT_EVERY)
-    rec = {"backend": dist.get_backend(), "runs": {}}
+    rec = {"backend": dist.get_backend(), "runs": {}, "start": clock,
+           "trainers": {}}
     torch.cuda.reset_peak_memory_stats(dev)
+
+    def trainer_for(label, *warm, **kw):
+        t0 = time.perf_counter()
+        trainer = ResilientTrainer(res_config(**kw), ckpt_dir,
+                                   device="cuda", keep_checkpoints=False)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        trainer.warm(*warm)
+        torch.cuda.synchronize(dev)
+        rec["trainers"][label] = {"build_s": t1 - t0,
+                                  "warm_s": time.perf_counter() - t1}
+        return trainer
 
     def run(trainer, label, policy=None):
         reset_lm_launches()
@@ -4496,11 +4588,8 @@ def res_rank(rank, init, out_dir, ckpt_dir):
         rec["runs"][label] = r
         return r
 
-    t0 = time.perf_counter()
-    trainer = ResilientTrainer(res_config(), ckpt_dir, device="cuda",
-                               keep_checkpoints=False)
-    trainer.warm(schedule, PeerTakeover())
-    rec["setup_s"] = time.perf_counter() - t0
+    trainer = trainer_for("fleet", schedule, PeerTakeover())
+    rec["setup_s"] = sum(rec["trainers"]["fleet"].values())
     run(trainer, "baseline")
     run(trainer, "restore/0", restore)
     run(trainer, "restore/1", restore)
@@ -4513,16 +4602,13 @@ def res_rank(rank, init, out_dir, ckpt_dir):
         rec["roundtrip"] = res_roundtrip(trainer.model)
     del trainer
     torch.cuda.empty_cache()
-    shrunk = ResilientTrainer(res_config(restore_reinvoke=False), ckpt_dir,
-                              device="cuda", keep_checkpoints=False)
-    shrunk.warm(schedule, restore)
+    shrunk = trainer_for("shrunk", schedule, restore,
+                         restore_reinvoke=False)
     run(shrunk, "shrunk", restore)
     del shrunk
     torch.cuda.empty_cache()
-    ref_lr = ResilientTrainer(res_config(lr=RES_REF_LR,
-                                         steps=RES_REF_STEPS), ckpt_dir,
-                              device="cuda", keep_checkpoints=False)
-    ref_lr.warm()
+    ref_lr = trainer_for(f"lr{RES_REF_LR}", lr=RES_REF_LR,
+                         steps=RES_REF_STEPS)
     run(ref_lr, f"baseline/lr{RES_REF_LR}")
     del ref_lr
     torch.cuda.empty_cache()
@@ -4569,9 +4655,11 @@ def resilience_phase():
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_res_")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
+        t_spawn = time.time()
         spawn_ranks(
             res_rank, args=("file://" + os.path.join(out_dir, "pg"),
-                            out_dir, ckpt_dir), nprocs=RES_RANKS)
+                            out_dir, ckpt_dir, t_spawn), nprocs=RES_RANKS)
+        spawn_s = time.time() - t_spawn
         ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
                  for r in range(RES_RANKS)]
     finally:
@@ -4582,7 +4670,8 @@ def resilience_phase():
                               runs["shrunk"])
     k, dead = RES_KILL
     n = base["n_params"]
-    log(f"[resilience] {LM_ARCH} full width ({n:,} parameters), bf16, "
+    log(f"[resilience] {LM_ARCH} full width, {MULTI_RANK_LAYERS} layers "
+        f"({n:,} parameters), bf16, "
         f"{RES_RANKS} ranks sharing the card over {ranks[0]['backend']}, "
         f"global batch {RES_BATCH} x seq {RES_SEQ}, spirt (K 4), lr "
         f"{RES_LR}, {RES_STEPS} steps, kill step {k} worker {dead}, "
@@ -4613,10 +4702,19 @@ def resilience_phase():
     log(f"[resilience] sign check: real restore - takeover "
         f"{sign['real_delta_s']:+.6f} s, event runtime TTR "
         f"{sign['sim_delta_s']:+.6f} s ({sign['sim_ttr_s']})")
+    budget_spawn("resilience", [r["start"] for r in ranks], spawn_s)
+    for label, tr in ranks[0]["trainers"].items():
+        log(f"[budget] resilience trainer {label} (rank 0): build "
+            f"{tr['build_s']:.1f} s, warm steps {tr['warm_s']:.1f} s")
+    for label, r in runs.items():
+        log(f"[budget] resilience {label} (rank 0): run {r['run_s']:.1f} s, "
+            f"snapshots {r['snapshot_s']:.1f} s, recoveries "
+            f"{sum(rr['wall_s'] for rr in r['recoveries']):.1f} s, median "
+            f"step by width {r['step_s_by_width']} s")
 
     for rank, res in enumerate(ranks):
         for label, r in res["runs"].items():
-            want = res_expected(label, rank)
+            want = res_expected(label, rank, MULTI_RANK_LAYERS)
             check(r["launches"] == want, f"[resilience] rank {rank} "
                   f"{label}: launches {r['launches']}, expected {want}")
             check(r["losses"] == runs[label]["losses"], f"rank {rank} "
@@ -4675,7 +4773,9 @@ def resilience_phase():
         "launches": {label: [r["runs"][label]["launches"] for r in ranks]
                      for label in runs},
         "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
-        "setup_s": ranks[0]["setup_s"]}
+        "setup_s": ranks[0]["setup_s"], "layers": MULTI_RANK_LAYERS,
+        "start": [r["start"] for r in ranks],
+        "trainers": ranks[0]["trainers"], "spawn_s": spawn_s}
     record["seconds"] = time.perf_counter() - t0
     log(f"[resilience] phase took {record['seconds']:.1f} s")
     return record
@@ -4694,23 +4794,22 @@ SHARD_RUNS = (("allreduce", False), ("allreduce", True), ("mlless", True))
 # into rank 1's
 SHARD_SERVE = (("batch16", 16, 2048, 512), ("batch1", 1, 32768, 8184))
 SHARD_TOKENS = 16
-# SmolLM's depth in the phase's serving (and the tp phase's (2, 2) and
-# (1, 3) serving), cut 30 -> 10 for the time limit
-SHARD_SERVE_LAYERS = 10
 SHARD_DRYRUN = ("train_4k", "long_500k")
 
 
-def shard_expected(strategy, steps=SHARD_STEPS):
-    """Launches a rank makes in ``steps`` train steps: fused AdamW once a
-    leaf, attention twice a layer (forward and remat), MLLess's
-    segmented pair once (FSDP changes none of them)."""
-    return expected_lm_launches(steps, mlless=strategy == "mlless")
+def shard_expected(strategy, layers, steps=SHARD_STEPS):
+    """Launches a rank makes in ``steps`` train steps of SmolLM at
+    ``layers``: fused AdamW once a leaf, attention twice a layer (forward
+    and remat), MLLess's segmented pair once (FSDP changes none of
+    them)."""
+    return expected_lm_launches(layers, steps, mlless=strategy == "mlless")
 
 
 def shard_dryruns():
     """The dry-run on the fake group: the phase's own configuration (W =
-    4, every run's strategy and profile) and SmolLM's train_4k and
-    long_500k on the 16x16 mesh under zero3."""
+    4, every run's strategy and profile, SmolLM at ``MULTI_RANK_LAYERS``)
+    and full-depth SmolLM's train_4k and long_500k on the 16x16 mesh
+    under zero3."""
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
@@ -4722,7 +4821,7 @@ def shard_dryruns():
             dryrun.dryrun_one(LM_ARCH, shape.name, strategy=strategy,
                               profile="zero3" if fsdp else "dp", save=False,
                               mesh=make_mesh((SHARD_RANKS,), ("data",)),
-                              input_shape=shape)
+                              config=multi_rank_config(), input_shape=shape)
     for name in SHARD_DRYRUN:
         out["production"][name] = dryrun.dryrun_one(
             LM_ARCH, name, profile="zero3", save=False)
@@ -4753,22 +4852,23 @@ def shard_gloo_check(dev):
 
 
 def shard_train(dev, strategy, fsdp, batches):
-    """``SHARD_STEPS`` steps of full-width SmolLM from seed 0's weights;
-    the first step's collectives, the shards each rank holds, launches,
-    step times and peak memory."""
+    """``SHARD_STEPS`` steps of full-width SmolLM at ``MULTI_RANK_LAYERS``
+    from seed 0's weights; the first step's collectives, the shards each
+    rank holds, launches, build and step times and peak memory."""
     import torch
     from repro_torch import optim
-    from repro_torch.configs.base import get_config
     from repro_torch.core import build_train_step, get_strategy
     from repro_torch.costmodel.collectives import record_collectives, stats
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
-    model = build_model(get_config(LM_ARCH), use_kernel=True, device=dev)
+    t0 = time.perf_counter()
+    model = build_model(multi_rank_config(), use_kernel=True, device=dev)
     ts = build_train_step(model, optim.adamw(LM_LR, use_fused=True),
                           get_strategy(strategy),
                           make_mesh((SHARD_RANKS,), ("data",)), fsdp=fsdp)
     state = ts.init_state()
     torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     reset_lm_launches()
     losses, ms, coll = [], [], None
@@ -4784,7 +4884,7 @@ def shard_train(dev, strategy, fsdp, batches):
             coll = {"bytes_by_kind": st.bytes_by_kind, "counts": st.counts,
                     "wire_bytes": st.wire_bytes}
     rec = {"losses": losses, "step_ms": ms, "collectives": coll,
-           "launches": lm_launches(),
+           "launches": lm_launches(), "build_s": build_s,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
     if ts.layout is not None:
         lay = ts.layout
@@ -4800,16 +4900,15 @@ def shard_train(dev, strategy, fsdp, batches):
 def shard_serve(dev, dtype, B, cache_len, prompt_len):
     """Greedy decoding of ``SHARD_TOKENS`` tokens over the data mesh and,
     on this rank alone, of the same prompts: this rank's rows of both,
-    ms a decode step of each."""
+    ms a decode step of each, the call's seconds."""
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch.configs.base import get_config
     from repro_torch.core import build_serve_step
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=dtype,
-                              n_layers=SHARD_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(multi_rank_config(), dtype=dtype)
     model = build_model(cfg, use_kernel=True, device=dev)
     rs = np.random.RandomState(B)
     prompt = torch.as_tensor(rs.randint(0, cfg.vocab_size, (B, prompt_len))
@@ -4843,22 +4942,17 @@ def shard_serve(dev, dtype, B, cache_len, prompt_len):
     return {"equal": bool(torch.equal(sharded, whole)),
             "tokens": sharded.tolist(), "one_rank_tokens": whole.tolist(),
             "ms_per_token": ms, "one_rank_ms_per_token": ms_one,
-            "launches": launches}
+            "launches": launches, "seconds": time.perf_counter() - t0}
 
 
-def shard_rank(rank, init, out_dir):
+def shard_rank(rank, init, out_dir, t_spawn):
     """One rank of the sharding phase."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs.base import get_config
     from repro_torch.data import lm_batches, token_stream
-    from repro_torch.launch.train import _rank_device, backend_for
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = _rank_device("cuda", rank)
-    rec = {}
-    dist.init_process_group(backend_for(dev, SHARD_RANKS), init_method=init,
-                            rank=rank, world_size=SHARD_RANKS)
+    dev, clock = start_rank(rank, SHARD_RANKS, init, t_spawn)
+    rec = {"start": clock}
     rec["backend"] = dist.get_backend()
     rec["gloo_cuda"] = shard_gloo_check(dev)
     cfg = get_config(LM_ARCH)
@@ -4897,12 +4991,15 @@ def sharding_phase():
     child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
                               "--sharding-dryrun", dry_path])
     try:
+        t_spawn = time.time()
         spawn_ranks(
             shard_rank, args=("file://" + os.path.join(out_dir, "pg"),
-                              out_dir), nprocs=SHARD_RANKS)
+                              out_dir, t_spawn), nprocs=SHARD_RANKS)
+        spawn_s = time.time() - t_spawn
         ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
                  for r in range(SHARD_RANKS)]
         check(child.wait(timeout=300) == 0, "[sharding] the dry-run failed")
+        wait_s = time.time() - t_spawn - spawn_s
         dry = json.loads(Path(dry_path).read_text())
     finally:
         if child.poll() is None:
@@ -4910,7 +5007,8 @@ def sharding_phase():
             child.wait()
         shutil.rmtree(out_dir, ignore_errors=True)
     r0 = ranks[0]
-    log(f"[sharding] {LM_ARCH} full width, bf16, {SHARD_RANKS} ranks "
+    log(f"[sharding] {LM_ARCH} full width, {MULTI_RANK_LAYERS} layers, "
+        f"bf16, {SHARD_RANKS} ranks "
         f"sharing the card over {r0['backend']}, global batch "
         f"{SHARD_BATCH} x seq {SHARD_SEQ}, {SHARD_STEPS} steps a run; "
         f"gloo on CUDA tensors: {[r['gloo_cuda'] for r in ranks]}")
@@ -4945,6 +5043,14 @@ def sharding_phase():
             f" on one; tokens equal on every rank "
             f"{[r['serve'][label]['equal'] for r in ranks]}; launches "
             f"{res['launches']}")
+    budget_spawn("sharding", [r["start"] for r in ranks], spawn_s)
+    for label, run in r0["train"].items():
+        budget_train(f"sharding train {label}", run)
+    log(f"[budget] sharding serve (rank 0): "
+        f"{ {k: round(v['seconds'], 1) for k, v in r0['serve'].items()} } s")
+    log(f"[budget] sharding dry-run child: {dry['seconds']:.1f} s of "
+        f"dry-runs beside the ranks; waited {wait_s:.1f} s for it after "
+        "them")
 
     for r, res in enumerate(ranks):
         check(all(res["gloo_cuda"][k] for k in ("all_gather_into_tensor",
@@ -4952,9 +5058,9 @@ def sharding_phase():
               f"[sharding] rank {r}: gloo on CUDA tensors {res['gloo_cuda']}")
         for label, run in res["train"].items():
             strategy = label.split("/")[0]
-            check(run["launches"] == shard_expected(strategy),
-                  f"[sharding] rank {r} {label}: launches "
-                  f"{run['launches']}, expected {shard_expected(strategy)}")
+            want = shard_expected(strategy, MULTI_RANK_LAYERS)
+            check(run["launches"] == want, f"[sharding] rank {r} {label}: "
+                  f"launches {run['launches']}, expected {want}")
             check(run["losses"] == r0["train"][label]["losses"]
                   and all(map(math.isfinite, run["losses"])),
                   f"[sharding] rank {r} {label}: losses {run['losses']}")
@@ -5009,7 +5115,9 @@ def sharding_phase():
                                    for r in ranks] for label in r0["train"]},
               "memory": mem, "serve": r0["serve"],
               "dryrun": dry, "gloo_cuda": r0["gloo_cuda"],
-              "loss_gaps": gaps, "hardware": hw}
+              "loss_gaps": gaps, "hardware": hw, "layers": MULTI_RANK_LAYERS,
+              "start": [r["start"] for r in ranks], "spawn_s": spawn_s,
+              "dryrun_wait_s": wait_s}
     record["seconds"] = time.perf_counter() - t0
     log(f"[sharding] phase took {record['seconds']:.1f} s")
     return record
@@ -5036,12 +5144,15 @@ TP_LOCAL_TOKENS = 8
 TP_SLOTS_MESH = (1, 6)
 TP_SLOTS = (2, 3072, 2048)
 TP_SLOTS_TOKENS = 8
-# gloo calls a decode token, by design: the vocab-parallel embedding's
-# all-reduce; a layer's two norm scales gathered whole, q/k/v's
-# all-reduce, flash-decode's three (max, sum, weighted sum), the
-# row-parallel output and MLP down projections' two; the final norm's
-# gather and the logits' gather over the vocab
-TP_SLOTS_CALLS = 1 + 30 * 8 + 2
+
+
+def tp_slots_calls(layers):
+    """gloo calls a decode token on the ring's slots, by design: the
+    vocab-parallel embedding's all-reduce; a layer's two norm scales
+    gathered whole, q/k/v's all-reduce, flash-decode's three (max, sum,
+    weighted sum), the row-parallel output and MLP down projections' two;
+    the final norm's gather and the logits' gather over the vocab."""
+    return 1 + layers * 8 + 2
 
 
 def tp_label(strategy, fsdp):
@@ -5050,7 +5161,7 @@ def tp_label(strategy, fsdp):
 
 def tp_dryruns():
     """The ``baseline`` dry-run (fake process group, meta tensors) of each
-    train run of the phase on its (2, 2) mesh, at its shape."""
+    train run of the phase on its (2, 2) mesh, at its shape and depth."""
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
@@ -5059,7 +5170,7 @@ def tp_dryruns():
     out = {tp_label(s, f): dryrun.dryrun_one(
         LM_ARCH, shape.name, strategy=s, fsdp=f, profile="baseline",
         save=False, mesh=make_mesh(TP_MESH, ("data", "model")),
-        input_shape=shape) for s, f in TP_RUNS}
+        config=multi_rank_config(), input_shape=shape) for s, f in TP_RUNS}
     return {"runs": out, "families": tp_family_dryruns(),
             "seconds": time.perf_counter() - t0}
 
@@ -5081,23 +5192,25 @@ def tp_gloo_check(dev):
 
 
 def tp_train(dev, strategy, fsdp, batches):
-    """``SHARD_STEPS`` steps of full-width SmolLM on the (2, 2) mesh from
-    seed 0's weights: losses, the first step's collectives, launches, step
-    times, peak memory and the parameters a rank holds."""
+    """``SHARD_STEPS`` steps of full-width SmolLM at ``MULTI_RANK_LAYERS``
+    on the (2, 2) mesh from seed 0's weights: losses, the first step's
+    collectives, launches, build and step times, peak memory and the
+    parameters a rank holds."""
     import torch
     from repro_torch import optim
-    from repro_torch.configs.base import get_config
     from repro_torch.core import build_train_step, get_strategy
     from repro_torch.costmodel.collectives import record_collectives, stats
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
-    model = build_model(get_config(LM_ARCH), use_kernel=True, device=dev)
+    t0 = time.perf_counter()
+    model = build_model(multi_rank_config(), use_kernel=True, device=dev)
     ts = build_train_step(model, optim.adamw(LM_LR, use_fused=True),
                           get_strategy(strategy),
                           make_mesh(TP_MESH, ("data", "model")),
                           model_axis="model", fsdp=fsdp)
     state = ts.init_state()
     torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     reset_lm_launches()
     losses, ms, coll = [], [], None
@@ -5113,7 +5226,7 @@ def tp_train(dev, strategy, fsdp, batches):
             coll = {"bytes_by_kind": st.bytes_by_kind, "counts": st.counts,
                     "wire_bytes": st.wire_bytes}
     return {"losses": losses, "step_ms": ms, "collectives": coll,
-            "launches": lm_launches(),
+            "launches": lm_launches(), "build_s": build_s,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
             "local_params": sum(p.numel() for p in state["params"])}
 
@@ -5135,25 +5248,22 @@ def tp_greedy(dev, prefill, decode, tokens, prompt_len, n, V):
     return torch.cat(out, dim=1).cpu(), ms
 
 
-def tp_serve(dev, dtype, mesh_shape, B, cache_len, prompt_len, n,
-             layers=None):
+def tp_serve(dev, dtype, mesh_shape, B, cache_len, prompt_len, n):
     """Greedy decoding of ``n`` tokens over the mesh and, on this rank
-    alone, of the same prompts (its rows of both), SmolLM at ``layers``
-    (None: all 30); ms a decode step of each; the query heads kernel 8
-    saw a launch in the mesh's prefill; the collectives each decode step
-    over the mesh issued."""
+    alone, of the same prompts (its rows of both), full-width SmolLM at
+    ``MULTI_RANK_LAYERS``; ms a decode step of each; the query heads
+    kernel 8 saw a launch in the mesh's prefill; the collectives each
+    decode step over the mesh issued; the call's seconds."""
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch.configs.base import get_config
     from repro_torch.core import build_serve_step
     from repro_torch.costmodel.collectives import record_collectives, stats
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=dtype)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(multi_rank_config(), dtype=dtype)
     model = build_model(cfg, use_kernel=True, device=dev)
     heads = []
 
@@ -5193,23 +5303,19 @@ def tp_serve(dev, dtype, mesh_shape, B, cache_len, prompt_len, n,
             "launches": launches, "prefill_heads": prefill_heads,
             "cache_shape": cache_shape,
             "calls_per_token": [sum(c.values()) for c in calls],
-            "call_kinds": calls[0] if calls else None}
+            "call_kinds": calls[0] if calls else None,
+            "seconds": time.perf_counter() - t0}
 
 
-def tp_rank(rank, init, out_dir):
+def tp_rank(rank, init, out_dir, t_spawn):
     """One rank of the phase's (2, 2) mesh."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs.base import get_config
     from repro_torch.data import lm_batches, token_stream
     from repro_torch.launch.mesh import make_mesh, mesh_groups
-    from repro_torch.launch.train import _rank_device, backend_for
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = _rank_device("cuda", rank)
-    rec = {}
-    dist.init_process_group(backend_for(dev, TP_RANKS), init_method=init,
-                            rank=rank, world_size=TP_RANKS)
+    dev, clock = start_rank(rank, TP_RANKS, init, t_spawn)
+    rec = {"start": clock}
     rec["backend"] = dist.get_backend()
     rec["gloo_cuda"] = tp_gloo_check(dev)
     cfg = get_config(LM_ARCH)
@@ -5232,7 +5338,7 @@ def tp_rank(rank, init, out_dir):
     rec["serve"] = {}
     for dtype in ("float32", "bfloat16"):
         rec["serve"][dtype] = tp_serve(dev, dtype, TP_MESH, *TP_SERVE,
-                                       TP_TOKENS, SHARD_SERVE_LAYERS)
+                                       TP_TOKENS)
         free_device_memory()
     # the head-local case on ranks 0-2; rank 3 takes part in making the
     # mesh's groups (``dist.new_group`` is collective) and waits
@@ -5240,32 +5346,27 @@ def tp_rank(rank, init, out_dir):
     runs = (("float32", TP_LOCAL_TOKENS), ("bfloat16", 0))
     if rank < local.size:
         rec["head_local"] = {
-            dtype: tp_serve(dev, dtype, TP_LOCAL_MESH, *TP_LOCAL, n,
-                            SHARD_SERVE_LAYERS) for dtype, n in runs}
+            dtype: tp_serve(dev, dtype, TP_LOCAL_MESH, *TP_LOCAL, n)
+            for dtype, n in runs}
     else:
         for _ in runs:
             for axes in (("data",), ("model",)):
                 mesh_groups(local, axes)
     free_device_memory()
+    t0 = time.perf_counter()
     rec["families"] = tp_family_runs(rank, dev)
+    rec["families_s"] = time.perf_counter() - t0
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
     dist.barrier()
     dist.destroy_process_group()
 
 
-def tp_slots_rank(rank, init, out_dir):
-    """One rank of the (1, 6) mesh, SmolLM's ring on its slots: fp32 and
-    bf16 serving."""
-    import torch
+def tp_slots_rank(rank, init, out_dir, t_spawn):
+    """One rank of the (1, 6) mesh, SmolLM's ring on its slots at
+    ``MULTI_RANK_LAYERS``: fp32 and bf16 serving."""
     import torch.distributed as dist
-    from repro_torch.launch.train import _rank_device, backend_for
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = _rank_device("cuda", rank)
-    world = math.prod(TP_SLOTS_MESH)
-    dist.init_process_group(backend_for(dev, world), init_method=init,
-                            rank=rank, world_size=world)
-    rec = {"backend": dist.get_backend()}
+    dev, clock = start_rank(rank, math.prod(TP_SLOTS_MESH), init, t_spawn)
+    rec = {"backend": dist.get_backend(), "start": clock}
     for dtype in ("float32", "bfloat16"):
         rec[dtype] = tp_serve(dev, dtype, TP_SLOTS_MESH, *TP_SLOTS,
                               TP_SLOTS_TOKENS)
@@ -5795,24 +5896,28 @@ def tp_phase(shard):
     child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
                               "--tp-dryrun", dry_path])
     try:
+        t_spawn = time.time()
         spawn_ranks(
             tp_rank, args=("file://" + os.path.join(out_dir, "pg"),
-                           out_dir), nprocs=TP_RANKS)
+                           out_dir, t_spawn), nprocs=TP_RANKS)
+        spawn_s = time.time() - t_spawn
         ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
                  for r in range(TP_RANKS)]
         local = [r["head_local"] for r in ranks if "head_local" in r]
         check(len(local) == math.prod(TP_LOCAL_MESH),
               f"[tp] head-local ranks {len(local)}")
         n_slots = math.prod(TP_SLOTS_MESH)
-        t1 = time.perf_counter()
+        t_slots = time.time()
         spawn_ranks(
             tp_slots_rank, args=("file://" + os.path.join(out_dir,
                                                           "pg_slots"),
-                                 out_dir), nprocs=n_slots)
-        slots_s = time.perf_counter() - t1
+                                 out_dir, t_slots), nprocs=n_slots)
+        slots_s = time.time() - t_slots
         slots = [json.loads(Path(out_dir, f"slots{r}.json").read_text())
                  for r in range(n_slots)]
+        t_wait = time.time()
         check(child.wait(timeout=300) == 0, "[tp] the dry-run failed")
+        wait_s = time.time() - t_wait
         dry = json.loads(Path(dry_path).read_text())
     finally:
         if child.poll() is None:
@@ -5822,7 +5927,8 @@ def tp_phase(shard):
     r0 = ranks[0]
     base = shard["train"]["allreduce/dp"]
     base_peak = max(shard["memory"]["allreduce/dp"]["peak_mem_bytes"])
-    log(f"[tp] {LM_ARCH} full width, bf16, {TP_RANKS} ranks sharing the "
+    log(f"[tp] {LM_ARCH} full width, {MULTI_RANK_LAYERS} layers, bf16, "
+        f"{TP_RANKS} ranks sharing the "
         f"card over {r0['backend']} on a {TP_MESH} (data, model) mesh, "
         f"global batch {SHARD_BATCH} x seq {SHARD_SEQ}, {SHARD_STEPS} steps "
         f"a run; gloo bf16 on CUDA tensors: "
@@ -5857,6 +5963,7 @@ def tp_phase(shard):
 
     log(f"[tp] slots {TP_SLOTS_MESH}: the spawn of {len(slots)} ranks took "
         f"{slots_s:.1f} s")
+    slots_calls = tp_slots_calls(MULTI_RANK_LAYERS)
     for dtype in ("float32", "bfloat16"):
         res = slots[0][dtype]
         log(f"[tp] slots {TP_SLOTS_MESH} {dtype}, {len(slots)} ranks over "
@@ -5864,10 +5971,25 @@ def tp_phase(shard):
             f"{TP_SLOTS[1]}, prompt {TP_SLOTS[2]}: kernel 8 heads (q, kv) "
             f"{res['prefill_heads']}, cache leaf a rank {res['cache_shape']}"
             f", launches {res['launches']}, gloo calls a token "
-            f"{res['calls_per_token']} (by design {TP_SLOTS_CALLS}; kinds "
+            f"{res['calls_per_token']} (by design {slots_calls}; kinds "
             f"{res['call_kinds']}), tokens equal "
             f"{[r[dtype]['equal'] for r in slots]}, ms a token "
             f"{res['ms_per_token']} ({res['one_rank_ms_per_token']} on one)")
+    budget_spawn(f"tp {TP_MESH}", [r["start"] for r in ranks], spawn_s)
+    for label, run in r0["train"].items():
+        budget_train(f"tp train {label}", run)
+    log(f"[budget] tp serve (rank 0): {TP_MESH} "
+        f"{ {k: round(v['seconds'], 1) for k, v in r0['serve'].items()} } s, "
+        f"{TP_LOCAL_MESH} "
+        f"{ {k: round(v['seconds'], 1) for k, v in local[0].items()} } s; "
+        f"the families {r0['families_s']:.1f} s")
+    budget_spawn(f"tp slots {TP_SLOTS_MESH}", [r["start"] for r in slots],
+                 slots_s)
+    slot_s = {k: round(slots[0][k]["seconds"], 1)
+              for k in ("float32", "bfloat16")}
+    log(f"[budget] tp slots serve (rank 0): {slot_s} s")
+    log(f"[budget] tp dry-run child: {dry['seconds']:.1f} s of dry-runs "
+        f"beside the ranks; waited {wait_s:.1f} s for it after them")
 
     gaps = {}
     for r, res in enumerate(ranks):
@@ -5875,9 +5997,9 @@ def tp_phase(shard):
               f"[tp] rank {r}: gloo on CUDA tensors {res['gloo_cuda']}")
         for label, run in res["train"].items():
             strategy = label.split("/")[0]
-            check(run["launches"] == shard_expected(strategy),
-                  f"[tp] rank {r} {label}: launches {run['launches']}, "
-                  f"expected {shard_expected(strategy)}")
+            want = shard_expected(strategy, MULTI_RANK_LAYERS)
+            check(run["launches"] == want, f"[tp] rank {r} {label}: "
+                  f"launches {run['launches']}, expected {want}")
             check(run["losses"] == r0["train"][label]["losses"]
                   and all(map(math.isfinite, run["losses"])),
                   f"[tp] rank {r} {label}: losses {run['losses']}")
@@ -5893,7 +6015,7 @@ def tp_phase(shard):
             if dtype == "float32":
                 check(sres["equal"], f"[tp] rank {r} serve: {sres['tokens']}"
                       f" against one rank's {sres['one_rank_tokens']}")
-            check_attention_route(sres["launches"], SHARD_SERVE_LAYERS,
+            check_attention_route(sres["launches"], MULTI_RANK_LAYERS,
                                   dtype, f"[tp] rank {r} serve {dtype}")
             # 9 heads do not divide over 2: every head on every rank
             check(sres["prefill_heads"] == [[9, 3]],
@@ -5913,7 +6035,7 @@ def tp_phase(shard):
             check(sres["prefill_heads"] == [[3, 1]],
                   f"[tp] head-local rank {r} {dtype}: heads "
                   f"{sres['prefill_heads']}")
-            check_attention_route(sres["launches"], SHARD_SERVE_LAYERS,
+            check_attention_route(sres["launches"], MULTI_RANK_LAYERS,
                                   dtype, f"[tp] head-local rank {r} {dtype}")
     for r, res in enumerate(slots):
         check(res["float32"]["equal"], f"[tp] slots rank {r}: "
@@ -5925,16 +6047,17 @@ def tp_phase(shard):
             check(sres["prefill_heads"] == [[9, 3]],
                   f"[tp] slots rank {r} {dtype}: heads "
                   f"{sres['prefill_heads']}")
-            check_attention_route(sres["launches"], 30, dtype,
+            check_attention_route(sres["launches"], MULTI_RANK_LAYERS, dtype,
                                   f"[tp] slots rank {r} {dtype}")
-            check(sres["cache_shape"] == [30, TP_SLOTS[0], TP_SLOTS[1]
-                                          // math.prod(TP_SLOTS_MESH), 3, 64],
+            check(sres["cache_shape"] == [MULTI_RANK_LAYERS, TP_SLOTS[0],
+                                          TP_SLOTS[1] // math.prod(
+                                              TP_SLOTS_MESH), 3, 64],
                   f"[tp] slots rank {r} {dtype}: cache leaf "
                   f"{sres['cache_shape']}")
-            check(sres["calls_per_token"] == [TP_SLOTS_CALLS]
+            check(sres["calls_per_token"] == [slots_calls]
                   * TP_SLOTS_TOKENS, f"[tp] slots rank {r} {dtype}: gloo "
                   f"calls a token {sres['calls_per_token']}, by design "
-                  f"{TP_SLOTS_CALLS}")
+                  f"{slots_calls}")
     log(f"[tp] allreduce losses within {LM_STEP_RTOL} of the replicated "
         f"run's (gaps {gaps}); collective bytes and counts equal the "
         "baseline dry-run's; peak memory a rank below the replicated run's; "
@@ -5954,7 +6077,11 @@ def tp_phase(shard):
               "slots": slots[0], "slots_seconds": slots_s,
               "slots_launches": {dtype: [r[dtype]["launches"] for r in slots]
                                  for dtype in ("float32", "bfloat16")},
-              "gloo_cuda": r0["gloo_cuda"], "families": families}
+              "gloo_cuda": r0["gloo_cuda"], "families": families,
+              "layers": MULTI_RANK_LAYERS, "spawn_s": spawn_s,
+              "start": [r["start"] for r in ranks],
+              "slots_start": [r["start"] for r in slots],
+              "dryrun_wait_s": wait_s}
     record["seconds"] = time.perf_counter() - t0
     log(f"[tp] phase took {record['seconds']:.1f} s")
     return record
@@ -6111,8 +6238,8 @@ def main(argv):
             "launches": {label: [r[key] for r in ranks]
                          for label, ranks in res["launches"].items()},
             "run": f"resilience phase: {LM_ARCH} full width, "
-                   f"{RES_RANKS} ranks sharing the card, one list entry a "
-                   "rank, each run's launches"}
+                   f"{MULTI_RANK_LAYERS} layers, {RES_RANKS} ranks sharing "
+                   "the card, one list entry a rank, each run's launches"}
     attention["resilience"]["wgmma_launches"] = {
         label: [r["swa_attention_fwd_wgmma"] for r in ranks]
         for label, ranks in res["launches"].items()}
@@ -6122,9 +6249,9 @@ def main(argv):
     torch.cuda.empty_cache()
     shard = sharding_phase()
     print(json.dumps({"sharding": shard}))
-    run = (f"sharding phase: {LM_ARCH} full width, {SHARD_RANKS} ranks "
-           f"sharing the card, {SHARD_STEPS} steps a run, one list entry a "
-           "rank")
+    run = (f"sharding phase: {LM_ARCH} full width, {MULTI_RANK_LAYERS} "
+           f"layers, {SHARD_RANKS} ranks sharing the card, {SHARD_STEPS} "
+           "steps a run, one list entry a rank")
     for entry, keys in ((adamw, ("fused_adamw_flat",)),
                         (attention, ("swa_attention_fwd",
                                      "swa_attention_fwd_wgmma",
@@ -6140,9 +6267,9 @@ def main(argv):
     free_device_memory()
     tp = tp_phase(shard)
     print(json.dumps({"tp": tp}))
-    run = (f"tp phase: {LM_ARCH} full width on a {TP_MESH} (data, model) "
-           f"mesh, {TP_RANKS} ranks sharing the card, {SHARD_STEPS} steps a "
-           "run, one list entry a rank")
+    run = (f"tp phase: {LM_ARCH} full width, {MULTI_RANK_LAYERS} layers, "
+           f"on a {TP_MESH} (data, model) mesh, {TP_RANKS} ranks sharing "
+           f"the card, {SHARD_STEPS} steps a run, one list entry a rank")
     for entry, keys in ((adamw, ("fused_adamw_flat",)),
                         (attention, ("swa_attention_fwd",
                                      "swa_attention_fwd_wgmma",
@@ -6161,11 +6288,11 @@ def main(argv):
                                                 "swa_attention_fwd_tf32")}
                              for r in ranks]
                      for dtype, ranks in tp["slots_launches"].items()},
-        "run": f"tp phase: {LM_ARCH} full width on a {TP_SLOTS_MESH} (data, "
-               f"model) mesh, the ring on its slots, "
-               f"{math.prod(TP_SLOTS_MESH)} ranks sharing the card, one "
-               f"prefill of batch {TP_SLOTS[0]} x {TP_SLOTS[2]} a dtype, one "
-               "list entry a rank"}
+        "run": f"tp phase: {LM_ARCH} full width, {MULTI_RANK_LAYERS} "
+               f"layers, on a {TP_SLOTS_MESH} (data, model) mesh, the ring "
+               f"on its slots, {math.prod(TP_SLOTS_MESH)} ranks sharing the "
+               f"card, one prefill of batch {TP_SLOTS[0]} x {TP_SLOTS[2]} a "
+               "dtype, one list entry a rank"}
     # the other families on the TP path: each kernel's launches a rank in
     # each train run, and its first call there against its plain version
     run = (f"tp phase, families: full width, depth cut, on a {TP_MESH} "
